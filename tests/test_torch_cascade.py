@@ -1,0 +1,131 @@
+"""tpu_face_torch.pipeline.FaceCascade on the CPU against the JAX
+package and the rotated-frame ground truth.
+
+* Against ``tpu_face.pipeline.FaceCascade(warp_method="gather")`` on the
+  four 540p rotated frames and the 704x704 close-up, field by field:
+  equal bools; landmarks, detection points and ROI centres/sizes within
+  0.25 px; rotations within 1e-3 rad; scores within 1e-3.
+* Against the ground-truth rows of tests/test_rotation_e2e.py on all
+  seven rotated frames (including the two 200x225 portraits that take
+  the two-stage letterbox): bbox IoU >= 0.99, landmarks <= 1 px.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from test_rotation_e2e import FRAMES_540, GT, GT_PORTRAIT, ROT, _check_cascade
+from tpu_face.pipeline import FaceCascade as JaxFaceCascade
+from tpu_face_torch.pipeline import FaceCascade
+from tpu_face_torch.utils.image_io import load_image
+
+PX_TOL = 0.25
+ROT_TOL = 1e-3
+SCORE_TOL = 1e-3
+JAX_FRAMES = FRAMES_540 + ["man_closeup_rotp30.png"]
+
+
+@pytest.fixture(scope="module")
+def cascade():
+    return FaceCascade(device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_cascade():
+    return JaxFaceCascade(warp_method="gather")
+
+
+def _frame(name):
+    return load_image(ROT / name)
+
+
+def _compare(res, ref, size):
+    """Port result vs JAX result for the same batch, field by field."""
+    w, h = size
+    assert res._fields == ref._fields
+    for f in res._fields:
+        a = getattr(res, f).numpy()
+        b = np.asarray(getattr(ref, f))
+        assert a.shape == b.shape, (f, a.shape, b.shape)
+        if a.dtype == bool:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    px = np.array([w, h, w], np.float32)
+    for f in ("mesh", "mesh_raw", "iris"):
+        d = np.abs(getattr(res, f).numpy() - np.asarray(getattr(ref, f)))
+        assert (d * px).max() <= PX_TOL, (f, (d * px).max())
+    d = np.abs(res.detection.numpy() - np.asarray(ref.detection))
+    assert (d * px[:2]).max() <= PX_TOL
+    for f in ("face_roi", "eye_rois"):
+        d = np.abs(getattr(res, f).numpy() - np.asarray(getattr(ref, f)))
+        scale = np.array([w, h, w, h], np.float32)
+        assert (d[..., :4] * scale).max() <= PX_TOL, f
+        assert d[..., 4].max() <= ROT_TOL, f
+    for f in ("score", "mesh_score"):
+        d = np.abs(getattr(res, f).numpy() - np.asarray(getattr(ref, f)))
+        assert d.max() <= SCORE_TOL, f
+
+
+@pytest.mark.parametrize("name", JAX_FRAMES)
+def test_cascade_matches_jax_gather(cascade, jax_cascade, name):
+    img = _frame(name)[None]
+    res = cascade.infer_batch(img)
+    _compare(res, jax_cascade.infer_batch(img), GT[name]["size"])
+
+
+@pytest.mark.parametrize("name", JAX_FRAMES + sorted(GT_PORTRAIT))
+def test_cascade_matches_ground_truth(cascade, name):
+    gt = GT.get(name) or GT_PORTRAIT[name]
+    _check_cascade(cascade.infer_batch(_frame(name)[None]), gt)
+
+
+def test_batch_matches_single_frames(cascade):
+    """The explicit batch dimension: four 540p frames in one call give
+    the per-frame results."""
+    batch = np.stack([_frame(n) for n in FRAMES_540])
+    res = cascade.infer_batch(batch)
+    for i, name in enumerate(FRAMES_540):
+        one = cascade.infer_batch(batch[i])
+        for f in res._fields:
+            a, b = getattr(res, f)[i], getattr(one, f)[0]
+            if a.dtype == torch.bool:
+                assert torch.equal(a, b), (name, f)
+            else:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_planar_layout_matches_hwc(cascade):
+    batch = np.stack([_frame(n) for n in FRAMES_540[:2]])
+    planar = FaceCascade(device="cpu", input_layout="planar")
+    a = cascade.infer_batch(batch)
+    b = planar.infer_batch(np.ascontiguousarray(batch.transpose(0, 3, 1, 2)))
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_default_device_is_the_card():
+    """FaceCascade() runs on CUDA; with no card it raises instead of
+    falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert FaceCascade().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            FaceCascade()
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        FaceCascade(device="cpu", max_faces=2)
+    with pytest.raises(NotImplementedError):
+        FaceCascade(device="cpu", compute_dtype=torch.bfloat16)
+
+
+def test_chip_smoke_ground_truth_matches_tests():
+    """chip_smoke.py carries its own copy of the ground truth (it must
+    not import the JAX tests); the copy must not drift."""
+    rows = {**GT, **GT_PORTRAIT}
+    assert set(chip_smoke.GT) == set(rows)
+    for name, row in chip_smoke.GT.items():
+        for key, value in row.items():
+            assert value == rows[name][key], (name, key)
+    assert set(chip_smoke.FRAMES_540) == set(FRAMES_540)

@@ -1,0 +1,275 @@
+"""Lower a converted TFLite graph (npz) to a batched PyTorch module.
+
+Counterpart of tpu_face/compiler/lowering.py for the nine ops the
+cascade's three nets use (back detector, face mesh, iris): CONV_2D,
+DEPTHWISE_CONV_2D, ADD, RELU, PRELU, MAX_POOL_2D, PAD, RESHAPE and
+CONCATENATION.  Any other op raises ``NotImplementedError``.
+
+The graphs are NHWC; the module's body runs NCHW (cuDNN's native
+layout) and keeps the graph's NHWC semantics at its edges: input and
+outputs are NHWC, PAD specs are reordered, and RESHAPE/CONCATENATION,
+whose shapes and axes refer to NHWC, see NHWC tensors.  TFLite "SAME"
+padding is asymmetric for even windows (the extra row/column goes
+bottom/right), so it is computed per layer and applied with ``F.pad``
+where the two sides differ.
+"""
+
+import json
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_SUPPORTED = ("CONV_2D", "DEPTHWISE_CONV_2D", "ADD", "RELU", "PRELU",
+              "MAX_POOL_2D", "PAD", "RESHAPE", "CONCATENATION")
+
+# NHWC axis -> NCHW axis
+_TO_NCHW_AXIS = {0: 0, 1: 2, 2: 3, 3: 1}
+
+
+class Graph:
+    """A converted TFLite graph: op list + constant pool (numpy)."""
+
+    def __init__(self, npz_path):
+        payload = np.load(npz_path, allow_pickle=False)
+        meta = json.loads(str(payload["__graph__"]))
+        self.inputs = meta["inputs"]
+        self.outputs = meta["outputs"]
+        self.tensors = meta["tensors"]
+        self.consts = {int(k[1:]): payload[k] for k in payload.files
+                       if k.startswith("t")}
+        self.ops = _fold_pads_into_convs(meta["ops"], self.consts,
+                                         set(self.outputs))
+
+    @property
+    def input_shape(self):
+        return tuple(self.tensors[self.inputs[0]]["shape"])
+
+    @property
+    def output_shapes(self):
+        return [tuple(self.tensors[i]["shape"]) for i in self.outputs]
+
+
+def _fold_pads_into_convs(ops, consts, graph_outputs):
+    """Fold PAD ops into the convolutions that consume them.
+
+    Zero-pad + VALID conv == conv with explicit edge padding, so the pad
+    becomes a conv attribute ``[(top, bottom), (left, right)]``.  Folds
+    only when every consumer is a CONV/DW with VALID padding and the pad
+    touches spatial dims alone; MAX_POOL is NOT foldable (its identity
+    is -inf, not 0)."""
+    consumers = {}
+    for node in ops:
+        for i in node["inputs"]:
+            consumers.setdefault(i, []).append(node)
+
+    def spatial_pad(node):
+        if node["op"] != "PAD" or node["inputs"][1] not in consts:
+            return None
+        p = np.asarray(consts[node["inputs"][1]])
+        if p.shape != (4, 2) or p[0].any() or p[3].any():
+            return None
+        return [(int(p[1][0]), int(p[1][1])),
+                (int(p[2][0]), int(p[2][1]))]
+
+    folded = []
+    for node in ops:
+        pad = spatial_pad(node)
+        out = node["outputs"][0] if node["outputs"] else None
+        users = consumers.get(out, [])
+        if (pad is not None and out not in graph_outputs and users
+                and all(u["op"] in ("CONV_2D", "DEPTHWISE_CONV_2D")
+                        and u["options"]["padding"] == "VALID"
+                        and u["inputs"][0] == out for u in users)):
+            for u in users:
+                u["inputs"] = [node["inputs"][0]] + u["inputs"][1:]
+                u["options"] = dict(u["options"], padding=pad)
+            continue
+        folded.append(node)
+    return folded
+
+
+def params_from_consts(ops, consts):
+    """The graph's float constants as the module's tensors, keyed
+    ``"t<id>"``: conv weights OHWI -> OIHW, depthwise ``[1, kh, kw, C]``
+    -> ``[C, 1, kh, kw]`` (``groups=C``), PReLU alpha -> ``[1, C, 1, 1]``,
+    biases as they are.  f16 constants are upcast to f32, as
+    ``tpu_face.compiler.build_jax_fn`` does.  Integer constants (PAD
+    specs, shapes) stay numpy: the module reads them as static values."""
+
+    def f32(i):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(consts[i]).astype(np.float32)))
+
+    params = {}
+    for node in ops:
+        op, ins = node["op"], node["inputs"]
+        if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            w = f32(ins[1])
+            params[f"t{ins[1]}"] = (w.permute(0, 3, 1, 2) if op == "CONV_2D"
+                                    else w.permute(3, 0, 1, 2)).contiguous()
+            if len(ins) > 2 and ins[2] >= 0:
+                params[f"t{ins[2]}"] = f32(ins[2])
+        elif op == "PRELU":
+            params[f"t{ins[1]}"] = f32(ins[1]).reshape(1, -1, 1, 1)
+        elif op in ("ADD", "CONCATENATION") and any(i in consts
+                                                    for i in ins):
+            raise NotImplementedError(f"{op} with a constant operand")
+    return params
+
+
+def _act(x, kind):
+    if kind == "NONE":
+        return x
+    if kind == "RELU":
+        return torch.relu(x)
+    if kind == "RELU6":
+        return torch.clamp(x, 0.0, 6.0)
+    if kind == "RELU_N1_TO_1":
+        return torch.clamp(x, -1.0, 1.0)
+    if kind == "TANH":
+        return torch.tanh(x)
+    raise NotImplementedError(f"activation {kind}")
+
+
+def _prelu(x, alpha):
+    """Per-channel PReLU in the JAX package's form, max + alpha*min."""
+    return torch.clamp(x, min=0) + alpha * torch.clamp(x, max=0)
+
+
+def _same_pads(size, k, stride, dilation):
+    """TFLite/XLA "SAME": ceil(size/stride) outputs, the odd padding
+    row/column on the high side."""
+    out = math.ceil(size / stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _window_pads(padding, hw, kernel, stride, dilation):
+    """((top, bottom), (left, right)) for a VALID / SAME / folded-list
+    padding option."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding == "SAME":
+        return tuple(_same_pads(hw[d], kernel[d], stride[d], dilation[d])
+                     for d in range(2))
+    return tuple(tuple(p) for p in padding)
+
+
+class TFLiteNet(nn.Module):
+    """``forward(x: [B, H, W, C]) -> tuple(outputs)`` of a TFLite graph,
+    batched over the leading axis, outputs in the graph's own NHWC
+    shapes with the batch in place of the graph's leading 1.
+
+    ``params`` defaults to ``params_from_consts(graph.ops,
+    graph.consts)``; the weights are buffers, so ``.to(device)`` moves
+    them."""
+
+    def __init__(self, graph, params=None):
+        super().__init__()
+        for node in graph.ops:
+            if node["op"] not in _SUPPORTED:
+                raise NotImplementedError(f"op {node['op']}")
+        if params is None:
+            params = params_from_consts(graph.ops, graph.consts)
+        for name, value in params.items():
+            self.register_buffer(name, value)
+        self.ops = graph.ops
+        self.consts = graph.consts
+        self.inputs = graph.inputs
+        self.outputs = graph.outputs
+
+    def _conv(self, x, node, depthwise):
+        o, ins = node["options"], node["inputs"]
+        w = getattr(self, f"t{ins[1]}")
+        b = (getattr(self, f"t{ins[2]}")
+             if len(ins) > 2 and ins[2] >= 0 else None)
+        stride = tuple(o["stride"])
+        dilation = tuple(o.get("dilation", (1, 1)))
+        (pt, pb), (pl, pr) = _window_pads(o["padding"], x.shape[2:],
+                                          w.shape[2:], stride, dilation)
+        if pt == pb and pl == pr:
+            pad = (pt, pl)
+        else:
+            x = F.pad(x, (pl, pr, pt, pb))
+            pad = (0, 0)
+        y = F.conv2d(x, w, b, stride=stride, padding=pad,
+                     dilation=dilation,
+                     groups=x.shape[1] if depthwise else 1)
+        return _act(y, o["activation"])
+
+    @staticmethod
+    def _max_pool(x, o):
+        fh, fw = o["filter"]
+        stride = tuple(o["stride"])
+        (pt, pb), (pl, pr) = _window_pads(o["padding"], x.shape[2:],
+                                          (fh, fw), stride, (1, 1))
+        if pt or pb or pl or pr:
+            x = F.pad(x, (pl, pr, pt, pb), value=-math.inf)
+        return _act(F.max_pool2d(x, (fh, fw), stride), o["activation"])
+
+    def forward(self, x):
+        batch = x.shape[0]
+        # env holds 4-D activations NCHW (ids in `nchw`), anything else
+        # in the graph's own layout
+        env = {self.inputs[0]: x.permute(0, 3, 1, 2)}
+        nchw = {self.inputs[0]}
+
+        def nhwc(i):
+            v = env[i]
+            return v.permute(0, 2, 3, 1) if i in nchw else v
+
+        for node in self.ops:
+            op, ins, o = node["op"], node["inputs"], node["options"]
+            layout_nchw = all(i in nchw for i in ins if i in env)
+            if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+                y = self._conv(env[ins[0]], node,
+                               op == "DEPTHWISE_CONV_2D")
+            elif op == "MAX_POOL_2D":
+                y = self._max_pool(env[ins[0]], o)
+            elif op == "ADD":
+                a, b = ((env[ins[0]], env[ins[1]]) if layout_nchw
+                        else (nhwc(ins[0]), nhwc(ins[1])))
+                y = _act(a + b, o["activation"])
+            elif op == "RELU":
+                y = torch.relu(env[ins[0]])
+            elif op == "PRELU":
+                y = _prelu(env[ins[0]], getattr(self, f"t{ins[1]}"))
+            elif op == "PAD":
+                p = np.asarray(self.consts[ins[1]]).tolist()
+                # F.pad takes (lo, hi) pairs last dim first; the spec
+                # is NHWC, the body NCHW
+                order = ((2, 1, 3, 0) if layout_nchw
+                         else range(len(p) - 1, -1, -1))
+                y = F.pad(env[ins[0]], [v for d in order for v in p[d]])
+            elif op == "RESHAPE":
+                tgt = list(o.get("new_shape")
+                           or np.asarray(self.consts[ins[1]]).tolist())
+                if tgt and tgt[0] == 1:
+                    tgt[0] = batch
+                y = nhwc(ins[0]).reshape(tgt)
+                layout_nchw = y.dim() == 4
+                if layout_nchw:
+                    y = y.permute(0, 3, 1, 2)
+            elif op == "CONCATENATION":
+                axis = o["axis"] % env[ins[0]].dim()
+                if layout_nchw:
+                    y = torch.cat([env[i] for i in ins],
+                                  dim=_TO_NCHW_AXIS[axis])
+                else:
+                    y = torch.cat([nhwc(i) for i in ins], dim=axis)
+                y = _act(y, o["activation"])
+            else:
+                raise NotImplementedError(f"op {op}")
+            env[node["outputs"][0]] = y
+            if layout_nchw:
+                nchw.add(node["outputs"][0])
+
+        return tuple(nhwc(i).contiguous().float() for i in self.outputs)
+
+
+def build_torch_fn(graph, device=None):
+    """The graph as a ``TFLiteNet`` in eval mode on ``device``."""
+    return TFLiteNet(graph).to(device).eval()

@@ -1,0 +1,280 @@
+"""Image preprocessing of the cascade (counterpart of tpu_face/ops/image.py).
+
+The reference's ``image_to_tensor`` chain (warp_perspective ->
+copy_make_border -> resize -> resize -> normalize, transform.rs:188-309)
+composes into ONE affine map, so every warp is one bilinear sample of
+the source frame plus a fused normalize.  Letterbox padding is pure
+math: the pad region maps outside the frame and reads zeros.
+
+Functions take an optional leading batch: ROI tensors ``[..., 5]`` give
+coordinate grids ``[..., Ho, Wo]``, and per-frame scalars broadcast over
+the grid.  All arithmetic is f32 in the JAX package's order, so the two
+packages agree to rounding.
+"""
+
+from typing import Tuple
+
+import torch
+
+
+def bilinear_sample(image, xs, ys):
+    """Bilinear sample with constant-zero border.
+
+    image: [..., H, W, C] float; xs/ys: [..., Ho, Wo] source pixel
+    coordinates with the same leading dims.  Returns [..., Ho, Wo, C]."""
+    h, w, c = image.shape[-3:]
+    lead = xs.shape[:-2]
+    x0f = torch.floor(xs)
+    y0f = torch.floor(ys)
+    dx = (xs - x0f)[..., None]
+    dy = (ys - y0f)[..., None]
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    flat = image.reshape(*lead, h * w, c)
+
+    def tap(yi, xi):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        lin = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        lin = lin.reshape(*lead, -1, 1)
+        vals = torch.gather(flat, -2, lin.expand(*lin.shape[:-1], c))
+        return torch.where(valid[..., None], vals.reshape(*xs.shape, c),
+                           0.0)
+
+    top = tap(y0, x0) * (1 - dx) + tap(y0, x0 + 1) * dx
+    bot = tap(y0 + 1, x0) * (1 - dx) + tap(y0 + 1, x0 + 1) * dx
+    return top * (1 - dy) + bot * dy
+
+
+def letterbox_padding(roi_w, roi_h, out_size: Tuple[int, int]):
+    """Letterbox padding fractions + effective pixel pads
+    (transform.rs:236-257): (pad_x, pad_y, ph, pv) as f32 tensors.
+
+    Multiply-before-divide keeps integer-valued ROI dims exact in f32
+    (540x360 -> 256x256 gives pv = 90, not 89.99999 -> 89)."""
+    # integer-division aspect quirk kept from transform.rs:240
+    out_aspect = float(out_size[1] // out_size[0])
+    roi_aspect = roi_h / roi_w
+    w_i = torch.trunc(roi_w)
+    h_i = torch.trunc(roi_h)
+
+    cond = out_aspect > roi_aspect
+    pad_y = torch.where(cond, (1.0 - roi_aspect / out_aspect) / 2.0, 0.0)
+    pad_x = torch.where(cond, 0.0, (1.0 - out_aspect / roi_aspect) / 2.0)
+    new_h = torch.where(cond, torch.trunc(roi_w * out_aspect), h_i)
+    new_w = torch.where(cond, w_i, torch.trunc(roi_h / out_aspect))
+
+    changed = (new_w != w_i) | (new_h != h_i)
+    pv_exact = (new_h - (new_h * roi_h) / (roi_w * out_aspect)) / 2.0
+    ph_exact = (new_w - (new_w * out_aspect * roi_w) / roi_h) / 2.0
+    ph = torch.where(changed & ~cond, torch.trunc(ph_exact), 0.0)
+    pv = torch.where(changed & cond, torch.trunc(pv_exact), 0.0)
+    return pad_x, pad_y, ph, pv
+
+
+def letterbox_two_stage_params(image_size: Tuple[int, int],
+                               out_size: Tuple[int, int]):
+    """Whether the reference's double-resize letterbox differs from the
+    fused single resample for a WHOLE-IMAGE ROI at this geometry.
+
+    Returns None when the fused map is exact (every landscape/square
+    geometry in practice), else the static intermediate geometry
+    ``(new_w, new_h, ph, pv, pad_x, pad_y)`` for
+    ``letterbox_two_stage`` (e.g. 200x225 portraits, whose int-truncated
+    pads make the first resize non-identity).  Host-side, static ints
+    only."""
+    w, h = int(image_size[0]), int(image_size[1])
+    out_aspect = float(out_size[1] // out_size[0])  # transform.rs:240
+    roi_aspect = h / w
+    if out_aspect > roi_aspect:
+        new_w, new_h = w, int(w * out_aspect)
+        pad_x, pad_y = 0.0, (1.0 - roi_aspect / out_aspect) / 2.0
+    else:
+        new_w, new_h = int(h / out_aspect), h
+        pad_x, pad_y = (1.0 - out_aspect / roi_aspect) / 2.0, 0.0
+    if (new_w, new_h) == (w, h):
+        return None                      # no letterbox stage at all
+    ph, pv = int(pad_x * new_w), int(pad_y * new_h)
+    if (w + 2 * ph, h + 2 * pv) == (new_w, new_h):
+        return None                      # resize1 is identity -> fused
+    return (new_w, new_h, ph, pv, pad_x, pad_y)
+
+
+def _axis_grid(n_new, n_src, pad, device):
+    """Half-pixel resize coordinates of one axis: output pixel centres
+    of an ``n_new``-wide resize of the ``n_src + 2*pad`` padded source,
+    in source pixels."""
+    return ((torch.arange(n_new, dtype=torch.float32, device=device) + 0.5)
+            * (n_src + 2 * pad) / n_new - 0.5 - pad)
+
+
+def letterbox_two_stage(source, image_size: Tuple[int, int],
+                        out_size: Tuple[int, int], params,
+                        output_range: Tuple[float, float],
+                        planar: bool = False):
+    """Exact reference double-resize letterbox for the whole-image ROI
+    (transform.rs:252-280), with the intermediate uint8 quantization
+    between the two resizes; both resizes are separable hat matmuls.
+
+    ``source``: [..., H, W, 3] f32 frames, or [..., 3, H, W] channel
+    planes with ``planar=True``.  Returns (tensor [..., Ho, Wo, 3] f32,
+    padding (4,) f32)."""
+    w, h = int(image_size[0]), int(image_size[1])
+    wo, ho = out_size
+    new_w, new_h, ph, pv, pad_x, pad_y = params
+    dev = source.device
+
+    # stage 1: copy_make_border + resize to (new_w, new_h); the pad
+    # composes into the coordinate map (outside taps read zeros)
+    x1 = _axis_grid(new_w, w, ph, dev)
+    y1 = _axis_grid(new_h, h, pv, dev)
+    sx = x1[None, :].expand(new_h, new_w)
+    sy = y1[:, None].expand(new_h, new_w)
+    if planar:
+        mid = separable_sample_planar(source, sx, sy)
+    else:
+        mid = separable_sample(source.float(), sx, sy)
+    mid = torch.round(mid)
+
+    # stage 2: resize to out_size over the uint8-quantized intermediate
+    x2 = _axis_grid(wo, new_w, 0, dev)
+    y2 = _axis_grid(ho, new_h, 0, dev)
+    out = separable_sample(mid, x2[None, :].expand(ho, wo),
+                           y2[:, None].expand(ho, wo))
+    # filled on the device: a host tensor copy would sync the stream
+    padding = torch.empty(4, dtype=torch.float32, device=dev)
+    padding[0::2] = pad_x
+    padding[1::2] = pad_y
+    return _normalize_pixels(out, output_range, True), padding
+
+
+def warp_derivatives(roi_abs, out_size: Tuple[int, int],
+                     keep_aspect_ratio: bool):
+    """|d src / d out| magnitudes (dxdu, dxdv, dydu, dydv) of the
+    ``image_to_tensor`` warp map, from the same letterbox algebra as
+    ``_source_coords``."""
+    rw, rh, rot = roi_abs[..., 2], roi_abs[..., 3], roi_abs[..., 4]
+    wo, ho = out_size
+    if keep_aspect_ratio:
+        _, _, ph, pv = letterbox_padding(rw, rh, out_size)
+        w_i = torch.trunc(rw)
+        h_i = torch.trunc(rh)
+        qx_u = (w_i + 2.0 * ph) / (wo * torch.clamp(w_i, min=1.0))
+        qy_v = (h_i + 2.0 * pv) / (ho * torch.clamp(h_i, min=1.0))
+    else:
+        qx_u = torch.full_like(rw, 1.0 / wo)
+        qy_v = torch.full_like(rh, 1.0 / ho)
+    s, c = torch.sin(rot), torch.cos(rot)
+    return (torch.abs(qx_u * rw * c), torch.abs(qy_v * rh * s),
+            torch.abs(qx_u * rw * s), torch.abs(qy_v * rh * c))
+
+
+def _source_coords(roi_abs, out_size: Tuple[int, int],
+                   keep_aspect_ratio: bool, flip_horizontal):
+    """Source sampling coordinates of the ``image_to_tensor`` warp.
+
+    roi_abs: [..., 5] (cx, cy, w, h, rotation) in absolute pixels;
+    flip_horizontal: bool or bool tensor [...].  Returns (src_x
+    [..., Ho, Wo], src_y [..., Ho, Wo], padding [..., 4])."""
+    wo, ho = out_size
+    dev = roi_abs.device
+
+    def per_frame(v):
+        return v[..., None, None]
+
+    cx, cy, rw, rh, rot = (roi_abs[..., k] for k in range(5))
+
+    # output pixel grid (optionally mirrored)
+    u = torch.arange(wo, dtype=torch.float32, device=dev)[None, :].expand(
+        ho, wo)
+    v = torch.arange(ho, dtype=torch.float32, device=dev)[:, None].expand(
+        ho, wo)
+    if isinstance(flip_horizontal, torch.Tensor):
+        u = torch.where(per_frame(flip_horizontal), (wo - 1) - u, u)
+    elif flip_horizontal:
+        u = (wo - 1) - u
+
+    if keep_aspect_ratio:
+        # resize2^-1 . resize1^-1 . unpad: the intermediate (new_w,
+        # new_h) target cancels out of the half-pixel algebra
+        pad_x, pad_y, ph, pv = letterbox_padding(rw, rh, out_size)
+        w_i = torch.trunc(rw)
+        h_i = torch.trunc(rh)
+        x0 = ((u + 0.5) * per_frame(w_i + 2.0 * ph) / wo - 0.5
+              - per_frame(ph))
+        y0 = ((v + 0.5) * per_frame(h_i + 2.0 * pv) / ho - 0.5
+              - per_frame(pv))
+        qx = x0 / per_frame(w_i)
+        qy = y0 / per_frame(h_i)
+        padding = torch.stack([pad_x, pad_y, pad_x, pad_y], dim=-1)
+    else:
+        # direct warp: warp_perspective samples dst integer coords
+        qx = u / wo
+        qy = v / ho
+        padding = torch.zeros(roi_abs.shape[:-1] + (4,),
+                              dtype=torch.float32, device=dev)
+
+    # rotated-rect corners (types.rs:80-96); the perspective transform
+    # of a parallelogram quad is exactly affine
+    s, c = torch.sin(rot), torch.cos(rot)
+    hw, hh = rw / 2.0, rh / 2.0
+    c0x, c0y = cx + (-hw) * c - (-hh) * s, cy + (-hw) * s + (-hh) * c
+    c1x, c1y = cx + hw * c - (-hh) * s, cy + hw * s + (-hh) * c
+    c3x, c3y = cx + (-hw) * c - hh * s, cy + (-hw) * s + hh * c
+
+    src_x = (per_frame(c0x) + qx * per_frame(c1x - c0x)
+             + qy * per_frame(c3x - c0x))
+    src_y = (per_frame(c0y) + qx * per_frame(c1y - c0y)
+             + qy * per_frame(c3y - c0y))
+    return src_x, src_y, padding
+
+
+def _normalize_pixels(out, output_range: Tuple[float, float],
+                      quantize_uint8: bool):
+    if quantize_uint8:
+        # the reference chain materializes uint8 Mats between stages
+        # (round half to even); torch.round rounds half to even too
+        out = torch.round(out)
+    lo, hi = output_range
+    return out * ((hi - lo) / 255.0) + lo
+
+
+def _hat(t):
+    """Bilinear hat weights max(0, 1 - |t|): a row over integer taps k
+    at t = k - s reproduces the two-tap zero-border bilinear at s."""
+    return torch.clamp(1.0 - torch.abs(t), min=0.0)
+
+
+def _hat_rows(coords, n):
+    """[..., n_out, n] hat weights of ``coords`` [..., n_out] over the
+    integer taps 0..n-1."""
+    taps = torch.arange(n, dtype=torch.float32, device=coords.device)
+    return _hat(taps - coords[..., None])
+
+
+def separable_sample(image, src_x, src_y):
+    """Bilinear sample for AXIS-ALIGNED maps (rotation 0): src_x
+    constant along rows, src_y along columns.  Two hat-weight matmuls
+    over the whole frame.
+
+    image: [..., H, W, C]; src_x/src_y: [Ho, Wo] (shared) or
+    [..., Ho, Wo].  Returns [..., Ho, Wo, C].  Runs in full f32: the
+    caller disables TF32, or the hat weights would round and ``rint``
+    flip levels."""
+    h, w, c = image.shape[-3:]
+    wx = _hat_rows(src_x[..., 0, :], w)            # [..., Wo, W]
+    wy = _hat_rows(src_y[..., :, 0], h)            # [..., Ho, H]
+    t1 = torch.matmul(wy, image.reshape(*image.shape[:-3], h, w * c))
+    t1 = t1.reshape(*t1.shape[:-1], w, c)          # [..., Ho, W, C]
+    return torch.matmul(wx.unsqueeze(-3), t1)      # [..., Ho, Wo, C]
+
+
+def separable_sample_planar(planes, src_x, src_y):
+    """``separable_sample`` over channel planes [..., 3, H, W]: per
+    channel ``wy @ P @ wx^T``.  Returns [..., Ho, Wo, 3] (a channel-last
+    view of channel-major storage)."""
+    h, w = planes.shape[-2:]
+    wx = _hat_rows(src_x[..., 0, :], w)            # [..., Wo, W]
+    wy = _hat_rows(src_y[..., :, 0], h)            # [..., Ho, H]
+    t1 = torch.matmul(wy.unsqueeze(-3), planes)    # [..., 3, Ho, W]
+    out = torch.matmul(t1, wx.unsqueeze(-3).transpose(-1, -2))
+    return out.movedim(-3, -1)

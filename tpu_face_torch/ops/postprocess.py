@@ -1,0 +1,150 @@
+"""Detection post-processing on tensors (counterpart of
+tpu_face/ops/postprocess.py).
+
+* ``decode_boxes``        — reference face_detection.rs:269-296
+* ``clamped_sigmoid``     — reference face_detection.rs:300-314 (±80 clamp)
+* ``weighted_nms``        — reference nms.rs:56-124; this slice ports the
+  single-output path (one face per frame)
+* ``letterbox_removal``   — reference transform.rs:115-142
+* ``project_landmarks``   — reference transform.rs:351-432
+
+Every function takes an optional leading batch: candidate tensors
+``[..., N, ...]``, per-frame padding ``[..., 4]`` and ROIs ``[..., 5]``.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+
+RAW_SCORE_LIMIT = 80.0  # face_detection.rs:133
+MIN_SCORE = 0.5  # face_detection.rs:136
+MIN_SUPPRESSION_THRESHOLD = 0.3  # face_detection.rs:139
+
+
+def decode_boxes(raw_boxes, anchors, scale: float):
+    """raw [..., N, 2*P] -> [..., N, P, 2] decoded points.
+
+    Point rows: 0 = box center -> top-left corner, 1 = box size ->
+    bottom-right corner, 2.. = keypoints.  Every row except 1 is
+    anchor-shifted."""
+    pts = raw_boxes.reshape(*raw_boxes.shape[:-1], -1, 2) / scale
+    num_points = pts.shape[-2]
+    shift = torch.ones(num_points, dtype=torch.float32,
+                       device=raw_boxes.device)
+    shift[1] = 0.0
+    pts = pts + shift[None, :, None] * anchors[:, None, :]
+    center = pts[..., 0, :]
+    half = pts[..., 1, :] / 2.0
+    return torch.cat([(center - half)[..., None, :],
+                      (center + half)[..., None, :], pts[..., 2:, :]],
+                     dim=-2)
+
+
+def clamped_sigmoid(raw_scores):
+    return torch.sigmoid(torch.clamp(raw_scores, -RAW_SCORE_LIMIT,
+                                     RAW_SCORE_LIMIT))
+
+
+def detection_validity(boxes, scores, min_score: float = MIN_SCORE):
+    """score > threshold AND strictly positive box extent
+    (reference face_detection.rs:317-323,326)."""
+    ok_box = torch.all(boxes[..., 1, :] > boxes[..., 0, :], dim=-1)
+    return (scores > min_score) & ok_box
+
+
+def weighted_nms(data, scores, valid, max_outputs: int,
+                 threshold: float = MIN_SUPPRESSION_THRESHOLD):
+    """MediaPipe weighted NMS (reference nms.rs:56-124).
+
+    data [..., N, P, 2], scores/valid [..., N].  Returns (out_data
+    [..., T, P, 2], out_scores [..., T], out_valid [..., T]) with
+    T = max_outputs.  Only ``max_outputs == 1`` is ported so far."""
+    if max_outputs != 1:
+        raise NotImplementedError(
+            "weighted_nms: only max_outputs=1 is ported")
+    return _weighted_nms_top1(data, scores, valid, threshold)
+
+
+def _weighted_nms_top1(data, scores, valid, threshold):
+    """Single-output weighted NMS: the first merge of the sequential
+    algorithm — top detection by argmax (first max wins ties, as the
+    reference's stable sort does), one IoU row, one weighted average."""
+    masked = torch.where(valid, scores, -1e30)
+    top = torch.argmax(masked, dim=-1, keepdim=True)           # [..., 1]
+    top_box = torch.gather(
+        data, -3, top[..., None, None].expand(*top.shape, *data.shape[-2:])
+    ).squeeze(-3)                                               # [..., P, 2]
+    xmin, ymin = data[..., 0, 0], data[..., 0, 1]
+    xmax, ymax = data[..., 1, 0], data[..., 1, 1]
+    ixmin = torch.maximum(xmin, top_box[..., 0, 0, None])
+    iymin = torch.maximum(ymin, top_box[..., 0, 1, None])
+    ixmax = torch.minimum(xmax, top_box[..., 1, 0, None])
+    iymax = torch.minimum(ymax, top_box[..., 1, 1, None])
+    iw = ixmax - ixmin
+    ih = iymax - iymin
+    inter = torch.where((iw > 0) & (ih > 0), iw * ih, 0.0)
+    w_ = xmax - xmin
+    h_ = ymax - ymin
+    area = torch.where((w_ > 0) & (h_ > 0), w_ * h_, 0.0)
+    union = area + torch.gather(area, -1, top) - inter
+    iou = torch.where(union > 0, inter / union, 0.0)
+    cand = valid & (iou > threshold)
+    w = torch.where(cand, scores, 0.0)
+    merged = (torch.einsum("...n,...npk->...pk", w, data)
+              / torch.clamp(w.sum(-1), min=1e-12)[..., None, None])
+    out_d = torch.where(cand.any(-1)[..., None, None], merged, top_box)
+    return (out_d[..., None, :, :], torch.gather(scores, -1, top),
+            torch.gather(valid, -1, top))
+
+
+def letterbox_removal(data, padding):
+    """Undo letterboxing on detection rows [..., P, 2]; padding
+    [..., 4] with the leading dims of ``data`` minus (P, 2), or (4,)."""
+    left, top, right, bottom = (padding[..., k, None] for k in range(4))
+    h_scale = 1.0 - (left + right)
+    v_scale = 1.0 - (top + bottom)
+    x = (data[..., 0] - left) / h_scale
+    y = (data[..., 1] - top) / v_scale
+    return torch.stack([x, y], dim=-1)
+
+
+def project_landmarks(raw, tensor_size: Tuple[int, int],
+                      image_size: Tuple[int, int], padding,
+                      roi_abs: Optional[torch.Tensor],
+                      flip_horizontal=False):
+    """Tensor-space landmarks [..., L*3] -> normalized image-space
+    [..., L, 3] (reference transform.rs:351-432, with the MediaPipe
+    z-convention: z divided by tensor width and scaled by roi width).
+    padding [..., 4]; roi_abs [..., 5]; flip_horizontal a bool or a
+    bool tensor [...]."""
+    wt, ht = tensor_size
+    pts = raw.reshape(*raw.shape[:-1], -1, 3)
+    x = pts[..., 0] / wt
+    y = pts[..., 1] / ht
+    z = pts[..., 2] / wt
+    if isinstance(flip_horizontal, torch.Tensor):
+        x = torch.where(flip_horizontal[..., None], 1.0 - x, x)
+    elif flip_horizontal:
+        x = 1.0 - x
+
+    left, top, right, bottom = (padding[..., k, None] for k in range(4))
+    h_scale = 1.0 - (left + right)
+    v_scale = 1.0 - (top + bottom)
+    x = (x - left) / h_scale
+    y = (y - top) / v_scale
+    z = z / h_scale
+
+    if roi_abs is not None:
+        w, h = image_size
+        ncx, ncy = roi_abs[..., 0, None] / w, roi_abs[..., 1, None] / h
+        nw, nh = roi_abs[..., 2, None] / w, roi_abs[..., 3, None] / h
+        rot = roi_abs[..., 4, None]
+        s, c = torch.sin(rot), torch.cos(rot)
+        xc = x - 0.5
+        yc = y - 0.5
+        rx = xc * c - yc * s
+        ry = xc * s + yc * c
+        x = rx * nw + ncx
+        y = ry * nh + ncy
+        z = z * nw
+    return torch.stack([x, y, z], dim=-1)

@@ -1,0 +1,332 @@
+"""FaceCascade: detect -> face ROI -> mesh -> both irises on one device
+(counterpart of tpu_face/pipeline.py, ``max_faces=1``).
+
+Per batch of same-size frames: build the channel planes once; warp the
+whole frame for detection (separable hat matmuls); BlazeFace + decode +
+weighted NMS; the face ROI; the mesh warp (the CUDA warp kernel) and
+mesh CNN; the eye ROIs; both iris warps in ONE kernel launch, the right
+eye mirrored through its coordinates; the iris CNN on the stacked
+(left, mirrored right) pair; the mesh refinement.  The batch is an
+explicit leading dimension.
+
+Stage semantics match the standalone models of the reference:
+  detection    face_detection.rs:205-267
+  face ROI     face_landmark.rs:180-198 (scale 1.5, SquareLong, eye rot)
+  face mesh    face_landmark.rs:232-305
+  eye ROIs     iris_landmark.rs:268-292 (scale 2.3, SquareLong)
+  iris x2      iris_landmark.rs:158-248 (right eye mirrored)
+  refinement   iris_landmark.rs:380-398
+
+Everything runs in full f32: TF32 is switched off for the convolutions
+and the matmuls while the cascade runs (``exact_f32``).
+"""
+
+import contextlib
+import math
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .compiler import Graph, build_torch_fn
+from .models.face_detection import (_DATA_DIR, _MODEL_FILES, _SSD_OPTS,
+                                    FaceDetectionModel)
+from .models.face_landmark import ROI_SCALE as MESH_ROI_SCALE
+from .models.iris_landmark import (LEFT_EYE_END, LEFT_EYE_START,
+                                   LEFT_EYE_TO_FACE_LANDMARK_INDEX,
+                                   RIGHT_EYE_END, RIGHT_EYE_START,
+                                   RIGHT_EYE_TO_FACE_LANDMARK_INDEX)
+from .models.iris_landmark import ROI_SCALE as IRIS_ROI_SCALE
+from .ops import anchors as anchors_lib
+from .ops import image as image_ops
+from .ops import postprocess as post
+from .ops import warp as warp_ops
+
+
+class CascadeResult(NamedTuple):
+    """Per-image results of the cascade (leading batch axis), in the
+    shapes of ``tpu_face.pipeline.CascadeResult``.  All coordinates are
+    normalized to the input image."""
+
+    detection: torch.Tensor      # [B, 8, 2] corners + 6 keypoints
+    score: torch.Tensor          # [B] detection score
+    face_valid: torch.Tensor     # [B] bool
+    face_roi: torch.Tensor       # [B, 5] (cx, cy, w, h, rot) normalized
+    mesh: torch.Tensor           # [B, 468, 3] refined with iris contours
+    mesh_raw: torch.Tensor       # [B, 468, 3] before iris refinement
+    mesh_score: torch.Tensor     # [B] presence score
+    mesh_valid: torch.Tensor     # [B] bool: face_valid AND presence
+    eye_rois: torch.Tensor       # [B, 2, 5] left/right normalized
+    iris: torch.Tensor           # [B, 2, 5, 3] left/right iris landmarks
+    envelope_ok: torch.Tensor    # [B] bool, always True: the CUDA warp
+    # samples every ROI exactly (as the JAX exact-gather path does)
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Full-f32 convolutions and matmuls (no TF32) inside the block;
+    the previous settings come back after it."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
+
+
+def _norm_rotation(angle):
+    two_pi = 2.0 * math.pi
+    return angle - two_pi * torch.floor((angle + math.pi) / two_pi)
+
+
+def _bbox_to_roi_abs(xmin, ymin, xmax, ymax, kp0, kp1, scale, w, h):
+    """Normalized bbox [...] + two rotation keypoints [..., 2] -> ABS
+    [..., 5] ROI: square-long sizing (transform.rs:87-109), rotation
+    from the keypoint pair (transform.rs:62-75).  ``kp0``/``kp1`` are in
+    the space the matching reference derivation uses: absolute pixels
+    for the face ROI, normalized for the eye ROIs."""
+    long_side = torch.maximum((xmax - xmin) * w, (ymax - ymin) * h)
+    rw = long_side * scale[0]
+    rh = long_side * scale[1]
+    cx = (xmin + xmax) / 2.0 * w
+    cy = (ymin + ymax) / 2.0 * h
+    rot = _norm_rotation(-torch.atan2(kp0[..., 1] - kp1[..., 1],
+                                      kp1[..., 0] - kp0[..., 0]))
+    return torch.stack([cx, cy, rw, rh, rot], dim=-1)
+
+
+def _scale_xy(pts, w, h):
+    """Normalized points [..., 2] -> absolute pixels."""
+    return torch.stack([pts[..., 0] * w, pts[..., 1] * h], dim=-1)
+
+
+def _roi_to_norm(roi_abs, w, h):
+    """ABS ROIs [..., 5] -> normalized (rotation unchanged)."""
+    inv_w, inv_h = 1.0 / w, 1.0 / h
+    return torch.stack([roi_abs[..., 0] * inv_w, roi_abs[..., 1] * inv_h,
+                        roi_abs[..., 2] * inv_w, roi_abs[..., 3] * inv_h,
+                        roi_abs[..., 4]], dim=-1)
+
+
+class FaceCascade:
+    """The fused cascade with one face per frame.
+
+    ``infer_batch(images)`` takes a uint8/float batch [B, H, W, 3] (or
+    [B, 3, H, W] with ``input_layout="planar"``; all frames the same
+    size, numpy or torch) and returns a ``CascadeResult`` of tensors on
+    the cascade's device.  ``device=None`` means the CUDA card and
+    raises without one; pass ``device="cpu"`` for the plain path."""
+
+    def __init__(self,
+                 detection_model: FaceDetectionModel =
+                 FaceDetectionModel.BACK_CAMERA,
+                 model_path: Optional[str] = None,
+                 compute_dtype=torch.float32,
+                 max_faces: int = 1,
+                 input_layout: str = "hwc",
+                 device=None):
+        if compute_dtype != torch.float32:
+            raise NotImplementedError("only compute_dtype=float32 is "
+                                      "ported")
+        if max_faces != 1:
+            raise NotImplementedError("only max_faces=1 is ported")
+        if input_layout not in ("hwc", "planar"):
+            raise ValueError(f"input_layout {input_layout!r}")
+        self.device = resolve_device(device)
+        self.max_faces = max_faces
+        self._layout = input_layout
+        base = Path(model_path) if model_path else _DATA_DIR
+        det_graph = Graph(base / f"{_MODEL_FILES[detection_model]}.npz")
+        mesh_graph = Graph(base / "face_landmark.npz")
+        iris_graph = Graph(base / "iris_landmark.npz")
+        self._det_net = build_torch_fn(det_graph, self.device)
+        self._mesh_net = build_torch_fn(mesh_graph, self.device)
+        self._iris_net = build_torch_fn(iris_graph, self.device)
+        self.anchors = torch.from_numpy(anchors_lib.ssd_generate_anchors(
+            _SSD_OPTS[detection_model])).to(self.device)
+        _, self.det_h, self.det_w, _ = det_graph.input_shape
+        _, self.mesh_h, self.mesh_w, _ = mesh_graph.input_shape
+        _, self.iris_h, self.iris_w, _ = iris_graph.input_shape
+        self._left_idx = torch.tensor(LEFT_EYE_TO_FACE_LANDMARK_INDEX,
+                                      device=self.device)
+        self._right_idx = torch.tensor(RIGHT_EYE_TO_FACE_LANDMARK_INDEX,
+                                       device=self.device)
+        self._whole_coords = {}
+
+    # ---- batched host API ------------------------------------------
+
+    def infer_batch(self, images):
+        """Run the cascade on a batch (a single frame gains a batch
+        axis)."""
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(np.require(images, requirements="CW"))
+        images = images.to(self.device)
+        if images.dim() == 3:
+            images = images[None]
+        return self(images)
+
+    def __call__(self, images):
+        if self._layout == "planar":
+            _, _, h, w = images.shape
+        else:
+            _, h, w, _ = images.shape
+        with torch.inference_mode(), exact_f32():
+            return self._forward(images, (w, h))
+
+    def _forward(self, images, image_size):
+        planes = self._prepare_frame(images)
+        dets, out_s, out_v = self._detect_stage(planes, image_size)
+        det, score, face_valid = dets[:, 0], out_s[:, 0], out_v[:, 0]
+        face_roi_abs = self._face_roi_from_det(det, image_size)
+        mesh, mesh_score, left_roi, right_roi = self._mesh_half(
+            planes, face_roi_abs, image_size)
+        refined, l_iris, r_iris = self._iris_half(
+            planes, mesh, left_roi, right_roi, image_size)
+        return self._assemble_result(
+            det, score, face_valid, face_roi_abs, mesh, refined,
+            mesh_score, left_roi, right_roi, l_iris, r_iris, image_size)
+
+    # ---- stages ------------------------------------------------------
+
+    def _prepare_frame(self, images):
+        """[B, 3, H, W] f32 channel planes, built once per batch and read
+        by the detection warp and every ROI warp."""
+        return warp_ops.make_planes(images, self._layout)
+
+    def _detect_stage(self, planes, image_size):
+        """Whole-image detection + weighted NMS (reference
+        face_detection.rs:205-267).  Returns (dets [B, 1, 8, 2]
+        normalized, scores [B, 1], valid [B, 1])."""
+        w, h = image_size
+        det_size = (self.det_w, self.det_h)
+        # whole-image ROI has rotation 0: the warp is separable (two hat
+        # matmuls).  Geometries whose int-truncated letterbox pads make
+        # the reference's first resize non-identity (e.g. 200x225
+        # portraits) take the exact double resize.
+        two = image_ops.letterbox_two_stage_params((w, h), det_size)
+        if two is not None:
+            tensor, padding = image_ops.letterbox_two_stage(
+                planes, (w, h), det_size, two, (-1.0, 1.0), planar=True)
+        else:
+            dx, dy, padding = self._whole_frame_coords(image_size)
+            tensor = image_ops._normalize_pixels(
+                image_ops.separable_sample_planar(planes, dx, dy),
+                (-1.0, 1.0), True)
+        raw_boxes, raw_scores = self._det_net(tensor)
+        boxes = post.decode_boxes(raw_boxes, self.anchors,
+                                  float(self.det_h))
+        scores = post.clamped_sigmoid(
+            raw_scores.reshape(raw_scores.shape[0], -1))
+        valid = post.detection_validity(boxes, scores)
+        out_d, out_s, out_v = post.weighted_nms(boxes, scores, valid,
+                                                max_outputs=1)
+        return post.letterbox_removal(out_d, padding), out_s, out_v
+
+    def _whole_frame_coords(self, image_size):
+        """Detection-warp coordinates and letterbox padding of the
+        whole-frame ROI, made once per frame geometry (device tensors
+        made from host values would sync the stream on every call)."""
+        if image_size not in self._whole_coords:
+            w, h = image_size
+            whole = torch.tensor([0.5 * w, 0.5 * h, w, h, 0.0],
+                                 dtype=torch.float32, device=self.device)
+            self._whole_coords[image_size] = image_ops._source_coords(
+                whole, (self.det_w, self.det_h), True, False)
+        return self._whole_coords[image_size]
+
+    def _face_roi_from_det(self, det, image_size):
+        """Face ROI (face_landmark.rs:180-198): keypoint rows 2 (left
+        eye) and 3 (right eye), scale 1.5, square-long."""
+        w, h = image_size
+        return _bbox_to_roi_abs(det[:, 0, 0], det[:, 0, 1], det[:, 1, 0],
+                                det[:, 1, 1], _scale_xy(det[:, 2], w, h),
+                                _scale_xy(det[:, 3], w, h),
+                                MESH_ROI_SCALE, w, h)
+
+    def _mesh_half(self, planes, face_roi_abs, image_size):
+        """Mesh warp + CNN + projection, then the eye ROIs.  Returns
+        (mesh [B, 468, 3] normalized, mesh_score [B], left_roi [B, 5],
+        right_roi [B, 5])."""
+        w, h = image_size
+        mx, my, mesh_pad = image_ops._source_coords(
+            face_roi_abs, (self.mesh_w, self.mesh_h), False, False)
+        (mesh_raw,) = warp_ops.warp_sample_multi(planes, [(mx, my)])
+        mesh_tensor = image_ops._normalize_pixels(mesh_raw, (0.0, 1.0),
+                                                  True)
+        raw_mesh, raw_flag = self._mesh_net(mesh_tensor)
+        b = raw_mesh.shape[0]
+        mesh_score = torch.sigmoid(raw_flag.reshape(b))
+        mesh = post.project_landmarks(
+            raw_mesh.reshape(b, -1), (self.mesh_w, self.mesh_h),
+            image_size, mesh_pad, face_roi_abs)
+
+        # eye ROIs (iris_landmark.rs:268-292); rotation from NORMALIZED
+        # landmark coordinates, as the reference computes it
+        def eye_roi(i0, i1):
+            p0, p1 = mesh[:, i0], mesh[:, i1]
+            return _bbox_to_roi_abs(
+                torch.minimum(p0[:, 0], p1[:, 0]),
+                torch.minimum(p0[:, 1], p1[:, 1]),
+                torch.maximum(p0[:, 0], p1[:, 0]),
+                torch.maximum(p0[:, 1], p1[:, 1]),
+                p0[:, :2], p1[:, :2], IRIS_ROI_SCALE, w, h)
+
+        return (mesh, mesh_score, eye_roi(LEFT_EYE_START, LEFT_EYE_END),
+                eye_roi(RIGHT_EYE_START, RIGHT_EYE_END))
+
+    def _iris_half(self, planes, mesh, left_roi, right_roi, image_size):
+        """Both iris warps in one launch (right eye mirrored), the iris
+        CNN on the stacked pair, the projections and the mesh refinement
+        (iris_landmark.rs:158-248, 380-398).  Returns (refined mesh,
+        l_iris [B, 5, 3], r_iris [B, 5, 3])."""
+        size = (self.iris_w, self.iris_h)
+        lx, ly, lp = image_ops._source_coords(left_roi, size, True, False)
+        rx, ry, rp = image_ops._source_coords(right_roi, size, True, True)
+        l_raw, r_raw = warp_ops.warp_sample_multi(planes,
+                                                  [(lx, ly), (rx, ry)])
+        # stacked channel-major [B, 2, 3, Ho, Wo], handed to the net as
+        # its NHWC view of [2B, 3, Ho, Wo]
+        pair = torch.stack([l_raw.permute(0, 3, 1, 2),
+                            r_raw.permute(0, 3, 1, 2)], dim=1)
+        pair = image_ops._normalize_pixels(pair, (0.0, 1.0), True)
+        b = pair.shape[0]
+        raw_contour, raw_iris = self._iris_net(
+            pair.flatten(0, 1).permute(0, 2, 3, 1))
+        raw_contour = raw_contour.reshape(b, 2, -1)
+        raw_iris = raw_iris.reshape(b, 2, -1)
+
+        def project(raw, roi_abs, pad, flip):
+            return post.project_landmarks(raw, size, image_size, pad,
+                                          roi_abs, flip_horizontal=flip)
+
+        l_contour = project(raw_contour[:, 0], left_roi, lp, False)
+        r_contour = project(raw_contour[:, 1], right_roi, rp, True)
+        l_iris = project(raw_iris[:, 0], left_roi, lp, False)
+        r_iris = project(raw_iris[:, 1], right_roi, rp, True)
+
+        refined = mesh.index_copy(1, self._left_idx, l_contour)
+        refined = refined.index_copy(1, self._right_idx, r_contour)
+        return refined, l_iris, r_iris
+
+    def _assemble_result(self, det, score, face_valid, face_roi_abs,
+                         mesh, refined, mesh_score, left_roi, right_roi,
+                         l_iris, r_iris, image_size):
+        w, h = image_size
+        return CascadeResult(
+            detection=det,
+            score=score,
+            face_valid=face_valid,
+            face_roi=_roi_to_norm(face_roi_abs, w, h),
+            mesh=refined,
+            mesh_raw=mesh,
+            mesh_score=mesh_score,
+            mesh_valid=face_valid & (mesh_score > 0.5),
+            eye_rois=_roi_to_norm(torch.stack([left_roi, right_roi], dim=1),
+                                  w, h),
+            iris=torch.stack([l_iris, r_iris], dim=1),
+            envelope_ok=torch.ones_like(face_valid),
+        )
