@@ -6,20 +6,33 @@
 Phases, each of which fails loudly (nonzero exit, no result line):
 
 1. device  -- the card's name and power limit (nvidia-smi), torch's name;
-2. build   -- compiles the warp kernel from tpu_face_torch/csrc;
-3. kernel  -- the warp kernel against its plain PyTorch version at the
-              main path's shapes (32 frames of 540x360, a 192x192 mesh
-              grid and two 64x64 iris grids, random ROIs to +-45 deg,
-              mirrored grids, taps past the frame edge), plus a 1280x720
-              and a 64x64 frame: max abs error <= 1e-3;
-4. cascade -- FaceCascade() on the seven rotated frames of
-              assets/rotated/, one infer_batch per geometry, held against
-              their ground truth (bbox IoU >= 0.99, landmarks <= 1 px) and
-              against the port's own CPU result; the warp kernel must
-              have launched exactly twice per infer_batch;
-5. numbers -- cascade frames/s at batch 64, per-stage times, and the warp
-              kernel's time beside its bound, its plain version and
-              torch.nn.functional.grid_sample (a yardstick only).
+2. build   -- compiles both warp kernels from tpu_face_torch/csrc, one
+              nvcc per source, started together, and prints their ptxas
+              lines;
+3. kernel  -- each kernel against its plain PyTorch version (max abs error
+              <= 1e-3) on random ROIs to +-45 deg, mirrored grids and taps
+              past the frame edge, with the cascade's grids (a 192x192
+              mesh grid, 64x64 left and mirrored right iris grids):
+              warp_bilinear on f32 planes of 32 frames of 540x360, a
+              1280x720 and a 64x64 frame; warp_bilinear_strips on bf16
+              and f32 planes of 8 frames of 1920x1080 and 2 of 3840x2160,
+              with 1 and 4 faces per frame;
+4. cascade -- the main path, with both launch counts set to 0 before it
+              and read after it: FaceCascade() on the seven rotated frames
+              of assets/rotated/ (one infer_batch per geometry; 2
+              warp_bilinear and 0 warp_bilinear_strips launches each),
+              held against their ground truth (bbox IoU >= 0.99,
+              landmarks <= 1 px) and the port's own CPU result; then
+              canvas (a) at 1920x1080 (K=1) and (b) at 1280x824 (K=2),
+              2 warp_bilinear_strips launches each, and (c) at 1080x720
+              (K=4), 2 warp_bilinear launches; every face valid and within
+              0.25 px / 1e-3 of the CPU port;
+5. numbers -- cascade frames/s at 540x360 batch 64, at 1080p batch 64 and
+              at 4K batch 8 (planar input), faces/s of canvas (c) at
+              batch 32 with K=4, per-stage times at 540x360, and each
+              kernel's time at its main path's shapes beside its bound,
+              its plain version and torch.nn.functional.grid_sample (a
+              yardstick only).
 
 Its last lines are the nvidia-smi line, a JSON line of numbers, the
 kernels' JSON line and {"ok": true, "device": {...}}.  Imports nothing
@@ -27,10 +40,10 @@ of JAX or of the tpu_face package.
 
     python3 chip_smoke.py --trace DIR
 
-adds a torch.profiler window over three batch-64 cascade calls to the
-numbers (device busy share, kernel launches per call, the kernels that
-take the most device time) and writes the full table and a Chrome trace
-into DIR.
+adds torch.profiler windows over three cascade calls each at 540x360
+batch 64, 1080p batch 64 and 4K batch 8 to the numbers (device busy
+share, kernel launches per call, the kernels that take the most device
+time) and writes each full table and Chrome trace into DIR.
 """
 
 import argparse
@@ -98,6 +111,41 @@ FRAMES_540 = ["man_rotp15.png", "man_rotm15.png", "man_rotp30.png",
               "man_rotm30.png"]
 
 
+def canvas_1080p(load_image, scale=2, size=(1920, 1080)):
+    """Canvas (a): man_rotp15.png upscaled ``scale`` times by repetition
+    and pasted at (x 420, y 180) on a black 1920x1080 canvas; with
+    ``scale=4`` and ``size=(3840, 2160)`` its 4K counterpart, pasted at
+    (x 840, y 360)."""
+    img = load_image(ROT / "man_rotp15.png")
+    big = np.repeat(np.repeat(img, scale, axis=0), scale, axis=1)
+    w, h = size
+    canvas = np.zeros((h, w, 3), np.uint8)
+    x, y = 210 * scale, 90 * scale
+    canvas[y:y + big.shape[0], x:x + big.shape[1]] = big
+    return canvas
+
+
+def canvas_two_faces(load_image):
+    """Canvas (b): man_rotp15.png at (x 50, y 232) and man_rotm30.png at
+    (x 690, y 232) on a black 1280x824 canvas, just past the f32
+    residency budget (the strip kernel's tier)."""
+    canvas = np.zeros((824, 1280, 3), np.uint8)
+    canvas[232:592, 50:590] = load_image(ROT / "man_rotp15.png")
+    canvas[232:592, 690:1230] = load_image(ROT / "man_rotm30.png")
+    return canvas
+
+
+def canvas_grid(load_image):
+    """Canvas (c): the four 540x360 rotated frames as a 2x2 grid on
+    1080x720 (the resident kernel's tier)."""
+    canvas = np.zeros((720, 1080, 3), np.uint8)
+    for i, name in enumerate(FRAMES_540):
+        r, c = divmod(i, 2)
+        canvas[r * 360:(r + 1) * 360, c * 540:(c + 1) * 540] = \
+            load_image(ROT / name)
+    return canvas
+
+
 def phase(name):
     print(f"== {name}", flush=True)
 
@@ -156,34 +204,38 @@ def check_gt(res, i, gt):
 
 
 def check_against_cpu(res, ref, size):
-    """GPU result vs the port's CPU result on the same frames; returns
-    (worst landmark px, worst score difference)."""
+    """GPU result vs the port's CPU result on the same frames: equal
+    bools, and the numbers of every valid face slot; returns (worst
+    landmark px, worst score difference)."""
     w, h = size
     for f in ("face_valid", "mesh_valid", "envelope_ok"):
         assert torch.equal(getattr(res, f).cpu(), getattr(ref, f)), f
+    ok = ref.face_valid
+
+    def diff(f):
+        return (getattr(res, f).cpu()[ok] - getattr(ref, f)[ok]).abs()
+
     scale = torch.tensor([w, h, w], dtype=torch.float32)
-    px = 0.0
-    for f in ("mesh", "mesh_raw", "iris"):
-        d = (getattr(res, f).cpu() - getattr(ref, f)) * scale
-        px = max(px, float(d.abs().max()))
-    det = (res.detection.cpu() - ref.detection) * scale[:2]
-    px = max(px, float(det.abs().max()))
-    sc = max(float((getattr(res, f).cpu() - getattr(ref, f)).abs().max())
-             for f in ("score", "mesh_score"))
+    px = max(float((diff(f) * scale).max())
+             for f in ("mesh", "mesh_raw", "iris"))
+    px = max(px, float((diff("detection") * scale[:2]).max()))
+    sc = max(float(diff(f).max()) for f in ("score", "mesh_score"))
     assert px <= CPU_PX_TOL and sc <= CPU_SCORE_TOL, (px, sc)
     return px, sc
 
 
-def random_coords(rng, b, w, h, image_ops):
+def random_coords(rng, b, w, h, image_ops, faces=1):
     """Mesh (192x192) and iris (two 64x64, right mirrored) grids of
-    random ROIs over a w x h frame: rotation to +-45 deg, centres past
-    the frame edge, sizes from 5% to 70% of the short side."""
+    random ROIs over a w x h frame, ``faces`` per frame ([b, faces, Ho,
+    Wo] grids): rotation to +-45 deg, centres past the frame edge, sizes
+    from 5% to 70% of the short side."""
     def rois():
-        cx = rng.uniform(-0.1 * w, 1.1 * w, b)
-        cy = rng.uniform(-0.1 * h, 1.1 * h, b)
-        side = rng.uniform(0.05, 0.7, b) * min(w, h)
-        aspect = rng.uniform(0.8, 1.25, b)
-        rot = rng.uniform(-math.pi / 4, math.pi / 4, b)
+        n = (b, faces)
+        cx = rng.uniform(-0.1 * w, 1.1 * w, n)
+        cy = rng.uniform(-0.1 * h, 1.1 * h, n)
+        side = rng.uniform(0.05, 0.7, n) * min(w, h)
+        aspect = rng.uniform(0.8, 1.25, n)
+        rot = rng.uniform(-math.pi / 4, math.pi / 4, n)
         return torch.from_numpy(np.stack(
             [cx, cy, side, side * aspect, rot], -1).astype(np.float32)
         ).cuda()
@@ -201,8 +253,8 @@ def flat(coords):
 
 def touched_bytes(planes, xs, ys):
     """Bytes the warp must move for these coordinates: each distinct
-    in-frame tap pixel read once (3 f32 channels), the coordinates read
-    once, the [P, 3] f32 samples written once."""
+    in-frame tap pixel read once (3 channels of the planes' type), the
+    coordinates read once, the [P, 3] f32 samples written once."""
     b, _, h, w = planes.shape
     x0, y0 = torch.floor(xs).long(), torch.floor(ys).long()
     seen = torch.zeros(b * h * w, dtype=torch.bool, device=xs.device)
@@ -213,13 +265,85 @@ def touched_bytes(planes, xs, ys):
             ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
             seen[(frame + yy * w + xx)[ok]] = True
     pixels = int(seen.sum())
-    return pixels * 3 * 4 + xs.numel() * 8 + xs.numel() * 12
+    return (pixels * 3 * planes.element_size() + xs.numel() * 8
+            + xs.numel() * 12)
 
 
-def trace_cascade(cascade, batch, out, calls=3, top=12):
+def stage_coords(cascade, frames, size):
+    """The two warp calls' coordinates ([B, K*P] each: the mesh grid,
+    then both iris grids) and the planes that one cascade call over
+    ``frames`` gives its warp kernel."""
+    with torch.inference_mode(), exact_f32():
+        planes = cascade._prepare_frame(frames, size)
+        dets, _, _ = cascade._detect_stage(planes, size)
+        roi = cascade._face_roi_from_det(dets, size)
+        mx, my, _ = image_ops._source_coords(roi, (192, 192), False,
+                                             False)
+        _, _, lroi, rroi = cascade._mesh_half(planes, roi, size)
+        lx, ly, _ = image_ops._source_coords(lroi, (64, 64), True, False)
+        rx, ry, _ = image_ops._source_coords(rroi, (64, 64), True, True)
+    return planes, [flat([(mx, my)]), flat([(lx, ly), (rx, ry)])]
+
+
+def time_kernel(kernel, plain, planes, calls):
+    """A warp kernel at the main path's shapes: its max abs error
+    against its plain version, its time, the plain version's time,
+    torch.nn.functional.grid_sample's on an f32 copy of the planes (the
+    copy is not timed), and its bound."""
+    err = 0.0
+    for xs, ys in calls:
+        err = max(err, float((kernel(planes, xs, ys)
+                              - plain(planes, xs, ys)).abs().max()))
+    assert err <= KERNEL_TOL, err
+    h, w = planes.shape[2:]
+    f32 = planes.float()
+    grids = [torch.stack([xs * (2.0 / (w - 1)) - 1.0,
+                          ys * (2.0 / (h - 1)) - 1.0], -1)[:, None]
+             for xs, ys in calls]                        # [B, 1, P, 2]
+
+    def run(fn):
+        return lambda: [fn(planes, xs, ys) for xs, ys in calls]
+
+    def library():
+        return [torch.nn.functional.grid_sample(
+            f32, g, mode="bilinear", padding_mode="zeros",
+            align_corners=True) for g in grids]
+
+    kernel_ms, _ = median_ms(run(kernel), reps=50)
+    plain_ms, _ = median_ms(run(plain), reps=5)
+    library_ms, _ = median_ms(library, reps=20)
+    del f32
+    nbytes = sum(touched_bytes(planes, xs, ys) for xs, ys in calls)
+    flops = sum(xs.numel() * 3 * 9 for xs, _ in calls)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_F32_FLOPS * 1e3
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def hires_batch(canvas, batch, rng):
+    """A planar uint8 batch on the card built like bench.py's 1080p/4K
+    rows: the canvas, then copies rolled along x by up to a tenth of the
+    width, every third one mirrored."""
+    width = canvas.shape[1]
+    frames = [canvas]
+    while len(frames) < batch:
+        f = np.roll(canvas, int(rng.integers(-width // 10, width // 10)),
+                    axis=1)
+        if len(frames) % 3 == 1:
+            f = f[:, ::-1]
+        frames.append(np.ascontiguousarray(f))
+    return torch.from_numpy(np.ascontiguousarray(
+        np.stack(frames).transpose(0, 3, 1, 2))).cuda()
+
+
+def trace_cascade(cascade, batch, out, label, calls=3, top=12):
     """torch.profiler over ``calls`` cascade calls: wall time, summed
     device kernel time, kernel launches per call and the kernels with
-    the most device time.  The table and the trace go into ``out``."""
+    the most device time.  The table and the trace go into ``out`` as
+    ``<label>_kernels.txt`` and ``<label>_trace.json``."""
     from torch.profiler import ProfilerActivity, profile
     cascade(batch)
     torch.cuda.synchronize()
@@ -234,9 +358,9 @@ def trace_cascade(cascade, batch, out, calls=3, top=12):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     out.mkdir(parents=True, exist_ok=True)
-    (out / "cascade_b64_kernels.txt").write_text(prof.key_averages().table(
+    (out / f"{label}_kernels.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
-    prof.export_chrome_trace(str(out / "cascade_b64_trace.json"))
+    prof.export_chrome_trace(str(out / f"{label}_trace.json"))
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return {
         "calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
@@ -246,63 +370,81 @@ def trace_cascade(cascade, batch, out, calls=3, top=12):
                  e.count // calls] for e in kernels[:top]]}
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--trace", type=Path, metavar="DIR",
-                        help="profile three batch-64 cascade calls and "
-                        "write the kernel table and trace into DIR")
-    trace = parser.parse_args(argv).trace
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs a CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from tpu_face_torch.ops import _build
-    from tpu_face_torch.ops import image as image_ops
-    from tpu_face_torch.ops import warp
-    from tpu_face_torch.pipeline import FaceCascade, exact_f32
-    from tpu_face_torch.utils.image_io import load_image
+def counted(fn):
+    """``fn()`` and the launches of (warp_bilinear, warp_bilinear_strips)
+    it made."""
+    before = (warp.LAUNCHES, warp.STRIP_LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (warp.LAUNCHES - before[0], warp.STRIP_LAUNCHES - before[1])
 
-    phase("device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    kind = torch.cuda.get_device_name(0)
-    print(f"nvidia-smi: {smi}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}: {kind}, "
-          f"{torch.cuda.device_count()} device(s)", flush=True)
 
+def phase_build():
     phase("build")
     t0 = time.perf_counter()
-    _build.load("warp_bilinear")
-    log = _build.BUILD_LOG["warp_bilinear"]
-    print(log["ptxas"])
-    print(f"warp_bilinear built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {log['seconds']:.2f} s)", flush=True)
+    _build.build_all(KERNELS)          # one nvcc per source, in parallel
+    for name in KERNELS:
+        _build.load(name)
+        log = _build.BUILD_LOG[name]
+        print(log["ptxas"])
+        print(f"{name}: nvcc {log['seconds']:.2f} s")
+    print(f"both kernels built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
+
+def phase_kernels(rng):
+    """Each kernel against its plain version; returns the max abs errors
+    {kernel: err}."""
     phase("kernel vs plain")
-    rng = np.random.default_rng(0)
-    max_err = 0.0
+    errs = {name: 0.0 for name in KERNELS}
+
+    def check(name, kernel, plain, planes, coords, launches):
+        xs, ys = flat(coords)
+        got, n = counted(lambda: kernel(planes, xs, ys))
+        assert n == launches, (name, n)
+        err = float((got - plain(planes, xs, ys)).abs().max())
+        b, _, h, w = planes.shape
+        print(f"{name} {str(planes.dtype)[6:]} B={b} {w}x{h} grids "
+              f"{[tuple(x.shape[1:]) for x, _ in coords]}: "
+              f"max abs err {err:.3g}")
+        assert err <= KERNEL_TOL, (name, err)
+        errs[name] = max(errs[name], err)
+
     for b, (w, h) in ((32, (540, 360)), (1, (1280, 720)), (2, (64, 64))):
         frames = torch.from_numpy(
             rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).cuda()
         planes = warp.make_planes(frames)
         for coords in random_coords(rng, b, w, h, image_ops):
-            before = warp.LAUNCHES
-            outs = warp.warp_sample_multi(planes, coords)
-            torch.cuda.synchronize()
-            assert warp.LAUNCHES == before + 1, "kernel did not launch"
-            plain = warp.warp_bilinear_plain(planes, *flat(coords))
-            got = torch.cat([o.permute(0, 3, 1, 2).reshape(b, 3, -1)
-                             for o in outs], 2)
-            err = float((got - plain).abs().max())
-            print(f"B={b} {w}x{h} grids "
-                  f"{[tuple(x.shape[1:]) for x, _ in coords]}: "
-                  f"max abs err {err:.3g}")
-            assert err <= KERNEL_TOL, err
-            max_err = max(max_err, err)
+            check("warp_bilinear", warp.warp_bilinear,
+                  warp.warp_bilinear_plain, planes, coords, (1, 0))
+    for b, (w, h) in ((8, (1920, 1080)), (2, (3840, 2160))):
+        frames = torch.from_numpy(
+            rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            planes = warp.make_planes(frames, dtype=dtype)
+            for faces in (1, 4):
+                for coords in random_coords(rng, b, w, h, image_ops, faces):
+                    check("warp_bilinear_strips", warp.warp_bilinear_strips,
+                          warp.warp_bilinear_strips_plain, planes, coords,
+                          (0, 1))
+            del planes
+    # warp_sample_multi takes the strip kernel for bf16 planes
+    planes = warp.make_planes(frames, dtype=torch.bfloat16)
+    _, n = counted(lambda: warp.warp_sample_multi(
+        planes, random_coords(rng, b, w, h, image_ops, 2)[1]))
+    assert n == (0, 1), n
+    return errs
 
+
+def run_cascade(cascade, frames, launches):
+    """One infer_batch on the card, checked for its kernel launches."""
+    res, n = counted(lambda: cascade.infer_batch(frames))
+    assert n == launches, (n, launches)
+    return res
+
+
+def phase_cascade():
+    """The main path: returns the launches of each kernel in it."""
     phase("cascade")
     groups = {}
     for name, gt in GT.items():
@@ -310,97 +452,85 @@ def main(argv=None):
     batches = {size: np.stack([load_image(ROT / n) for n in names])
                for size, names in groups.items()}
     cascade = FaceCascade()
-    warp.LAUNCHES = 0
-    results = {size: cascade.infer_batch(batch)
+    canvases = {"a": (canvas_1080p(load_image), 1, (0, 2)),
+                "b": (canvas_two_faces(load_image), 2, (0, 2)),
+                "c": (canvas_grid(load_image), 4, (2, 0))}
+    cascades = {1: cascade, 2: FaceCascade(max_faces=2),
+                4: FaceCascade(max_faces=4)}
+    warp.LAUNCHES = warp.STRIP_LAUNCHES = 0
+    results = {size: run_cascade(cascade, batch, (2, 0))
                for size, batch in batches.items()}
-    torch.cuda.synchronize()
-    launches = warp.LAUNCHES
-    print(f"warp launches on the main path: {launches} for "
-          f"{len(batches)} infer_batch calls")
-    assert launches == 2 * len(batches), launches
-    cpu_cascade = FaceCascade(device="cpu")
+    canvas_results = {key: run_cascade(cascades[k], img[None], n)
+                      for key, (img, k, n) in canvases.items()}
+    launches = {"warp_bilinear": warp.LAUNCHES,
+                "warp_bilinear_strips": warp.STRIP_LAUNCHES}
+    print(f"launches on the main path: {launches} for {len(batches)} "
+          f"rotated-frame and {len(canvases)} canvas infer_batch calls")
+
+    cpu = {k: FaceCascade(device="cpu", max_faces=k) for k in cascades}
     for size, names in groups.items():
         res = results[size]
         for i, name in enumerate(names):
             box_iou, px = check_gt(res, i, GT[name])
             print(f"{name}: IoU {box_iou:.4f}, worst landmark "
                   f"{px:.3f} px vs ground truth")
-        px, sc = check_against_cpu(res, cpu_cascade.infer_batch(
-            batches[size]), size)
+        px, sc = check_against_cpu(res, cpu[1].infer_batch(batches[size]),
+                                   size)
         print(f"{size[0]}x{size[1]} GPU vs CPU port: {px:.4f} px, "
               f"scores {sc:.2e}", flush=True)
+    for key, (img, k, _) in canvases.items():
+        res = canvas_results[key]
+        assert bool(res.mesh_valid.all()), (key, res.mesh_valid)
+        size = (img.shape[1], img.shape[0])
+        px, sc = check_against_cpu(res, cpu[k].infer_batch(img[None]), size)
+        print(f"canvas ({key}) {size[0]}x{size[1]} K={k}: "
+              f"{int(res.mesh_valid.sum())} valid faces; GPU vs CPU port "
+              f"{px:.4f} px, scores {sc:.2e}", flush=True)
+    return launches
 
+
+def phase_numbers(rng, trace):
+    """Throughput, stage times and the kernels' times; returns (numbers,
+    {kernel: time_kernel dict})."""
     phase("numbers")
+    numbers = {}
+    timed = {}
     frames = np.stack([load_image(ROT / n) for n in FRAMES_540])
     size = (540, 360)
-    numbers = {"device": smi}
+    cascade = FaceCascade()
 
-    # warp kernel at the main path's shapes: the coordinates one
-    # infer_batch of 32 540x360 frames gives it
-    imgs = torch.from_numpy(np.tile(frames, (8, 1, 1, 1))).cuda()
-    with torch.inference_mode(), exact_f32():
-        planes = cascade._prepare_frame(imgs)
-        dets, _, _ = cascade._detect_stage(planes, size)
-        roi = cascade._face_roi_from_det(dets[:, 0], size)
-        mx, my, _ = image_ops._source_coords(roi, (192, 192), False,
-                                             False)
-        mesh, _, lroi, rroi = cascade._mesh_half(planes, roi, size)
-        lx, ly, _ = image_ops._source_coords(lroi, (64, 64), True, False)
-        rx, ry, _ = image_ops._source_coords(rroi, (64, 64), True, True)
-    calls = [flat([(mx, my)]), flat([(lx, ly), (rx, ry)])]
-    for xs, ys in calls:
-        err = float((warp.warp_bilinear(planes, xs, ys)
-                     - warp.warp_bilinear_plain(planes, xs, ys)
-                     ).abs().max())
-        assert err <= KERNEL_TOL, err
-        max_err = max(max_err, err)
-    h, w = planes.shape[2:]
-    grids = []
-    for xs, ys in calls:
-        g = torch.stack([xs * (2.0 / (w - 1)) - 1.0,
-                         ys * (2.0 / (h - 1)) - 1.0], -1)
-        grids.append(g[:, None])                      # [B, 1, P, 2]
-
-    def run(fn):
-        return lambda: [fn(planes, xs, ys) for xs, ys in calls]
-
-    def library():
-        return [torch.nn.functional.grid_sample(
-            planes, g, mode="bilinear", padding_mode="zeros",
-            align_corners=True) for g in grids]
-
-    kernel_ms, _ = median_ms(run(warp.warp_bilinear), reps=50)
-    plain_ms, _ = median_ms(run(warp.warp_bilinear_plain), reps=10)
-    library_ms, _ = median_ms(library, reps=50)
-    nbytes = sum(touched_bytes(planes, xs, ys) for xs, ys in calls)
-    flops = sum(xs.numel() * 3 * 9 for xs, _ in calls)
-    bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
-    numbers["warp_b32"] = {
-        "calls": ["mesh 192x192", "iris 2x64x64"], "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "grid_sample_ms": library_ms,
-        "bound_ms": bound_ms, "bytes": nbytes, "flops": flops}
+    # K1 at the shapes one infer_batch of 32 540x360 frames gives it
+    b = BATCH["warp_540p"]
+    planes, calls = stage_coords(
+        cascade,
+        torch.from_numpy(np.tile(frames, (b // 4, 1, 1, 1))).cuda(), size)
+    timed["warp_bilinear"] = time_kernel(
+        warp.warp_bilinear, warp.warp_bilinear_plain, planes, calls)
+    numbers[f"warp_b{b}"] = {"calls": ["mesh 192x192", "iris 2x64x64"],
+                             **timed["warp_bilinear"]}
 
     # cascade throughput at batch 64 (the four 540p frames, x16), the
     # uint8 batch already on the card
-    batch = torch.from_numpy(np.tile(frames, (16, 1, 1, 1))).cuda()
-    reps = 10
-    ms, windows = median_ms(lambda: cascade(batch), reps=reps)
-    numbers["cascade_b64"] = {"frames_per_s": 64 * 1e3 / ms,
-                              "ms_per_batch": ms, "windows_ms": windows}
+    b = BATCH["540p"]
+    batch = torch.from_numpy(np.tile(frames, (b // 4, 1, 1, 1))).cuda()
+    ms, windows = median_ms(lambda: cascade(batch), reps=10)
+    numbers[f"cascade_b{b}"] = {"frames_per_s": b * 1e3 / ms,
+                                "ms_per_batch": ms, "windows_ms": windows}
     if trace is not None:
-        numbers["trace_b64"] = trace_cascade(cascade, batch, trace)
+        numbers[f"trace_b{b}"] = trace_cascade(cascade, batch, trace,
+                                               f"cascade_b{b}")
 
     # per-stage times at batch 64 on the stage inputs of one run
     with torch.inference_mode(), exact_f32():
-        planes = cascade._prepare_frame(batch)
+        planes = cascade._prepare_frame(batch, size)
         dets, _, _ = cascade._detect_stage(planes, size)
-        roi = cascade._face_roi_from_det(dets[:, 0], size)
-        mesh, _, lroi, rroi = cascade._mesh_half(planes, roi, size)
-        mesh_in = torch.rand(64, 192, 192, 3, device=planes.device)
-        iris_in = torch.rand(128, 64, 64, 3, device=planes.device)
+        roi = cascade._face_roi_from_det(dets, size)
+        _, _, lroi, rroi = cascade._mesh_half(planes, roi, size)
+        mesh_in = torch.rand(b, 192, 192, 3, device=planes.device)
+        iris_in = torch.rand(2 * b, 64, 64, 3, device=planes.device)
 
         def detect():
-            cascade._detect_stage(cascade._prepare_frame(batch), size)
+            cascade._detect_stage(cascade._prepare_frame(batch, size), size)
 
         def mesh_warp():
             x, y, _ = image_ops._source_coords(roi, (192, 192), False,
@@ -420,17 +550,117 @@ def main(argv=None):
                   "mesh_cnn": lambda: cascade._mesh_net(mesh_in),
                   "iris_warp": iris_warp,
                   "iris_cnn": lambda: cascade._iris_net(iris_in)}
-        numbers["stages_b64_ms"] = {k: median_ms(f, reps=10)[0]
-                                    for k, f in stages.items()}
+        numbers[f"stages_b{b}_ms"] = {k: median_ms(f, reps=10)[0]
+                                      for k, f in stages.items()}
+    del batch, planes, mesh_in, iris_in
 
-    kernels = [{
-        "name": "warp_bilinear", "route": "cuda",
-        "source": "tpu_face_torch/csrc/warp_bilinear.cu",
-        "replaces": "tpu_face/ops/pallas_warp.py:203",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes"
-        if nbytes / H100_BYTES_PER_S >= flops / H100_F32_FLOPS
-        else "operations", "library_ms": library_ms}]
+    # the strip kernel's tiers: 1080p at batch 64 and 4K at batch 8,
+    # planar input, frames built like bench.py's rows from canvas (a)
+    planar = FaceCascade(input_layout="planar")
+    for label, canvas, b in (
+            ("1080p", canvas_1080p(load_image), BATCH["1080p"]),
+            ("4k", canvas_1080p(load_image, 4, (3840, 2160)),
+             BATCH["4k"])):
+        hbatch = hires_batch(canvas, b, rng)
+        res, n = counted(lambda: planar(hbatch))
+        assert n == (0, 2), n
+        valid = int(res.mesh_valid.sum())
+        assert valid == b, f"{label}: {valid} of {b} faces found"
+        ms, windows = median_ms(lambda: planar(hbatch), reps=5)
+        numbers[f"cascade_{label}_b{b}"] = {
+            "frames_per_s": b * 1e3 / ms, "ms_per_batch": ms,
+            "windows_ms": windows}
+        if trace is not None:
+            numbers[f"trace_{label}_b{b}"] = trace_cascade(
+                planar, hbatch, trace, f"cascade_{label}_b{b}")
+        if label == "1080p":
+            size = (canvas.shape[1], canvas.shape[0])
+            planes, calls = stage_coords(planar, hbatch, size)
+            timed["warp_bilinear_strips"] = time_kernel(
+                warp.warp_bilinear_strips, warp.warp_bilinear_strips_plain,
+                planes, calls)
+            numbers[f"warp_strips_1080p_b{b}"] = {
+                "calls": ["mesh 192x192", "iris 2x64x64"],
+                **timed["warp_bilinear_strips"]}
+            del planes, calls
+        del hbatch, res
+
+    # K=4 faces per frame: canvas (c) at batch 32
+    b = BATCH["k4"]
+    multi = FaceCascade(max_faces=4)
+    grid = torch.from_numpy(np.stack([canvas_grid(load_image)] * b)).cuda()
+    res, n = counted(lambda: multi(grid))
+    assert n == (2, 0), n
+    faces = int(res.mesh_valid.sum())
+    assert faces == 4 * b, faces
+    ms, windows = median_ms(lambda: multi(grid), reps=5)
+    numbers[f"multiface_k4_b{b}"] = {"faces_per_s": faces * 1e3 / ms,
+                                   "ms_per_batch": ms,
+                                   "windows_ms": windows}
+    return numbers, timed
+
+
+# batch sizes of the numbers phase
+BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32}
+KERNELS = ("warp_bilinear", "warp_bilinear_strips")
+SOURCES = {
+    "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
+                      "tpu_face/ops/pallas_warp.py:203"),
+    "warp_bilinear_strips": ("tpu_face_torch/csrc/warp_bilinear_strips.cu",
+                             "tpu_face/ops/pallas_warp.py:249"),
+}
+
+
+def main(argv=None):
+    # the port's modules become this module's globals here, once the
+    # repository is on sys.path (the helpers above use them)
+    global _build, image_ops, warp, FaceCascade, exact_f32, load_image
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--trace", type=Path, metavar="DIR",
+                        help="profile three cascade calls per frame size "
+                        "and write the kernel tables and traces into DIR")
+    trace = parser.parse_args(argv).trace
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from tpu_face_torch.ops import _build
+    from tpu_face_torch.ops import image as image_ops
+    from tpu_face_torch.ops import warp
+    from tpu_face_torch.pipeline import FaceCascade, exact_f32
+    from tpu_face_torch.utils.image_io import load_image
+
+    t_start = time.perf_counter()
+    phase("device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    print(f"nvidia-smi: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}: {kind}, "
+          f"{torch.cuda.device_count()} device(s)", flush=True)
+
+    rng = np.random.default_rng(0)
+    phase_build()
+    errs = phase_kernels(rng)
+    launches = phase_cascade()
+    numbers, timed = phase_numbers(rng, trace)
+    numbers["device"] = smi
+    numbers["seconds"] = time.perf_counter() - t_start
+
+    kernels = []
+    for name in KERNELS:
+        t = timed[name]
+        assert launches[name] > 0, (name, launches[name])
+        source, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(errs[name], t["max_abs_err"]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
 
     print(smi)
     print(json.dumps(numbers))

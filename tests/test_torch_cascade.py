@@ -2,9 +2,10 @@
 package and the rotated-frame ground truth.
 
 * Against ``tpu_face.pipeline.FaceCascade(warp_method="gather")`` on the
-  four 540p rotated frames and the 704x704 close-up, field by field:
-  equal bools; landmarks, detection points and ROI centres/sizes within
-  0.25 px; rotations within 1e-3 rad; scores within 1e-3.
+  four 540p rotated frames, the 704x704 close-up and chip_smoke.py's
+  1920x1080 canvas (a) (bf16 planes, the strip kernel's tier), field by
+  field: equal bools; landmarks, detection points and ROI centres/sizes
+  within 0.25 px; rotations within 1e-3 rad; scores within 1e-3.
 * Against the ground-truth rows of tests/test_rotation_e2e.py on all
   seven rotated frames (including the two 200x225 portraits that take
   the two-stage letterbox): bbox IoU >= 0.99, landmarks <= 1 px.
@@ -41,7 +42,10 @@ def _frame(name):
 
 
 def _compare(res, ref, size):
-    """Port result vs JAX result for the same batch, field by field."""
+    """Port result vs JAX result for the same batch, field by field:
+    every bool in every slot, and the numbers of the slots where the face
+    is valid (with a face axis, an invalid slot holds the stages' output
+    for a dead NMS slot, which nothing reads)."""
     w, h = size
     assert res._fields == ref._fields
     for f in res._fields:
@@ -50,20 +54,24 @@ def _compare(res, ref, size):
         assert a.shape == b.shape, (f, a.shape, b.shape)
         if a.dtype == bool:
             np.testing.assert_array_equal(a, b, err_msg=f)
+    ok = res.face_valid.numpy()
+
+    def diff(f):
+        return np.abs(getattr(res, f).numpy()[ok]
+                      - np.asarray(getattr(ref, f))[ok])
+
     px = np.array([w, h, w], np.float32)
     for f in ("mesh", "mesh_raw", "iris"):
-        d = np.abs(getattr(res, f).numpy() - np.asarray(getattr(ref, f)))
+        d = diff(f)
         assert (d * px).max() <= PX_TOL, (f, (d * px).max())
-    d = np.abs(res.detection.numpy() - np.asarray(ref.detection))
-    assert (d * px[:2]).max() <= PX_TOL
+    assert (diff("detection") * px[:2]).max() <= PX_TOL
     for f in ("face_roi", "eye_rois"):
-        d = np.abs(getattr(res, f).numpy() - np.asarray(getattr(ref, f)))
+        d = diff(f)
         scale = np.array([w, h, w, h], np.float32)
         assert (d[..., :4] * scale).max() <= PX_TOL, f
         assert d[..., 4].max() <= ROT_TOL, f
     for f in ("score", "mesh_score"):
-        d = np.abs(getattr(res, f).numpy() - np.asarray(getattr(ref, f)))
-        assert d.max() <= SCORE_TOL, f
+        assert diff(f).max() <= SCORE_TOL, f
 
 
 @pytest.mark.parametrize("name", JAX_FRAMES)
@@ -71,6 +79,17 @@ def test_cascade_matches_jax_gather(cascade, jax_cascade, name):
     img = _frame(name)[None]
     res = cascade.infer_batch(img)
     _compare(res, jax_cascade.infer_batch(img), GT[name]["size"])
+
+
+def test_canvas_1080p_matches_jax_gather(cascade, jax_cascade):
+    """Canvas (a): one face on a 1920x1080 frame, past the f32 residency
+    budget, so the port's planes are bf16 and its warps take the strip
+    kernel's wrapper."""
+    img = chip_smoke.canvas_1080p(load_image)
+    assert cascade._plane_cfg((1920, 1080)) == torch.bfloat16
+    res = cascade.infer_batch(img[None])
+    assert bool(res.mesh_valid[0])
+    _compare(res, jax_cascade.infer_batch(img[None]), (1920, 1080))
 
 
 @pytest.mark.parametrize("name", JAX_FRAMES + sorted(GT_PORTRAIT))
@@ -114,10 +133,33 @@ def test_default_device_is_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        FaceCascade(device="cpu", max_faces=2)
+    """bf16 nets are not ported and raise; ``max_faces=2`` runs and gives
+    every field a face axis after the batch axis."""
     with pytest.raises(NotImplementedError):
         FaceCascade(device="cpu", compute_dtype=torch.bfloat16)
+    two = FaceCascade(device="cpu", max_faces=2)
+    res = two.infer_batch(_frame(FRAMES_540[0])[None])
+    assert tuple(res.mesh.shape) == (1, 2, 468, 3)
+    assert tuple(res.iris.shape) == (1, 2, 2, 5, 3)
+    assert tuple(res.face_valid.shape) == (1, 2)
+    assert bool(res.face_valid[0, 0])
+
+
+def test_signature_parity_options():
+    """``warp_profile`` is validated and ignored (the card's kernels
+    sample every ROI exactly); ``nms_top_m`` is accepted and unused by
+    the weighted NMS, as in JAX."""
+    img = _frame(FRAMES_540[1])[None]
+    base = FaceCascade(device="cpu").infer_batch(img)
+    for profile in ("coverage", "speed", "auto"):
+        res = FaceCascade(device="cpu", warp_profile=profile,
+                          nms_top_m=16).infer_batch(img)
+        for f in res._fields:
+            assert torch.equal(getattr(res, f), getattr(base, f)), f
+    with pytest.raises(ValueError):
+        FaceCascade(device="cpu", warp_profile="fast")
+    with pytest.raises(ValueError):
+        FaceCascade(device="cpu", max_faces=0)
 
 
 def test_chip_smoke_ground_truth_matches_tests():

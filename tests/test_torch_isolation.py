@@ -50,4 +50,5 @@ def test_port_covers_the_slice():
             "tpu_face_torch/utils/image_io.py",
             "tpu_face_torch/pipeline.py"}
     assert want <= set(FILES)
-    assert (ROOT / "tpu_face_torch/csrc/warp_bilinear.cu").exists()
+    for kernel in ("warp_bilinear", "warp_bilinear_strips"):
+        assert (ROOT / f"tpu_face_torch/csrc/{kernel}.cu").exists()

@@ -122,9 +122,17 @@ def test_weighted_nms_tied_top_scores():
 
 
 def test_weighted_nms_more_outputs_not_ported():
-    with pytest.raises(NotImplementedError):
+    """More than one output is ported now (tests/test_torch_multiface.py
+    holds it against JAX): an empty pool gives K invalid outputs, and
+    zero outputs are refused."""
+    d, s, v = tpost.weighted_nms(torch.zeros(4, 8, 2), torch.zeros(4),
+                                 torch.zeros(4, dtype=torch.bool),
+                                 max_outputs=2)
+    assert tuple(d.shape) == (2, 8, 2) and tuple(s.shape) == (2,)
+    assert not v.any()
+    with pytest.raises(ValueError):
         tpost.weighted_nms(torch.zeros(4, 8, 2), torch.zeros(4),
-                           torch.zeros(4, dtype=torch.bool), max_outputs=2)
+                           torch.zeros(4, dtype=torch.bool), max_outputs=0)
 
 
 def test_letterbox_removal():

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports a plain C function.  It is compiled with
+Each ``csrc/<name>.cu`` exports plain C functions.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) at first use into ``build/tpu_face_torch/``
 at the repository root, under a name keyed by a hash of the source and
 the flags, so a stale library is never loaded; the library is opened
-with ``ctypes``.  Nothing here runs when the module is imported: the
-CPU-only test environment has no ``nvcc``.
+with ``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once.
+Nothing here runs when the module is imported: the CPU-only test
+environment has no ``nvcc``.
 """
 
 import ctypes
@@ -27,10 +28,16 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 
-# C signature of each kernel's entry point: (argtypes, restype)
+# (planes, stride_b, stride_c, stride_h, batch, h, w, xs, ys, p, out,
+#  stream) -> cudaError_t, the entry points of both warp kernels
+_WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P, _P), _I)
+
+# C signature of each library's entry points: {function: (argtypes,
+# restype)}
 SIGNATURES = {
-    "warp_bilinear": ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P,
-                       _P), _I),
+    "warp_bilinear": {"warp_bilinear": _WARP_SIG},
+    "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
+                             "warp_bilinear_strips_f32": _WARP_SIG},
 }
 
 _LIBS = {}
@@ -48,35 +55,61 @@ def _nvcc():
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into a shared library (cached by
-    content) and return its path."""
+def _target(name: str) -> Path:
+    """The library path of ``csrc/<name>.cu``, keyed by its content."""
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"{name}-{digest[:16]}.so"
-    if lib.exists():
-        BUILD_LOG[name] = {"seconds": 0.0, "ptxas": "", "cached": True}
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names) -> dict:
+    """Compile ``csrc/<name>.cu`` for every name not built yet, one
+    ``nvcc`` per source, all started together; return {name: library
+    path}."""
+    libs = {name: _target(name) for name in names}
+    jobs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
-                       "ptxas": proc.stderr.strip(), "cached": False}
-    return lib
+    for name, lib in libs.items():
+        if lib.exists():
+            # a library built earlier in this process keeps its log
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": "",
+                                        "cached": True})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        src = _CSRC / f"{name}.cu"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp)
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{err}")
+            continue
+        os.replace(tmp, libs[name])
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                           "ptxas": err.strip(), "cached": False}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into a shared library (cached by
+    content) and return its path."""
+    return build_all([name])[name]
 
 
 def load(name: str):
-    """The kernel library ``name`` with its entry point's ctypes
-    signature set; built on first use."""
+    """The kernel library ``name`` with its entry points' ctypes
+    signatures set; built on first use."""
     if name not in _LIBS:
         lib = ctypes.CDLL(str(build(name)))
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = SIGNATURES[name]
+        for fn_name, (argtypes, restype) in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, restype
         _LIBS[name] = lib
     return _LIBS[name]

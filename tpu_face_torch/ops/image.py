@@ -268,13 +268,38 @@ def separable_sample(image, src_x, src_y):
     return torch.matmul(wx.unsqueeze(-3), t1)      # [..., Ho, Wo, C]
 
 
+# Largest f32 copy of bf16 planes that ``separable_sample_planar`` makes
+# at once: frames are upcast a chunk at a time (at 1080p, batch 64, a
+# whole f32 copy would be 1.59 GB; a chunk is 10 frames, 249 MB).
+UPCAST_CHUNK_BYTES = 256 * 2**20
+
+
 def separable_sample_planar(planes, src_x, src_y):
-    """``separable_sample`` over channel planes [..., 3, H, W]: per
-    channel ``wy @ P @ wx^T``.  Returns [..., Ho, Wo, 3] (a channel-last
-    view of channel-major storage)."""
+    """``separable_sample`` over channel planes [B, 3, H, W]: per
+    channel ``wy @ P @ wx^T``.  src_x/src_y: [Ho, Wo] (shared) or
+    [B, Ho, Wo].  Returns [B, Ho, Wo, 3] (a channel-last view of
+    channel-major storage).
+
+    bf16 planes are upcast to f32 before the products, which is exact for
+    uint8 pixel values (the JAX version's ``dot_dtype=None``), so bf16
+    and f32 planes give the same result; the upcast runs over chunks of
+    frames of at most ``UPCAST_CHUNK_BYTES``."""
     h, w = planes.shape[-2:]
     wx = _hat_rows(src_x[..., 0, :], w)            # [..., Wo, W]
     wy = _hat_rows(src_y[..., :, 0], h)            # [..., Ho, H]
+    if planes.dtype == torch.float32:
+        return _separable_planar_f32(planes, wx, wy)
+    step = max(1, UPCAST_CHUNK_BYTES // (3 * h * w * 4))
+    outs = []
+    for i in range(0, planes.shape[0], step):
+        cx = wx if wx.dim() == 2 else wx[i:i + step]
+        cy = wy if wy.dim() == 2 else wy[i:i + step]
+        outs.append(_separable_planar_f32(
+            planes[i:i + step].to(torch.float32), cx, cy))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _separable_planar_f32(planes, wx, wy):
     t1 = torch.matmul(wy.unsqueeze(-3), planes)    # [..., 3, Ho, W]
     out = torch.matmul(t1, wx.unsqueeze(-3).transpose(-1, -2))
     return out.movedim(-3, -1)

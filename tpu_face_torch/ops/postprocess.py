@@ -3,8 +3,8 @@ tpu_face/ops/postprocess.py).
 
 * ``decode_boxes``        — reference face_detection.rs:269-296
 * ``clamped_sigmoid``     — reference face_detection.rs:300-314 (±80 clamp)
-* ``weighted_nms``        — reference nms.rs:56-124; this slice ports the
-  single-output path (one face per frame)
+* ``weighted_nms``        — reference nms.rs:56-124 (one face per frame,
+  or the full-pool sequential merge for K faces)
 * ``letterbox_removal``   — reference transform.rs:115-142
 * ``project_landmarks``   — reference transform.rs:351-432
 
@@ -58,19 +58,37 @@ def weighted_nms(data, scores, valid, max_outputs: int,
 
     data [..., N, P, 2], scores/valid [..., N].  Returns (out_data
     [..., T, P, 2], out_scores [..., T], out_valid [..., T]) with
-    T = max_outputs.  Only ``max_outputs == 1`` is ported so far."""
-    if max_outputs != 1:
-        raise NotImplementedError(
-            "weighted_nms: only max_outputs=1 is ported")
-    return _weighted_nms_top1(data, scores, valid, threshold)
+    T = max_outputs.
+
+    Repeatedly take the highest-scoring remaining detection, gather every
+    remaining detection with IoU > threshold (the top one always matches
+    itself), emit their score-weighted average with the top score, and
+    remove the merged set; the reference's loop guard (stop when nothing
+    was removed, only reachable with zero-area boxes) is a sticky
+    ``stopped`` flag.  Like the JAX version, ``max_outputs == 1`` takes
+    the single-merge path and more outputs the full-pool loop (the two
+    differ by about 1e-5 in JAX, from its reduction orders)."""
+    if max_outputs < 1:
+        raise ValueError(f"max_outputs must be >= 1, got {max_outputs}")
+    if max_outputs == 1:
+        return _weighted_nms_top1(data, scores, valid, threshold)
+    return _weighted_nms_pool(data, scores, valid, max_outputs, threshold)
 
 
-def _weighted_nms_top1(data, scores, valid, threshold):
-    """Single-output weighted NMS: the first merge of the sequential
-    algorithm — top detection by argmax (first max wins ties, as the
-    reference's stable sort does), one IoU row, one weighted average."""
-    masked = torch.where(valid, scores, -1e30)
-    top = torch.argmax(masked, dim=-1, keepdim=True)           # [..., 1]
+def _areas(data):
+    xmin, ymin = data[..., 0, 0], data[..., 0, 1]
+    xmax, ymax = data[..., 1, 0], data[..., 1, 1]
+    w_ = xmax - xmin
+    h_ = ymax - ymin
+    return torch.where((w_ > 0) & (h_ > 0), w_ * h_, 0.0)
+
+
+def _merge_top(data, scores, area, alive, top, threshold):
+    """One merge of the sequential algorithm: the IoU row of the top
+    detection ``top`` [..., 1] against every candidate, the candidates
+    ``alive`` that overlap it, and their weighted average.  Returns
+    (the average, or the top row where no candidate overlaps, [..., P, 2];
+    cand [..., N])."""
     top_box = torch.gather(
         data, -3, top[..., None, None].expand(*top.shape, *data.shape[-2:])
     ).squeeze(-3)                                               # [..., P, 2]
@@ -83,18 +101,52 @@ def _weighted_nms_top1(data, scores, valid, threshold):
     iw = ixmax - ixmin
     ih = iymax - iymin
     inter = torch.where((iw > 0) & (ih > 0), iw * ih, 0.0)
-    w_ = xmax - xmin
-    h_ = ymax - ymin
-    area = torch.where((w_ > 0) & (h_ > 0), w_ * h_, 0.0)
     union = area + torch.gather(area, -1, top) - inter
     iou = torch.where(union > 0, inter / union, 0.0)
-    cand = valid & (iou > threshold)
+    cand = alive & (iou > threshold)
     w = torch.where(cand, scores, 0.0)
     merged = (torch.einsum("...n,...npk->...pk", w, data)
               / torch.clamp(w.sum(-1), min=1e-12)[..., None, None])
     out_d = torch.where(cand.any(-1)[..., None, None], merged, top_box)
+    return out_d, cand
+
+
+def _weighted_nms_top1(data, scores, valid, threshold):
+    """Single-output weighted NMS: the first merge of the sequential
+    algorithm — top detection by argmax (first max wins ties, as the
+    reference's stable sort does), one IoU row, one weighted average."""
+    masked = torch.where(valid, scores, -1e30)
+    top = torch.argmax(masked, dim=-1, keepdim=True)           # [..., 1]
+    out_d, _ = _merge_top(data, scores, _areas(data), valid, top,
+                          threshold)
     return (out_d[..., None, :, :], torch.gather(scores, -1, top),
             torch.gather(valid, -1, top))
+
+
+def _weighted_nms_pool(data, scores, valid, max_outputs, threshold):
+    """The full-pool loop (tpu_face/ops/postprocess.py's scan): each of
+    ``max_outputs`` iterations argmaxes the alive scores (first index
+    among equals), merges, and retires the merged set and the top.  An
+    output is valid while anything was alive and no earlier merge came
+    up empty."""
+    area = _areas(data)
+    idx = torch.arange(scores.shape[-1], device=scores.device)
+    alive = valid
+    stopped = torch.zeros(valid.shape[:-1], dtype=torch.bool,
+                          device=valid.device)
+    outs_d, outs_s, outs_v = [], [], []
+    for _ in range(max_outputs):
+        any_alive = alive.any(-1)
+        top = torch.argmax(torch.where(alive, scores, -1e30), dim=-1,
+                           keepdim=True)                       # [..., 1]
+        out_d, cand = _merge_top(data, scores, area, alive, top, threshold)
+        outs_d.append(out_d)
+        outs_s.append(torch.gather(scores, -1, top)[..., 0])
+        outs_v.append(any_alive & ~stopped)
+        alive = alive & ~cand & (idx != top)
+        stopped = stopped | ~cand.any(-1)
+    return (torch.stack(outs_d, -3), torch.stack(outs_s, -1),
+            torch.stack(outs_v, -1))
 
 
 def letterbox_removal(data, padding):

@@ -1,41 +1,78 @@
 """The cascade's rotated-ROI warp: bilinear sampling of several
 coordinate grids from one frame's channel planes in one kernel launch.
 
-Counterpart of tpu_face/ops/pallas_warp.py.  On a CUDA tensor
-``warp_sample_multi`` launches the hand-written kernel
-``csrc/warp_bilinear.cu`` (which replaces the Pallas ``_warp_kernel``);
-on a CPU tensor it runs ``warp_bilinear_plain``, the same function in
-plain PyTorch.  The kernel has no static sampling window, so unlike the
-TPU kernel it needs no envelope check: every ROI is sampled exactly.
+Counterpart of tpu_face/ops/pallas_warp.py, with both of its kernels:
 
-``LAUNCHES`` counts kernel launches (the plain path never adds to it),
-so a run can show that the main path went through the kernel.
+* f32 planes go to ``warp_bilinear`` (``csrc/warp_bilinear.cu``, which
+  replaces the resident-plane Pallas ``_warp_kernel``);
+* bf16 planes go to ``warp_bilinear_strips``
+  (``csrc/warp_bilinear_strips.cu``, which replaces the HBM strip-DMA
+  Pallas ``_warp_kernel_strips``; it also takes f32 planes).
+
+``warp_sample_multi`` dispatches on the plane type as the JAX version
+dispatches on a list of planes versus one stacked array.  On a CUDA
+tensor each wrapper launches its kernel or raises; on a CPU tensor it
+runs its plain PyTorch version.  The kernels have no static sampling
+window, so unlike the TPU kernels they need no envelope check: every ROI
+is sampled exactly.
+
+``LAUNCHES`` and ``STRIP_LAUNCHES`` count kernel launches (the plain
+paths never add to them), so a run can show that the main path went
+through the kernels.
 """
+
+import math
 
 import torch
 
 from . import _build
 
-LAUNCHES = 0
+LAUNCHES = 0          # warp_bilinear.cu
+STRIP_LAUNCHES = 0    # warp_bilinear_strips.cu
+
+XWIN = 128            # the TPU kernel's x-window (lanes)
+XLOAD = 2 * XWIN      # its aligned strip load width
 
 
-def make_planes(images, layout: str = "hwc"):
-    """[B, 3, H, W] contiguous f32 channel planes of a frame batch
-    ([B, H, W, 3] for ``layout="hwc"``, [B, 3, H, W] for "planar"),
-    built once per batch and shared by every warp of it.  Unlike the
-    TPU kernel's planes they are not padded."""
+def padded_width(w: int) -> int:
+    """Padded plane width the TPU kernels allocate for a frame of width
+    ``w`` (copy of ``pallas_warp.padded_width``; the card's planes are
+    not padded, the rule only feeds ``planes_fit_vmem``)."""
+    return max(-(-w // XWIN) * XWIN, XLOAD)
+
+
+def planes_fit_vmem(h: int, w: int, budget_bytes: int = 12 * 2**20,
+                    itemsize: int = 4) -> bool:
+    """Whether three padded planes fit the TPU kernel's VMEM residency
+    budget (copy of ``pallas_warp.planes_fit_vmem``): the rule that
+    routes a frame size to the resident kernel or to the strip kernel."""
+    hp = -(-h // 8) * 8
+    return 3 * itemsize * hp * padded_width(w) <= budget_bytes
+
+
+def make_planes(images, layout: str = "hwc", dtype=torch.float32):
+    """[B, 3, H, W] contiguous channel planes of a frame batch ([B, H,
+    W, 3] for ``layout="hwc"``, [B, 3, H, W] for "planar"), built once
+    per batch and shared by every warp of it.  ``dtype`` is float32 or
+    bfloat16; uint8 frames convert to bf16 directly, exactly (every
+    uint8 value is a bf16 value; JAX pads in f32 and casts last and gets
+    the same numbers).  Unlike the TPU kernels' planes they are not
+    padded."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"plane dtype must be float32 or bfloat16, got "
+                        f"{dtype}")
     if layout == "hwc":
         images = images.permute(0, 3, 1, 2)
     elif layout != "planar":
         raise ValueError(f"layout {layout!r}")
-    return images.to(torch.float32).contiguous()
+    return images.to(dtype).contiguous()
 
 
 def warp_bilinear_plain(planes, xs, ys):
-    """Plain PyTorch version of the kernel: zero-border bilinear samples
-    (tpu_face/ops/image.py::bilinear_sample) of planes [B, 3, H, W] at
-    xs/ys [B, P].  Returns [B, 3, P] f32, channel-major like the
-    kernel."""
+    """Plain PyTorch version of ``warp_bilinear.cu``: zero-border
+    bilinear samples (tpu_face/ops/image.py::bilinear_sample) of planes
+    [B, 3, H, W] at xs/ys [B, P], each tap widened to f32 as it is
+    gathered.  Returns [B, 3, P] f32, channel-major like the kernels."""
     b, c, h, w = planes.shape
     x0f = torch.floor(xs)
     y0f = torch.floor(ys)
@@ -49,14 +86,22 @@ def warp_bilinear_plain(planes, xs, ys):
         valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
         lin = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
         vals = torch.gather(flat, 2, lin[:, None].expand(b, c, -1))
-        return torch.where(valid[:, None], vals, 0.0)
+        return torch.where(valid[:, None], vals.to(torch.float32), 0.0)
 
     top = tap(y0, x0) * (1 - dx) + tap(y0, x0 + 1) * dx
     bot = tap(y0 + 1, x0) * (1 - dx) + tap(y0 + 1, x0 + 1) * dx
     return top * (1 - dy) + bot * dy
 
 
-def _check(planes, xs, ys):
+def warp_bilinear_strips_plain(planes, xs, ys):
+    """Plain PyTorch version of ``warp_bilinear_strips.cu``: samples
+    [B, 3, P] f32 of bf16 or f32 planes [B, 3, H, W] at xs/ys [B, P],
+    each tap upcast to f32 before the blend (the same function as
+    ``warp_bilinear_plain``, which widens every tap)."""
+    return warp_bilinear_plain(planes, xs, ys)
+
+
+def _check(planes, xs, ys, plane_dtypes):
     if planes.dim() != 4 or planes.shape[1] != 3:
         raise ValueError(f"planes must be [B, 3, H, W], got "
                          f"{tuple(planes.shape)}")
@@ -65,7 +110,10 @@ def _check(planes, xs, ys):
         raise ValueError(f"xs/ys must be [B, P] with B = "
                          f"{planes.shape[0]}, got {tuple(xs.shape)} and "
                          f"{tuple(ys.shape)}")
-    for name, t in (("planes", planes), ("xs", xs), ("ys", ys)):
+    if planes.dtype not in plane_dtypes:
+        raise TypeError(f"planes must be one of {plane_dtypes}, got "
+                        f"{planes.dtype}")
+    for name, t in (("xs", xs), ("ys", ys)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != planes.device:
@@ -73,13 +121,10 @@ def _check(planes, xs, ys):
                              f"{planes.device}")
 
 
-def warp_bilinear(planes, xs, ys):
-    """Samples [B, 3, P] of planes [B, 3, H, W] at xs/ys [B, P]: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    global LAUNCHES
-    _check(planes, xs, ys)
-    if planes.device.type == "cpu":
-        return warp_bilinear_plain(planes, xs, ys)
+def _launch(lib_name, fn_name, planes, xs, ys):
+    """Launch the warp kernel ``fn_name`` of library ``lib_name`` (C
+    signature ``_build._WARP_SIG``) on CUDA tensors; returns [B, 3, P]
+    f32."""
     if planes.device.type != "cuda":
         raise ValueError(f"no warp kernel for device {planes.device}")
     if planes.stride(3) != 1:
@@ -93,15 +138,47 @@ def warp_bilinear(planes, xs, ys):
     out = torch.empty((b, 3, p), dtype=torch.float32, device=planes.device)
     if b * p == 0:
         return out
-    fn = _build.load("warp_bilinear").warp_bilinear
+    fn = getattr(_build.load(lib_name), fn_name)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(planes.data_ptr(), planes.stride(0), planes.stride(1),
                  planes.stride(2), b, h, w, xs.data_ptr(), ys.data_ptr(), p,
                  out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"warp_bilinear launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    return out
+
+
+def warp_bilinear(planes, xs, ys):
+    """Samples [B, 3, P] of f32 planes [B, 3, H, W] at xs/ys [B, P]: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    global LAUNCHES
+    _check(planes, xs, ys, (torch.float32,))
+    if planes.device.type == "cpu":
+        return warp_bilinear_plain(planes, xs, ys)
+    out = _launch("warp_bilinear", "warp_bilinear", planes, xs, ys)
     LAUNCHES += 1
+    return out
+
+
+def warp_bilinear_strips(planes, xs, ys):
+    """Samples [B, 3, P] of bf16 or f32 planes [B, 3, H, W] at xs/ys
+    [B, P]: the strip kernel for CUDA tensors, its plain version for CPU
+    tensors.
+
+    Each row of xs/ys holds every grid of every face of that frame side
+    by side ([B, K*P]), so the frame index of a row stands in for the
+    TPU kernel's plane map g // plane_ratio: K faces share their frame's
+    planes without a copy."""
+    global STRIP_LAUNCHES
+    _check(planes, xs, ys, (torch.bfloat16, torch.float32))
+    if planes.device.type == "cpu":
+        return warp_bilinear_strips_plain(planes, xs, ys)
+    out = _launch("warp_bilinear_strips",
+                  "warp_bilinear_strips_bf16"
+                  if planes.dtype == torch.bfloat16
+                  else "warp_bilinear_strips_f32", planes, xs, ys)
+    STRIP_LAUNCHES += 1
     return out
 
 
@@ -109,17 +186,23 @@ def warp_sample_multi(planes, coords):
     """Bilinear-sample several output grids of one frame batch in one
     launch.
 
-    planes: [B, 3, H, W] f32 (``make_planes``); coords: list of
-    (src_x, src_y) pairs, each [B, Ho_i, Wo_i].  Grids may differ in
-    size.  Returns a list of [B, Ho_i, Wo_i, 3] f32 samples."""
+    planes: [B, 3, H, W] (``make_planes``): f32 planes go to
+    ``warp_bilinear``, bf16 planes to ``warp_bilinear_strips``.
+    coords: list of (src_x, src_y) pairs, each [B, ..., Ho_i, Wo_i] (a
+    face axis K after the batch axis puts every face of a frame in the
+    same launch, against that frame's planes).  Grids may differ in
+    size.  Returns a list of [B, ..., Ho_i, Wo_i, 3] f32 samples."""
     b = planes.shape[0]
     xs = torch.cat([sx.reshape(b, -1) for sx, _ in coords], dim=1)
     ys = torch.cat([sy.reshape(b, -1) for _, sy in coords], dim=1)
-    out = warp_bilinear(planes, xs, ys)
-    sizes = [sx.shape[-2] * sx.shape[-1] for sx, _ in coords]
-    # channel-last views of channel-major storage: the nets read them
-    # back as NCHW without a copy
-    return [seg.reshape(b, 3, *sx.shape[-2:]).permute(0, 2, 3, 1)
+    if planes.dtype == torch.bfloat16:
+        out = warp_bilinear_strips(planes, xs, ys)
+    else:
+        out = warp_bilinear(planes, xs, ys)
+    sizes = [math.prod(sx.shape[1:]) for sx, _ in coords]
+    # channel-last views of channel-major storage: with one face per
+    # frame the nets read them back as NCHW without a copy
+    return [seg.reshape(b, 3, *sx.shape[1:]).movedim(1, -1)
             for seg, (sx, _) in zip(out.split(sizes, dim=2), coords)]
 
 

@@ -1,13 +1,15 @@
 """FaceCascade: detect -> face ROI -> mesh -> both irises on one device
-(counterpart of tpu_face/pipeline.py, ``max_faces=1``).
+(counterpart of tpu_face/pipeline.py).
 
-Per batch of same-size frames: build the channel planes once; warp the
-whole frame for detection (separable hat matmuls); BlazeFace + decode +
-weighted NMS; the face ROI; the mesh warp (the CUDA warp kernel) and
-mesh CNN; the eye ROIs; both iris warps in ONE kernel launch, the right
-eye mirrored through its coordinates; the iris CNN on the stacked
-(left, mirrored right) pair; the mesh refinement.  The batch is an
-explicit leading dimension.
+Per batch of same-size frames: build the channel planes once (f32 up to
+~720p, bf16 beyond, as ``_plane_cfg`` decides); warp the whole frame for
+detection (separable hat matmuls); BlazeFace + decode + weighted NMS to
+``max_faces`` faces; the face ROIs; the mesh warp of every face of every
+frame in ONE kernel launch and the mesh CNN; the eye ROIs; both iris
+warps of every face in ONE kernel launch, the right eye mirrored through
+its coordinates; the iris CNN on the stacked (left, mirrored right)
+pairs; the mesh refinement.  The batch and the face axis are explicit
+leading dimensions [B, K]; the nets take the flat [B*K] batch.
 
 Stage semantics match the standalone models of the reference:
   detection    face_detection.rs:205-267
@@ -48,7 +50,9 @@ from .ops import warp as warp_ops
 class CascadeResult(NamedTuple):
     """Per-image results of the cascade (leading batch axis), in the
     shapes of ``tpu_face.pipeline.CascadeResult``.  All coordinates are
-    normalized to the input image."""
+    normalized to the input image.  With ``max_faces > 1`` every field
+    gains a face axis after the batch axis (e.g. mesh [B, K, 468, 3]);
+    with ``max_faces=1`` the shapes below apply."""
 
     detection: torch.Tensor      # [B, 8, 2] corners + 6 keypoints
     score: torch.Tensor          # [B] detection score
@@ -113,13 +117,26 @@ def _roi_to_norm(roi_abs, w, h):
 
 
 class FaceCascade:
-    """The fused cascade with one face per frame.
+    """The fused cascade.
 
     ``infer_batch(images)`` takes a uint8/float batch [B, H, W, 3] (or
     [B, 3, H, W] with ``input_layout="planar"``; all frames the same
     size, numpy or torch) and returns a ``CascadeResult`` of tensors on
     the cascade's device.  ``device=None`` means the CUDA card and
-    raises without one; pass ``device="cpu"`` for the plain path."""
+    raises without one; pass ``device="cpu"`` for the plain path.
+
+    ``max_faces`` faces per frame come out of the weighted NMS; the
+    per-face stages run over [B, max_faces].  Two arguments are accepted
+    for parity with ``tpu_face.pipeline.FaceCascade`` and have no effect
+    here:
+
+    * ``warp_profile`` ("coverage", "speed" or "auto") picks the TPU
+      warp kernels' block geometry and its static sampling window.  The
+      card's warp kernels have no such window and sample every ROI
+      exactly, so there is nothing to choose (``envelope_ok`` is always
+      True).
+    * ``nms_top_m`` bounds the candidate pool of ``plain_nms``; the
+      weighted NMS always merges over the full pool, as in JAX."""
 
     def __init__(self,
                  detection_model: FaceDetectionModel =
@@ -127,17 +144,23 @@ class FaceCascade:
                  model_path: Optional[str] = None,
                  compute_dtype=torch.float32,
                  max_faces: int = 1,
+                 nms_top_m: int = 128,
                  input_layout: str = "hwc",
+                 warp_profile: str = "auto",
                  device=None):
         if compute_dtype != torch.float32:
             raise NotImplementedError("only compute_dtype=float32 is "
                                       "ported")
-        if max_faces != 1:
-            raise NotImplementedError("only max_faces=1 is ported")
+        if int(max_faces) != max_faces or max_faces < 1:
+            raise ValueError(f"max_faces must be a positive int, got "
+                             f"{max_faces!r}")
         if input_layout not in ("hwc", "planar"):
             raise ValueError(f"input_layout {input_layout!r}")
+        if warp_profile not in ("coverage", "speed", "auto"):
+            raise ValueError(f"warp_profile {warp_profile!r}")
         self.device = resolve_device(device)
-        self.max_faces = max_faces
+        self.max_faces = int(max_faces)
+        self.nms_top_m = nms_top_m
         self._layout = input_layout
         base = Path(model_path) if model_path else _DATA_DIR
         det_graph = Graph(base / f"{_MODEL_FILES[detection_model]}.npz")
@@ -178,29 +201,47 @@ class FaceCascade:
             return self._forward(images, (w, h))
 
     def _forward(self, images, image_size):
-        planes = self._prepare_frame(images)
-        dets, out_s, out_v = self._detect_stage(planes, image_size)
-        det, score, face_valid = dets[:, 0], out_s[:, 0], out_v[:, 0]
-        face_roi_abs = self._face_roi_from_det(det, image_size)
+        planes = self._prepare_frame(images, image_size)
+        dets, score, face_valid = self._detect_stage(planes, image_size)
+        face_roi_abs = self._face_roi_from_det(dets, image_size)
         mesh, mesh_score, left_roi, right_roi = self._mesh_half(
             planes, face_roi_abs, image_size)
         refined, l_iris, r_iris = self._iris_half(
             planes, mesh, left_roi, right_roi, image_size)
-        return self._assemble_result(
-            det, score, face_valid, face_roi_abs, mesh, refined,
+        res = self._assemble_result(
+            dets, score, face_valid, face_roi_abs, mesh, refined,
             mesh_score, left_roi, right_roi, l_iris, r_iris, image_size)
+        if self.max_faces == 1:
+            # as in JAX: no face axis at max_faces=1
+            res = CascadeResult(*(f[:, 0] for f in res))
+        return res
 
     # ---- stages ------------------------------------------------------
 
-    def _prepare_frame(self, images):
-        """[B, 3, H, W] f32 channel planes, built once per batch and read
-        by the detection warp and every ROI warp."""
-        return warp_ops.make_planes(images, self._layout)
+    @staticmethod
+    def _plane_cfg(image_size):
+        """Warp-plane type for this frame size (``pipeline._plane_cfg``
+        of the JAX package): f32 while ``planes_fit_vmem`` holds (the
+        TPU's resident kernel, up to ~720p), bf16 beyond it (its strip
+        kernel).  On the card the rule only chooses the plane type and
+        so the kernel (``warp.warp_sample_multi`` dispatches on it): every
+        frame size takes the counterpart of the TPU kernel the JAX
+        package takes there."""
+        w, h = image_size
+        return (torch.float32 if warp_ops.planes_fit_vmem(h, w)
+                else torch.bfloat16)
+
+    def _prepare_frame(self, images, image_size):
+        """[B, 3, H, W] channel planes of the type ``_plane_cfg`` picks,
+        built once per batch and read by the detection warp and every ROI
+        warp."""
+        return warp_ops.make_planes(images, self._layout,
+                                    self._plane_cfg(image_size))
 
     def _detect_stage(self, planes, image_size):
         """Whole-image detection + weighted NMS (reference
-        face_detection.rs:205-267).  Returns (dets [B, 1, 8, 2]
-        normalized, scores [B, 1], valid [B, 1])."""
+        face_detection.rs:205-267).  Returns (dets [B, K, 8, 2]
+        normalized, scores [B, K], valid [B, K]) with K = max_faces."""
         w, h = image_size
         det_size = (self.det_w, self.det_h)
         # whole-image ROI has rotation 0: the warp is separable (two hat
@@ -223,7 +264,7 @@ class FaceCascade:
             raw_scores.reshape(raw_scores.shape[0], -1))
         valid = post.detection_validity(boxes, scores)
         out_d, out_s, out_v = post.weighted_nms(boxes, scores, valid,
-                                                max_outputs=1)
+                                                max_outputs=self.max_faces)
         return post.letterbox_removal(out_d, padding), out_s, out_v
 
     def _whole_frame_coords(self, image_size):
@@ -239,77 +280,80 @@ class FaceCascade:
         return self._whole_coords[image_size]
 
     def _face_roi_from_det(self, det, image_size):
-        """Face ROI (face_landmark.rs:180-198): keypoint rows 2 (left
-        eye) and 3 (right eye), scale 1.5, square-long."""
+        """Face ROIs [..., 5] of detections [..., 8, 2]
+        (face_landmark.rs:180-198): keypoint rows 2 (left eye) and 3
+        (right eye), scale 1.5, square-long."""
         w, h = image_size
-        return _bbox_to_roi_abs(det[:, 0, 0], det[:, 0, 1], det[:, 1, 0],
-                                det[:, 1, 1], _scale_xy(det[:, 2], w, h),
-                                _scale_xy(det[:, 3], w, h),
+        return _bbox_to_roi_abs(det[..., 0, 0], det[..., 0, 1],
+                                det[..., 1, 0], det[..., 1, 1],
+                                _scale_xy(det[..., 2, :], w, h),
+                                _scale_xy(det[..., 3, :], w, h),
                                 MESH_ROI_SCALE, w, h)
 
     def _mesh_half(self, planes, face_roi_abs, image_size):
-        """Mesh warp + CNN + projection, then the eye ROIs.  Returns
-        (mesh [B, 468, 3] normalized, mesh_score [B], left_roi [B, 5],
-        right_roi [B, 5])."""
+        """Mesh warp + CNN + projection, then the eye ROIs, for face ROIs
+        [B, K, 5].  Returns (mesh [B, K, 468, 3] normalized, mesh_score
+        [B, K], left_roi [B, K, 5], right_roi [B, K, 5])."""
         w, h = image_size
+        b, k = face_roi_abs.shape[:2]
         mx, my, mesh_pad = image_ops._source_coords(
             face_roi_abs, (self.mesh_w, self.mesh_h), False, False)
         (mesh_raw,) = warp_ops.warp_sample_multi(planes, [(mx, my)])
         mesh_tensor = image_ops._normalize_pixels(mesh_raw, (0.0, 1.0),
                                                   True)
-        raw_mesh, raw_flag = self._mesh_net(mesh_tensor)
-        b = raw_mesh.shape[0]
-        mesh_score = torch.sigmoid(raw_flag.reshape(b))
+        raw_mesh, raw_flag = self._mesh_net(mesh_tensor.flatten(0, 1))
+        mesh_score = torch.sigmoid(raw_flag.reshape(b, k))
         mesh = post.project_landmarks(
-            raw_mesh.reshape(b, -1), (self.mesh_w, self.mesh_h),
+            raw_mesh.reshape(b, k, -1), (self.mesh_w, self.mesh_h),
             image_size, mesh_pad, face_roi_abs)
 
         # eye ROIs (iris_landmark.rs:268-292); rotation from NORMALIZED
         # landmark coordinates, as the reference computes it
         def eye_roi(i0, i1):
-            p0, p1 = mesh[:, i0], mesh[:, i1]
+            p0, p1 = mesh[..., i0, :], mesh[..., i1, :]
             return _bbox_to_roi_abs(
-                torch.minimum(p0[:, 0], p1[:, 0]),
-                torch.minimum(p0[:, 1], p1[:, 1]),
-                torch.maximum(p0[:, 0], p1[:, 0]),
-                torch.maximum(p0[:, 1], p1[:, 1]),
-                p0[:, :2], p1[:, :2], IRIS_ROI_SCALE, w, h)
+                torch.minimum(p0[..., 0], p1[..., 0]),
+                torch.minimum(p0[..., 1], p1[..., 1]),
+                torch.maximum(p0[..., 0], p1[..., 0]),
+                torch.maximum(p0[..., 1], p1[..., 1]),
+                p0[..., :2], p1[..., :2], IRIS_ROI_SCALE, w, h)
 
         return (mesh, mesh_score, eye_roi(LEFT_EYE_START, LEFT_EYE_END),
                 eye_roi(RIGHT_EYE_START, RIGHT_EYE_END))
 
     def _iris_half(self, planes, mesh, left_roi, right_roi, image_size):
-        """Both iris warps in one launch (right eye mirrored), the iris
-        CNN on the stacked pair, the projections and the mesh refinement
-        (iris_landmark.rs:158-248, 380-398).  Returns (refined mesh,
-        l_iris [B, 5, 3], r_iris [B, 5, 3])."""
+        """Both iris warps of every face in one launch (right eye
+        mirrored), the iris CNN on the stacked pairs, the projections and
+        the mesh refinement (iris_landmark.rs:158-248, 380-398).  Returns
+        (refined mesh [B, K, 468, 3], l_iris [B, K, 5, 3], r_iris
+        [B, K, 5, 3])."""
         size = (self.iris_w, self.iris_h)
         lx, ly, lp = image_ops._source_coords(left_roi, size, True, False)
         rx, ry, rp = image_ops._source_coords(right_roi, size, True, True)
         l_raw, r_raw = warp_ops.warp_sample_multi(planes,
                                                   [(lx, ly), (rx, ry)])
-        # stacked channel-major [B, 2, 3, Ho, Wo], handed to the net as
-        # its NHWC view of [2B, 3, Ho, Wo]
-        pair = torch.stack([l_raw.permute(0, 3, 1, 2),
-                            r_raw.permute(0, 3, 1, 2)], dim=1)
+        # stacked channel-major [B, K, 2, 3, Ho, Wo], handed to the net
+        # as its NHWC view of [2BK, 3, Ho, Wo]
+        pair = torch.stack([l_raw.movedim(-1, -3), r_raw.movedim(-1, -3)],
+                           dim=2)
         pair = image_ops._normalize_pixels(pair, (0.0, 1.0), True)
-        b = pair.shape[0]
+        b, k = pair.shape[:2]
         raw_contour, raw_iris = self._iris_net(
-            pair.flatten(0, 1).permute(0, 2, 3, 1))
-        raw_contour = raw_contour.reshape(b, 2, -1)
-        raw_iris = raw_iris.reshape(b, 2, -1)
+            pair.flatten(0, 2).permute(0, 2, 3, 1))
+        raw_contour = raw_contour.reshape(b, k, 2, -1)
+        raw_iris = raw_iris.reshape(b, k, 2, -1)
 
         def project(raw, roi_abs, pad, flip):
             return post.project_landmarks(raw, size, image_size, pad,
                                           roi_abs, flip_horizontal=flip)
 
-        l_contour = project(raw_contour[:, 0], left_roi, lp, False)
-        r_contour = project(raw_contour[:, 1], right_roi, rp, True)
-        l_iris = project(raw_iris[:, 0], left_roi, lp, False)
-        r_iris = project(raw_iris[:, 1], right_roi, rp, True)
+        l_contour = project(raw_contour[:, :, 0], left_roi, lp, False)
+        r_contour = project(raw_contour[:, :, 1], right_roi, rp, True)
+        l_iris = project(raw_iris[:, :, 0], left_roi, lp, False)
+        r_iris = project(raw_iris[:, :, 1], right_roi, rp, True)
 
-        refined = mesh.index_copy(1, self._left_idx, l_contour)
-        refined = refined.index_copy(1, self._right_idx, r_contour)
+        refined = mesh.index_copy(2, self._left_idx, l_contour)
+        refined = refined.index_copy(2, self._right_idx, r_contour)
         return refined, l_iris, r_iris
 
     def _assemble_result(self, det, score, face_valid, face_roi_abs,
@@ -325,8 +369,8 @@ class FaceCascade:
             mesh_raw=mesh,
             mesh_score=mesh_score,
             mesh_valid=face_valid & (mesh_score > 0.5),
-            eye_rois=_roi_to_norm(torch.stack([left_roi, right_roi], dim=1),
+            eye_rois=_roi_to_norm(torch.stack([left_roi, right_roi], dim=-2),
                                   w, h),
-            iris=torch.stack([l_iris, r_iris], dim=1),
+            iris=torch.stack([l_iris, r_iris], dim=-3),
             envelope_ok=torch.ones_like(face_valid),
         )
