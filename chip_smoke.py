@@ -6,33 +6,50 @@
 Phases, each of which fails loudly (nonzero exit, no result line):
 
 1. device  -- the card's name and power limit (nvidia-smi), torch's name;
-2. build   -- compiles both warp kernels from tpu_face_torch/csrc, one
-              nvcc per source, started together, and prints their ptxas
-              lines;
-3. kernel  -- each kernel against its plain PyTorch version (max abs error
-              <= 1e-3) on random ROIs to +-45 deg, mirrored grids and taps
-              past the frame edge, with the cascade's grids (a 192x192
-              mesh grid, 64x64 left and mirrored right iris grids):
-              warp_bilinear on f32 planes of 32 frames of 540x360, a
-              1280x720 and a 64x64 frame; warp_bilinear_strips on bf16
-              and f32 planes of 8 frames of 1920x1080 and 2 of 3840x2160,
-              with 1 and 4 faces per frame;
-4. cascade -- the main path, with both launch counts set to 0 before it
+2. build   -- compiles the three kernels from tpu_face_torch/csrc (the two
+              warps and the fused residual block), one nvcc per source,
+              started together, and prints their ptxas lines;
+3. kernel  -- each kernel against its plain PyTorch version.  The warps
+              (max abs error <= 1e-3) on random ROIs to +-45 deg,
+              mirrored grids and taps past the frame edge, with the
+              cascade's grids (a 192x192 mesh grid, 64x64 left and
+              mirrored right iris grids): warp_bilinear on f32 planes of
+              32 frames of 540x360, a 1280x720 and a 64x64 frame;
+              warp_bilinear_strips on bf16 and f32 planes of 8 frames of
+              1920x1080 and 2 of 3840x2160, with 1 and 4 faces per frame.
+              The fused block (TF32 off): f32 at each residual run of the
+              BACK detector (128x128x24, 64x64x24, 32x32x48, 16x16x96,
+              seven blocks each, batch 64, the detector's weights) within
+              1e-4 * max(1, max|plain|), and f32 and bf16 at the Pallas
+              prototypes' shape (batch 256, 128x128x24, 7 blocks, their
+              seeded weights), bf16 within 2e-2 * max|plain|; the tiling
+              the wrapper chose for each run is printed;
+4. cascade -- the main path, with every launch count set to 0 before it
               and read after it: FaceCascade() on the seven rotated frames
               of assets/rotated/ (one infer_batch per geometry; 2
-              warp_bilinear and 0 warp_bilinear_strips launches each),
-              held against their ground truth (bbox IoU >= 0.99,
-              landmarks <= 1 px) and the port's own CPU result; then
-              canvas (a) at 1920x1080 (K=1) and (b) at 1280x824 (K=2),
-              2 warp_bilinear_strips launches each, and (c) at 1080x720
-              (K=4), 2 warp_bilinear launches; every face valid and within
-              0.25 px / 1e-3 of the CPU port;
-5. numbers -- cascade frames/s at 540x360 batch 64, at 1080p batch 64 and
-              at 4K batch 8 (planar input), faces/s of canvas (c) at
-              batch 32 with K=4, per-stage times at 540x360, and each
-              kernel's time at its main path's shapes beside its bound,
-              its plain version and torch.nn.functional.grid_sample (a
-              yardstick only).
+              warp_bilinear, 0 warp_bilinear_strips and the detector's
+              planned fused-block launches each), held against their
+              ground truth (bbox IoU >= 0.99, landmarks <= 1 px) and the
+              port's own CPU result; then canvas (a) at 1920x1080 (K=1)
+              and (b) at 1280x824 (K=2), 2 warp_bilinear_strips launches
+              each, and (c) at 1080x720 (K=4), 2 warp_bilinear launches;
+              every face valid and within 0.25 px / 1e-3 of the CPU port;
+5. models  -- the standalone models, counts set to 0 before and read
+              after: FaceDetection(BACK) -> face_detection_to_roi ->
+              FaceLandmark -> iris_roi_from_face_landmarks -> IrisLandmark
+              (left, and right mirrored) on the seven rotated frames,
+              against their ground truth and the CPU port (0.25 px /
+              1e-3), each warp on warp_bilinear; then the same chain on
+              canvas (a), where the mesh and iris warps take
+              warp_bilinear_strips over f32 planes;
+6. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+              residual runs on the fused kernel and op by op), at 1080p
+              batch 64 and at 4K batch 8 (planar input), faces/s of canvas
+              (c) at batch 32 with K=4, per-stage times at 540x360, the
+              BACK net at 540x360 batch 64 with and without the fused
+              kernel, and each kernel's time at its main path's shapes
+              beside its bound, its plain version and, for the warps,
+              torch.nn.functional.grid_sample (a yardstick only).
 
 Its last lines are the nvidia-smi line, a JSON line of numbers, the
 kernels' JSON line and {"ok": true, "device": {...}}.  Imports nothing
@@ -44,6 +61,11 @@ adds torch.profiler windows over three cascade calls each at 540x360
 batch 64, 1080p batch 64 and 4K batch 8 to the numbers (device busy
 share, kernel launches per call, the kernels that take the most device
 time) and writes each full table and Chrome trace into DIR.
+
+    python3 chip_smoke.py --sweep
+
+adds the fused kernel's time at each residual run of the BACK detector
+(batch 64) for every tiling that fits shared memory.
 """
 
 import argparse
@@ -63,8 +85,11 @@ ROT = ROOT / "assets" / "rotated"
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # bf16 tensor cores, f32 accumulation
 
 KERNEL_TOL = 1e-3               # 0-255 units, before rounding
+BLOCK_TOL_F32 = 1e-4            # fused block, x max(1, max|plain|)
+BLOCK_TOL_BF16 = 2e-2           # fused block in bf16, x max|plain|
 CPU_PX_TOL = 0.25               # landmarks, GPU vs CPU port, pixels
 CPU_SCORE_TOL = 1e-3
 
@@ -72,37 +97,54 @@ CPU_SCORE_TOL = 1e-3
 # transcription; the same rows as tests/test_rotation_e2e.py).
 GT = {
     "man_rotp15.png": {
-        "size": (540, 360), "bbox": (184.8, 80.8, 317.5, 213.6),
+        "size": (540, 360), "score": 0.9412,
+        "keypoints": [(219.6, 124.5), (272.5, 108.2), (254.8, 148.1),
+                      (263.2, 175.5), (195.0, 147.5), (307.8, 113.7)],
+        "bbox": (184.8, 80.8, 317.5, 213.6),
         "roi_rot": -0.2983, "nose": (255.63, 146.75),
         "iris": {"L": (219.20, 120.41), "R": (271.60, 105.20)},
         "eye_rots": (-0.3492, -0.4751)},
     "man_rotm15.png": {
-        "size": (540, 360), "bbox": (208.0, 72.0, 347.0, 211.1),
+        "size": (540, 360), "score": 0.9611,
+        "keypoints": [(254.4, 105.5), (307.8, 118.5), (273.3, 147.1),
+                      (267.0, 173.2), (221.4, 110.6), (335.8, 138.1)],
+        "bbox": (208.0, 72.0, 347.0, 211.1),
         "roi_rot": 0.2381, "nose": (272.26, 142.97),
         "iris": {"L": (255.85, 102.66), "R": (308.64, 116.28)},
         "eye_rots": (0.4246, 0.2800)},
     "man_rotp30.png": {
-        "size": (540, 360), "bbox": (178.4, 88.7, 301.1, 211.4),
+        "size": (540, 360), "score": 0.9475,
+        "keypoints": [(209.1, 139.0), (255.8, 109.7), (250.0, 153.4),
+                      (264.2, 177.8), (188.8, 165.3), (288.7, 103.9)],
+        "bbox": (178.4, 88.7, 301.1, 211.4),
         "roi_rot": -0.5612, "nose": (247.59, 151.92),
         "iris": {"L": (205.44, 135.63), "R": (252.41, 107.08)},
         "eye_rots": (-0.6559, -0.7816)},
     "man_rotm30.png": {
-        "size": (540, 360), "bbox": (231.0, 82.4, 353.4, 204.7),
+        "size": (540, 360), "score": 0.9284,
+        "keypoints": [(274.3, 104.3), (322.7, 132.6), (280.9, 148.6),
+                      (266.8, 172.2), (242.7, 99.2), (344.9, 159.5)],
+        "bbox": (231.0, 82.4, 353.4, 204.7),
         "roi_rot": 0.5287, "nose": (282.63, 146.37),
         "iris": {"L": (275.97, 101.57), "R": (323.83, 128.60)},
         "eye_rots": (0.7652, 0.6119)},
     "man_closeup_rotp30.png": {
-        "size": (704, 704), "bbox": (181.8, 170.1, 415.6, 403.9),
+        "size": (704, 704), "score": 0.785,
+        "keypoints": [(237.9, 266.0), (332.7, 208.2), (321.5, 294.5),
+                      (348.8, 342.1), (198.2, 316.8), (392.5, 199.3)],
+        "bbox": (181.8, 170.1, 415.6, 403.9),
         "roi_rot": -0.5473, "nose": (317.30, 291.96),
         "iris": {"L": (234.49, 260.51), "R": (326.30, 205.84)},
         "eye_rots": (-0.4764, -0.5867)},
     "russ2_rotp20.png": {
-        "size": (200, 225), "bbox": (56.3, 70.7, 148.6, 163.0),
+        "size": (200, 225), "score": 0.9123,
+        "bbox": (56.3, 70.7, 148.6, 163.0),
         "roi_rot": -0.4737, "nose": (103.69, 125.47),
         "iris": {"L": (77.09, 106.69), "R": (113.66, 89.22)},
         "eye_rots": (-0.3145, -0.4772)},
     "russ2_rotm20.png": {
-        "size": (200, 225), "bbox": (57.3, 71.0, 154.3, 168.0),
+        "size": (200, 225), "score": 0.9226,
+        "bbox": (57.3, 71.0, 154.3, 168.0),
         "roi_rot": 0.2164, "nose": (95.01, 124.70),
         "iris": {"L": (86.22, 93.21), "R": (125.23, 103.28)},
         "eye_rots": (0.2922, 0.1481)},
@@ -370,13 +412,23 @@ def trace_cascade(cascade, batch, out, label, calls=3, top=12):
                  e.count // calls] for e in kernels[:top]]}
 
 
+def launch_counts():
+    """The launch counts (warp_bilinear, warp_bilinear_strips,
+    fused_dw_pw_block)."""
+    return (warp.LAUNCHES, warp.STRIP_LAUNCHES, fused_block.LAUNCHES)
+
+
+def reset_counts():
+    warp.LAUNCHES = warp.STRIP_LAUNCHES = fused_block.LAUNCHES = 0
+
+
 def counted(fn):
-    """``fn()`` and the launches of (warp_bilinear, warp_bilinear_strips)
-    it made."""
-    before = (warp.LAUNCHES, warp.STRIP_LAUNCHES)
+    """``fn()`` and the launches of (warp_bilinear, warp_bilinear_strips,
+    fused_dw_pw_block) it made."""
+    before = launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, (warp.LAUNCHES - before[0], warp.STRIP_LAUNCHES - before[1])
+    return out, tuple(a - b for a, b in zip(launch_counts(), before))
 
 
 def phase_build():
@@ -388,15 +440,15 @@ def phase_build():
         log = _build.BUILD_LOG[name]
         print(log["ptxas"])
         print(f"{name}: nvcc {log['seconds']:.2f} s")
-    print(f"both kernels built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    print(f"{len(KERNELS)} kernels built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def phase_kernels(rng):
     """Each kernel against its plain version; returns the max abs errors
     {kernel: err}."""
     phase("kernel vs plain")
-    errs = {name: 0.0 for name in KERNELS}
+    errs = {name: 0.0 for name in SOURCES}
 
     def check(name, kernel, plain, planes, coords, launches):
         xs, ys = flat(coords)
@@ -416,7 +468,7 @@ def phase_kernels(rng):
         planes = warp.make_planes(frames)
         for coords in random_coords(rng, b, w, h, image_ops):
             check("warp_bilinear", warp.warp_bilinear,
-                  warp.warp_bilinear_plain, planes, coords, (1, 0))
+                  warp.warp_bilinear_plain, planes, coords, (1, 0, 0))
     for b, (w, h) in ((8, (1920, 1080)), (2, (3840, 2160))):
         frames = torch.from_numpy(
             rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).cuda()
@@ -426,14 +478,149 @@ def phase_kernels(rng):
                 for coords in random_coords(rng, b, w, h, image_ops, faces):
                     check("warp_bilinear_strips", warp.warp_bilinear_strips,
                           warp.warp_bilinear_strips_plain, planes, coords,
-                          (0, 1))
+                          (0, 1, 0))
             del planes
     # warp_sample_multi takes the strip kernel for bf16 planes
     planes = warp.make_planes(frames, dtype=torch.bfloat16)
     _, n = counted(lambda: warp.warp_sample_multi(
         planes, random_coords(rng, b, w, h, image_ops, 2)[1]))
-    assert n == (0, 1), n
+    assert n == (0, 1, 0), n
+    del planes, frames
+    errs.update(phase_fused_blocks())
     return errs
+
+
+def back_net(fuse_blocks=True):
+    """The BACK detector lowered on the card (its residual runs on the
+    fused kernel, or op by op)."""
+    return build_torch_fn(Graph(DATA_DIR / "face_detection_back.npz"),
+                          resolve_device(), fuse_blocks=fuse_blocks)
+
+
+def detector_runs(net, rng, batch):
+    """The BACK detector's residual runs as ``fused_blocks`` arguments at
+    ``batch``: [(label, x, weights)], x relu'd normal noise of the run's
+    shape on the card, the weights the net's own."""
+    cases = []
+    for k, (c, h, w, layers) in enumerate(net.run_shapes):
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, c, h, w), dtype=np.float32)).cuda().relu_()
+        cases.append((f"R{k + 1} {h}x{w}x{c} L={layers}", x,
+                      [getattr(net, f"run{k}_{n}")
+                       for n in ("wd", "bd", "wp", "bp")]))
+    return cases
+
+
+def prototype_inputs(batch):
+    """K3/K4's inputs, seeded as docs/experiments/fused_block_prototype.py
+    :25-29 (generator 0: x [B, 128, 128, 24] normal, wd [7, 3, 3, 24] *
+    0.2, wp [7, 24, 24] * 0.2, one bias [7, 24]), in the port's layout:
+    x NCHW on the card, the depthwise bias zero."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(batch, 128, 128, 24)).astype(np.float32)
+    wd = (rng.normal(size=(7, 3, 3, 24)) * 0.2).astype(np.float32)
+    wp = (rng.normal(size=(7, 24, 24)) * 0.2).astype(np.float32)
+    bias = rng.normal(size=(7, 24)).astype(np.float32)
+    x = torch.from_numpy(x).cuda().permute(0, 3, 1, 2).contiguous()
+    return x, [torch.from_numpy(wd).permute(0, 3, 1, 2).contiguous().cuda(),
+               torch.zeros(7, 24).cuda(), torch.from_numpy(wp).cuda(),
+               torch.from_numpy(bias).cuda()]
+
+
+def check_fused(label, x, weights):
+    """The fused kernel against its plain version on one run (TF32 off);
+    returns the max abs error."""
+    b, c, h, w = x.shape
+    tile, chunks = fused_block.plan(c, h, w, weights[0].shape[0],
+                                    x.element_size())
+    with torch.inference_mode(), exact_f32():
+        got, n = counted(lambda: fused_block.fused_blocks(x, *weights))
+        ref = fused_block.fused_blocks_plain(x, *weights)
+    assert n == (0, 0, len(chunks)), (label, n, chunks)
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = (BLOCK_TOL_F32 * max(1.0, scale) if x.dtype == torch.float32
+           else BLOCK_TOL_BF16 * scale)
+    print(f"fused_dw_pw_block {str(x.dtype)[6:]} {label} B={b}: tile "
+          f"{tile}x{tile}, layers per launch {list(chunks)}; max abs err "
+          f"{err:.3g} (max |plain| {scale:.3g}, tolerance {tol:.3g})",
+          flush=True)
+    assert err <= tol, (label, err, tol)
+    return err
+
+
+def phase_fused_blocks():
+    """The fused block against its plain version: f32 at the BACK
+    detector's four runs (batch ``BATCH["fused"]``), f32 and bf16 at
+    K3/K4's shape; returns the max abs errors of the two entry points."""
+    rng = np.random.default_rng(1)
+    err32 = max(check_fused(label, x, w) for label, x, w in
+                detector_runs(back_net(), rng, BATCH["fused"]))
+    x, w = prototype_inputs(BATCH["k3"])
+    err32 = max(err32, check_fused("K3 128x128x24 L=7", x, w))
+    err16 = check_fused("K4 128x128x24 L=7", x.to(torch.bfloat16), w)
+    return {"fused_dw_pw_block_f32": err32, "fused_dw_pw_block_bf16": err16}
+
+
+def time_fused(cases, dtype):
+    """The fused kernel over ``cases`` [(label, x, weights)], all in one
+    timed call, in ``dtype``: its time, the plain version's and the
+    bound (each input and weight read once, each output written once;
+    f32 operations at the f32 peak, bf16 ones at the bf16 tensor-core
+    rate, which also accumulates in f32)."""
+    runs = [(x.to(dtype), w) for _, x, w in cases]
+
+    def kernel():
+        for x, w in runs:
+            fused_block.fused_blocks(x, *w)
+
+    def plain():
+        for x, w in runs:
+            fused_block.fused_blocks_plain(x, *w)
+
+    with torch.inference_mode(), exact_f32():
+        kernel_ms, _ = median_ms(kernel, reps=10)
+        plain_ms, _ = median_ms(plain, reps=3)
+    flops = sum(x.shape[0] * x.shape[2] * x.shape[3] * w[0].shape[0]
+                * fused_block.block_flops(x.shape[1]) for x, w in runs)
+    nbytes = sum(2 * x.numel() * x.element_size()
+                 + sum(t.numel() * t.element_size() for t in w)
+                 for x, w in runs)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / (H100_F32_FLOPS if dtype == torch.float32
+                      else H100_BF16_FLOPS) * 1e3
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes,
+            "tilings": [fused_block.plan(x.shape[1], x.shape[2], x.shape[3],
+                                         w[0].shape[0], x.element_size())
+                        for x, w in runs]}
+
+
+def sweep_tilings(cases):
+    """The fused kernel's time at each run for every tiling (tile a
+    multiple of 4, any layers per launch) that fits shared memory."""
+    out = {}
+    with torch.inference_mode(), exact_f32():
+        for label, x, w in cases:
+            _, c, h, width = x.shape
+            layers = w[0].shape[0]
+            times = {}
+            for per in range(1, layers + 1):
+                chunks = fused_block.split_layers(layers, per)
+                for tile in range(4, max(h, width) + 1, 4):
+                    if fused_block.smem_bytes(c, tile, per) > \
+                            fused_block.SMEM_LIMIT:
+                        break
+                    times[f"L{per}_t{tile}"] = median_ms(
+                        lambda: fused_block.fused_blocks(
+                            x, *w, tiling=(tile, chunks)), reps=5)[0]
+            best = min(times, key=times.get)
+            print(f"sweep {label}: best {best} {times[best]:.4f} ms; plan "
+                  f"{fused_block.plan(c, h, width, layers)}", flush=True)
+            out[label] = times
+    return out
 
 
 def run_cascade(cascade, frames, launches):
@@ -452,20 +639,24 @@ def phase_cascade():
     batches = {size: np.stack([load_image(ROT / n) for n in names])
                for size, names in groups.items()}
     cascade = FaceCascade()
-    canvases = {"a": (canvas_1080p(load_image), 1, (0, 2)),
-                "b": (canvas_two_faces(load_image), 2, (0, 2)),
-                "c": (canvas_grid(load_image), 4, (2, 0))}
+    # the detector's residual runs: one fused launch per layer chunk of
+    # the wrapper's tiling plan, per infer_batch
+    fused = cascade._det_net.fused_launches()
+    canvases = {"a": (canvas_1080p(load_image), 1, (0, 2, fused)),
+                "b": (canvas_two_faces(load_image), 2, (0, 2, fused)),
+                "c": (canvas_grid(load_image), 4, (2, 0, fused))}
     cascades = {1: cascade, 2: FaceCascade(max_faces=2),
                 4: FaceCascade(max_faces=4)}
-    warp.LAUNCHES = warp.STRIP_LAUNCHES = 0
-    results = {size: run_cascade(cascade, batch, (2, 0))
+    reset_counts()
+    results = {size: run_cascade(cascade, batch, (2, 0, fused))
                for size, batch in batches.items()}
     canvas_results = {key: run_cascade(cascades[k], img[None], n)
                       for key, (img, k, n) in canvases.items()}
-    launches = {"warp_bilinear": warp.LAUNCHES,
-                "warp_bilinear_strips": warp.STRIP_LAUNCHES}
+    launches = dict(zip(("warp_bilinear", "warp_bilinear_strips",
+                         "fused_dw_pw_block_f32"), launch_counts()))
     print(f"launches on the main path: {launches} for {len(batches)} "
-          f"rotated-frame and {len(canvases)} canvas infer_batch calls")
+          f"rotated-frame and {len(canvases)} canvas infer_batch calls "
+          f"({fused} fused-block launches planned per infer_batch)")
 
     cpu = {k: FaceCascade(device="cpu", max_faces=k) for k in cascades}
     for size, names in groups.items():
@@ -489,7 +680,119 @@ def phase_cascade():
     return launches
 
 
-def phase_numbers(rng, trace):
+def chain(models, img, size):
+    """The verify skill's chain: detection -> face ROI -> mesh -> eye
+    ROIs -> left and mirrored right iris.  Returns [detection data
+    (8, 2) normalized, mesh (468, 3), left contour + iris (76, 3), right
+    contour + iris (76, 3)] as arrays, and the detection score."""
+    det, mesh_model, iris_model = models
+    faces = det.infer(img)
+    assert len(faces) == 1, len(faces)
+    mesh = mesh_model.infer(img, tmodels.face_detection_to_roi(faces[0],
+                                                               size))
+    assert len(mesh) == 468
+    left, right = tmodels.iris_roi_from_face_landmarks(mesh, size)
+    eyes = [iris_model.infer(img, left),
+            iris_model.infer(img, right, is_right_eye=True)]
+
+    def rows(points):
+        return np.array([(p.x, p.y, p.z) for p in points], np.float32)
+
+    return ([faces[0].data, rows(mesh)]
+            + [rows(e.contour + e.iris) for e in eyes], faces[0].score)
+
+
+def check_chain_gt(res, gt):
+    """A chain's result against a ground-truth row: score within 0.01,
+    bbox IoU >= 0.99, keypoints (where the row has them), nose and iris
+    centres <= 1 px; returns (IoU, worst px)."""
+    (det, mesh, left, right), score = res
+    w, h = gt["size"]
+    assert abs(score - gt["score"]) < 0.01, (score, gt["score"])
+    box_iou = iou((det[0, 0] * w, det[0, 1] * h, det[1, 0] * w,
+                   det[1, 1] * h), gt["bbox"])
+    assert box_iou >= 0.99, box_iou
+    pts = [((det[2 + k, 0] * w, det[2 + k, 1] * h), g)
+           for k, g in enumerate(gt.get("keypoints", []))]
+    pts += [((mesh[1, 0] * w, mesh[1, 1] * h), gt["nose"]),
+            ((left[71, 0] * w, left[71, 1] * h), gt["iris"]["L"]),
+            ((right[71, 0] * w, right[71, 1] * h), gt["iris"]["R"])]
+    worst = max(max(abs(p[0] - g[0]), abs(p[1] - g[1])) for p, g in pts)
+    assert worst <= 1.0, (pts, worst)
+    return box_iou, worst
+
+
+def compare_chains(res, ref, size):
+    """Card chain vs CPU chain: worst point difference in px (x, y, and
+    z in x's units) and score difference, within 0.25 px / 1e-3."""
+    w, h = size
+    scale = np.array([w, h, w], np.float32)
+    px = max(float((np.abs(a - b) * scale[:a.shape[1]]).max())
+             for a, b in zip(res[0], ref[0]))
+    sc = abs(res[1] - ref[1])
+    assert px <= CPU_PX_TOL and sc <= CPU_SCORE_TOL, (px, sc)
+    return px, sc
+
+
+def phase_models():
+    """The standalone models on the card; returns the launches of each
+    kernel in this path."""
+    phase("models")
+    back = tmodels.FaceDetectionModel.BACK_CAMERA
+    card = (tmodels.FaceDetection(back), tmodels.FaceLandmark(),
+            tmodels.IrisLandmark())
+    cpu = (tmodels.FaceDetection(back, device="cpu"),
+           tmodels.FaceLandmark(device="cpu"),
+           tmodels.IrisLandmark(device="cpu"))
+    fused = card[0]._net.fused_launches()
+    frames = {name: load_image(ROT / name) for name in GT}
+    canvas = canvas_1080p(load_image)
+    strip_types = []
+    strips = warp.warp_bilinear_strips
+
+    def spy(planes, xs, ys):
+        strip_types.append(planes.dtype)
+        return strips(planes, xs, ys)
+
+    reset_counts()
+    results = {}
+    for name, img in frames.items():
+        size = GT[name]["size"]
+        # the whole-frame detection warp is K1 too, unless the geometry
+        # takes the exact two-stage letterbox (the 200x225 portraits)
+        warps = 3 + (image_ops.letterbox_two_stage_params(
+            size, (card[0].in_w, card[0].in_h)) is None)
+        results[name], n = counted(lambda: chain(card, img, size))
+        assert n == (warps, 0, fused), (name, n, warps, fused)
+    warp.warp_bilinear_strips = spy
+    try:
+        canvas_res, n = counted(lambda: chain(card, canvas, (1920, 1080)))
+    finally:
+        warp.warp_bilinear_strips = strips
+    # at 1080p the detection, mesh and both iris warps take the strip
+    # kernel, over f32 planes
+    assert n == (0, 4, fused), n
+    assert strip_types == [torch.float32] * 4, strip_types
+    launches = dict(zip(("warp_bilinear", "warp_bilinear_strips",
+                         "fused_dw_pw_block_f32"), launch_counts()))
+    print(f"launches of the standalone models: {launches} for "
+          f"{len(frames)} rotated frames and canvas (a), 5 calls each "
+          f"(detection, mesh, two irises)")
+    for name, img in frames.items():
+        size = GT[name]["size"]
+        box_iou, worst = check_chain_gt(results[name], GT[name])
+        px, sc = compare_chains(results[name], chain(cpu, img, size), size)
+        print(f"{name}: IoU {box_iou:.4f}, worst {worst:.3f} px vs ground "
+              f"truth; GPU vs CPU port {px:.4f} px, score {sc:.2e}",
+              flush=True)
+    px, sc = compare_chains(canvas_res, chain(cpu, canvas, (1920, 1080)),
+                            (1920, 1080))
+    print(f"canvas (a) 1920x1080 (warps on the strip kernel, f32 planes): "
+          f"GPU vs CPU port {px:.4f} px, score {sc:.2e}", flush=True)
+    return launches
+
+
+def phase_numbers(rng, trace, sweep=False):
     """Throughput, stage times and the kernels' times; returns (numbers,
     {kernel: time_kernel dict})."""
     phase("numbers")
@@ -498,6 +801,26 @@ def phase_numbers(rng, trace):
     frames = np.stack([load_image(ROT / n) for n in FRAMES_540])
     size = (540, 360)
     cascade = FaceCascade()
+    fused = cascade._det_net.fused_launches()
+
+    # the fused block at the main path's shapes (the BACK detector's four
+    # runs at batch 64, together and one by one) and at K3/K4's shape
+    cases = detector_runs(cascade._det_net, rng, BATCH["fused"])
+    timed["fused_dw_pw_block_f32"] = time_fused(cases, torch.float32)
+    numbers[f"fused_runs_b{BATCH['fused']}"] = {
+        "all": timed["fused_dw_pw_block_f32"],
+        **{label: time_fused([(label, x, w)], torch.float32)
+           for label, x, w in cases}}
+    if sweep:
+        numbers[f"fused_sweep_b{BATCH['fused']}"] = sweep_tilings(cases)
+    del cases
+    x, w = prototype_inputs(BATCH["k3"])
+    numbers[f"fused_k3_f32_b{BATCH['k3']}"] = time_fused(
+        [("K3", x, w)], torch.float32)
+    timed["fused_dw_pw_block_bf16"] = time_fused([("K4", x, w)],
+                                                 torch.bfloat16)
+    numbers[f"fused_k4_bf16_b{BATCH['k3']}"] = timed["fused_dw_pw_block_bf16"]
+    del x, w
 
     # K1 at the shapes one infer_batch of 32 540x360 frames gives it
     b = BATCH["warp_540p"]
@@ -519,6 +842,35 @@ def phase_numbers(rng, trace):
     if trace is not None:
         numbers[f"trace_b{b}"] = trace_cascade(cascade, batch, trace,
                                                f"cascade_b{b}")
+
+    # the BACK net on this batch's detection input, and the cascade,
+    # with the residual runs op by op and on the fused kernel, in turns
+    # (op by op, fused, fused, op by op)
+    fused_net, per_op = cascade._det_net, back_net(fuse_blocks=False)
+    with torch.inference_mode(), exact_f32():
+        planes = cascade._prepare_frame(batch, size)
+        dx, dy, _ = cascade._whole_frame_coords(size)
+        det_in = image_ops._normalize_pixels(
+            image_ops.separable_sample_planar(planes, dx, dy), (-1.0, 1.0),
+            True)
+        # the raw outputs reach ~1e4 (score logits): relative to them
+        err = max(float((a - b_).abs().max()) / max(1.0, float(
+            b_.abs().max())) for a, b_ in zip(fused_net(det_in),
+                                               per_op(det_in)))
+        assert err <= BLOCK_TOL_F32, err
+        ab = {"net_ms": {"op_by_op": [], "fused": []},
+              "cascade_ms": {"op_by_op": [], "fused": []},
+              "fused_vs_op_by_op_max_rel_err": err}
+        for label, net in (("op_by_op", per_op), ("fused", fused_net),
+                           ("fused", fused_net), ("op_by_op", per_op)):
+            ab["net_ms"][label].append(median_ms(lambda: net(det_in),
+                                                 reps=10)[0])
+            cascade._det_net = net
+            ab["cascade_ms"][label].append(median_ms(lambda: cascade(batch),
+                                                     reps=10)[0])
+        cascade._det_net = fused_net
+    numbers[f"back_net_b{b}"] = ab
+    del per_op, det_in, planes
 
     # per-stage times at batch 64 on the stage inputs of one run
     with torch.inference_mode(), exact_f32():
@@ -563,7 +915,7 @@ def phase_numbers(rng, trace):
              BATCH["4k"])):
         hbatch = hires_batch(canvas, b, rng)
         res, n = counted(lambda: planar(hbatch))
-        assert n == (0, 2), n
+        assert n == (0, 2, fused), n
         valid = int(res.mesh_valid.sum())
         assert valid == b, f"{label}: {valid} of {b} faces found"
         ms, windows = median_ms(lambda: planar(hbatch), reps=5)
@@ -590,7 +942,7 @@ def phase_numbers(rng, trace):
     multi = FaceCascade(max_faces=4)
     grid = torch.from_numpy(np.stack([canvas_grid(load_image)] * b)).cuda()
     res, n = counted(lambda: multi(grid))
-    assert n == (2, 0), n
+    assert n == (2, 0, fused), n
     faces = int(res.mesh_valid.sum())
     assert faces == 4 * b, faces
     ms, windows = median_ms(lambda: multi(grid), reps=5)
@@ -600,32 +952,51 @@ def phase_numbers(rng, trace):
     return numbers, timed
 
 
-# batch sizes of the numbers phase
-BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32}
-KERNELS = ("warp_bilinear", "warp_bilinear_strips")
+# batch sizes of the kernel and numbers phases
+BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
+         "fused": 64, "k3": 256}
+# the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
+KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block")
+# the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
                       "tpu_face/ops/pallas_warp.py:203"),
     "warp_bilinear_strips": ("tpu_face_torch/csrc/warp_bilinear_strips.cu",
                              "tpu_face/ops/pallas_warp.py:249"),
+    "fused_dw_pw_block_f32": ("tpu_face_torch/csrc/fused_dw_pw_block.cu",
+                              "docs/experiments/fused_block_prototype.py:46"),
+    "fused_dw_pw_block_bf16": ("tpu_face_torch/csrc/fused_dw_pw_block.cu",
+                               "docs/experiments/fused_block_v2.py:74"),
 }
+# entries that no path of the port launches: the bf16 instantiation
+# (K4's function) is held against its plain version and timed only
+OFF_PATH = ("fused_dw_pw_block_bf16",)
 
 
 def main(argv=None):
     # the port's modules become this module's globals here, once the
     # repository is on sys.path (the helpers above use them)
-    global _build, image_ops, warp, FaceCascade, exact_f32, load_image
+    global _build, image_ops, warp, fused_block, FaceCascade, exact_f32
+    global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
+    global resolve_device
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", type=Path, metavar="DIR",
                         help="profile three cascade calls per frame size "
                         "and write the kernel tables and traces into DIR")
-    trace = parser.parse_args(argv).trace
+    parser.add_argument("--sweep", action="store_true",
+                        help="time the fused kernel at every tiling of "
+                        "each residual run of the BACK detector")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from tpu_face_torch.ops import _build
+    from tpu_face_torch import models as tmodels
+    from tpu_face_torch import resolve_device
+    from tpu_face_torch.compiler import Graph, build_torch_fn
+    from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
+    from tpu_face_torch.ops import _build, fused_block
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
     from tpu_face_torch.pipeline import FaceCascade, exact_f32
@@ -646,19 +1017,24 @@ def main(argv=None):
     phase_build()
     errs = phase_kernels(rng)
     launches = phase_cascade()
-    numbers, timed = phase_numbers(rng, trace)
+    model_launches = phase_models()
+    numbers, timed = phase_numbers(rng, args.trace, args.sweep)
+    numbers["models_launches"] = model_launches
     numbers["device"] = smi
     numbers["seconds"] = time.perf_counter() - t_start
 
     kernels = []
-    for name in KERNELS:
+    for name, (source, replaces) in SOURCES.items():
         t = timed[name]
-        assert launches[name] > 0, (name, launches[name])
-        source, replaces = SOURCES[name]
+        n = launches.get(name, 0)
+        assert (n > 0) != (name in OFF_PATH), (name, n)
+        if name in model_launches:
+            assert model_launches[name] > 0, (name, model_launches)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs[name], t["max_abs_err"]), "ms": t["ms"],
+            "replaces": replaces, "launches": n,
+            "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
+            "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
 

@@ -44,11 +44,16 @@ def test_port_covers_the_slice():
             "tpu_face_torch/ops/postprocess.py",
             "tpu_face_torch/ops/warp.py",
             "tpu_face_torch/ops/_build.py",
+            "tpu_face_torch/ops/fused_block.py",
+            "tpu_face_torch/ops/geometry.py",
+            "tpu_face_torch/types.py",
+            "tpu_face_torch/models/__init__.py",
             "tpu_face_torch/models/face_detection.py",
             "tpu_face_torch/models/face_landmark.py",
             "tpu_face_torch/models/iris_landmark.py",
             "tpu_face_torch/utils/image_io.py",
             "tpu_face_torch/pipeline.py"}
     assert want <= set(FILES)
-    for kernel in ("warp_bilinear", "warp_bilinear_strips"):
+    for kernel in ("warp_bilinear", "warp_bilinear_strips",
+                   "fused_dw_pw_block"):
         assert (ROOT / f"tpu_face_torch/csrc/{kernel}.cu").exists()

@@ -1,13 +1,18 @@
-"""tpu_face_torch: the PyTorch/CUDA port of tpu_face's fused cascade.
+"""tpu_face_torch: the PyTorch/CUDA port of tpu_face.
 
 ``tpu_face_torch.pipeline.FaceCascade`` runs detect -> face ROI -> mesh ->
-both irises on one CUDA card, with the rotated bilinear ROI warp as a
-hand-written CUDA kernel (``csrc/warp_bilinear.cu``).  Module names
-follow the JAX package so each counterpart is easy to find.
+both irises on one CUDA card; ``tpu_face_torch.models`` has the standalone
+``FaceDetection``, ``FaceLandmark`` and ``IrisLandmark``.  The kernels are
+hand-written CUDA (``csrc/``): the rotated bilinear ROI warp
+(``warp_bilinear.cu``, ``warp_bilinear_strips.cu``) and the detectors'
+fused residual blocks (``fused_dw_pw_block.cu``).  Module names follow the
+JAX package so each counterpart is easy to find.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back.
 """
+
+import contextlib
 
 import torch
 
@@ -21,3 +26,17 @@ def resolve_device(device=None) -> torch.device:
             "tpu_face_torch needs a CUDA device; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Full-f32 convolutions and matmuls (no TF32) inside the block;
+    the previous settings come back after it."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved

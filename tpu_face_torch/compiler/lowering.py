@@ -1,7 +1,7 @@
 """Lower a converted TFLite graph (npz) to a batched PyTorch module.
 
 Counterpart of tpu_face/compiler/lowering.py for the nine ops the
-cascade's three nets use (back detector, face mesh, iris): CONV_2D,
+BACK, FRONT and SHORT detectors and the mesh and iris nets use: CONV_2D,
 DEPTHWISE_CONV_2D, ADD, RELU, PRELU, MAX_POOL_2D, PAD, RESHAPE and
 CONCATENATION.  Any other op raises ``NotImplementedError``.
 
@@ -12,6 +12,11 @@ whose shapes and axes refer to NHWC, see NHWC tensors.  TFLite "SAME"
 padding is asymmetric for even windows (the extra row/column goes
 bottom/right), so it is computed per layer and applied with ``F.pad``
 where the two sides differ.
+
+Runs of identity-skip residual blocks (3x3 depthwise, C -> C 1x1, the
+skip ADD, RELU: the body of the BlazeFace detectors) are found once at
+construction (``_residual_runs``) and each runs as one call of
+``ops.fused_block.fused_blocks``, a hand-written CUDA kernel on the card.
 """
 
 import json
@@ -21,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import fused_block
 
 _SUPPORTED = ("CONV_2D", "DEPTHWISE_CONV_2D", "ADD", "RELU", "PRELU",
               "MAX_POOL_2D", "PAD", "RESHAPE", "CONCATENATION")
@@ -60,10 +67,7 @@ def _fold_pads_into_convs(ops, consts, graph_outputs):
     only when every consumer is a CONV/DW with VALID padding and the pad
     touches spatial dims alone; MAX_POOL is NOT foldable (its identity
     is -inf, not 0)."""
-    consumers = {}
-    for node in ops:
-        for i in node["inputs"]:
-            consumers.setdefault(i, []).append(node)
+    consumers = _consumers(ops)
 
     def spatial_pad(node):
         if node["op"] != "PAD" or node["inputs"][1] not in consts:
@@ -89,6 +93,102 @@ def _fold_pads_into_convs(ops, consts, graph_outputs):
             continue
         folded.append(node)
     return folded
+
+
+def _consumers(ops):
+    """{tensor id: the ops that read it}."""
+    users = {}
+    for node in ops:
+        for i in node["inputs"]:
+            users.setdefault(i, []).append(node)
+    return users
+
+
+def _block_at(dw, users, consts, graph_outputs):
+    """The identity-skip residual block that starts at DEPTHWISE_CONV_2D
+    ``dw``, as {"ops": [dw, pw, add(, relu)], "input", "output", "c"},
+    or None.  A block is a stride-1 3x3 depthwise (dilation 1, depth
+    multiplier 1, no activation, SAME or folded (1, 1) padding) feeding
+    exactly one C -> C 1x1 CONV_2D (stride 1, no activation) feeding
+    exactly one ADD whose other operand is the depthwise input (either
+    order), with a fused RELU or exactly one RELU after it.  No
+    intermediate may be a graph output or have another consumer."""
+    o = dw["options"]
+    wshape = np.shape(consts.get(dw["inputs"][1]))
+    if (o["stride"] != [1, 1] or list(o.get("dilation", (1, 1))) != [1, 1]
+            or o.get("depth_multiplier", 1) != 1
+            or o["activation"] != "NONE" or len(wshape) != 4
+            or tuple(wshape[:3]) != (1, 3, 3)
+            or o["padding"] not in ("SAME", [(1, 1), (1, 1)])):
+        return None
+    c = wshape[3]
+    x = dw["inputs"][0]
+
+    def only_user(t):
+        u = users.get(t, [])
+        return u[0] if len(u) == 1 and t not in graph_outputs else None
+
+    pw = only_user(dw["outputs"][0])
+    if (pw is None or pw["op"] != "CONV_2D" or pw["inputs"][0] !=
+            dw["outputs"][0]):
+        return None
+    po = pw["options"]
+    if (np.shape(consts.get(pw["inputs"][1])) != (c, 1, 1, c)
+            or po["stride"] != [1, 1] or po["activation"] != "NONE"
+            or po["padding"] not in ("SAME", "VALID", [(0, 0), (0, 0)])):
+        return None
+    add = only_user(pw["outputs"][0])
+    if (add is None or add["op"] != "ADD" or len(add["inputs"]) != 2
+            or sorted(add["inputs"]) != sorted([x, pw["outputs"][0]])):
+        return None
+    if add["options"]["activation"] == "RELU":
+        return {"ops": [dw, pw, add], "input": x,
+                "output": add["outputs"][0], "c": c}
+    relu = only_user(add["outputs"][0])
+    if (add["options"]["activation"] != "NONE" or relu is None
+            or relu["op"] != "RELU"):
+        return None
+    return {"ops": [dw, pw, add, relu], "input": x,
+            "output": relu["outputs"][0], "c": c}
+
+
+def _residual_runs(ops, consts, graph_outputs):
+    """Runs of identity-skip residual blocks (``_block_at``) for
+    ``ops.fused_block``: consecutive blocks of the same width, each
+    reading the previous block's output, where that output feeds nothing
+    but the next block (its depthwise and its ADD) and is no graph
+    output.  Returns a list of runs, each a list of blocks in order."""
+    users = _consumers(ops)
+    blocks = [b for b in (_block_at(node, users, consts, graph_outputs)
+                          for node in ops
+                          if node["op"] == "DEPTHWISE_CONV_2D")
+              if b is not None]
+    by_input = {b["input"]: b for b in blocks}
+    by_output = {b["output"]: b for b in blocks}
+    runs = []
+    for block in blocks:
+        prev = by_output.get(block["input"])
+        if prev is not None and _chains(prev, block, users, graph_outputs):
+            continue                # inside a run that started earlier
+        run = [block]
+        while (run[-1]["output"] in by_input
+               and _chains(run[-1], by_input[run[-1]["output"]], users,
+                           graph_outputs)):
+            run.append(by_input[run[-1]["output"]])
+        runs.append(run)
+    return runs
+
+
+def _chains(prev, block, users, graph_outputs):
+    """Whether ``block`` continues a run after ``prev``: same width, and
+    ``prev``'s output is read by ``block`` alone (its depthwise and its
+    ADD) and is no graph output."""
+    t = prev["output"]
+    return (block["input"] == t and block["c"] == prev["c"]
+            and t not in graph_outputs
+            and {id(u) for u in users.get(t, [])}
+            == {id(block["ops"][0]), id(block["ops"][2])}
+            and len(users[t]) == 2)
 
 
 def params_from_consts(ops, consts):
@@ -118,6 +218,29 @@ def params_from_consts(ops, consts):
                                                     for i in ins):
             raise NotImplementedError(f"{op} with a constant operand")
     return params
+
+
+def _stack_run(run, params):
+    """A run's weights stacked for ``fused_block.fused_blocks``:
+    wd [L, C, 3, 3], bd [L, C], wp [L, C_out, C_in], bp [L, C] (a
+    missing bias is zeros)."""
+
+    def bias(node, c):
+        ins = node["inputs"]
+        if len(ins) > 2 and ins[2] >= 0:
+            return params[f"t{ins[2]}"]
+        return torch.zeros(c)
+
+    c = run[0]["c"]
+    dws = [b["ops"][0] for b in run]
+    pws = [b["ops"][1] for b in run]
+    return {
+        "wd": torch.stack([params[f"t{n['inputs'][1]}"][:, 0] for n in dws]),
+        "bd": torch.stack([bias(n, c) for n in dws]),
+        "wp": torch.stack([params[f"t{n['inputs'][1]}"][:, :, 0, 0]
+                           for n in pws]),
+        "bp": torch.stack([bias(n, c) for n in pws]),
+    }
 
 
 def _act(x, kind):
@@ -165,9 +288,15 @@ class TFLiteNet(nn.Module):
 
     ``params`` defaults to ``params_from_consts(graph.ops,
     graph.consts)``; the weights are buffers, so ``.to(device)`` moves
-    them."""
+    them.
 
-    def __init__(self, graph, params=None):
+    With ``fuse_blocks`` (the default) every run of identity-skip
+    residual blocks (``_residual_runs``) goes to
+    ``ops.fused_block.fused_blocks`` as one call, with the run's weights
+    stacked from ``params``: the CUDA kernel on the card, the same per-op
+    arithmetic on the CPU.  ``fuse_blocks=False`` runs them op by op."""
+
+    def __init__(self, graph, params=None, fuse_blocks=True):
         super().__init__()
         for node in graph.ops:
             if node["op"] not in _SUPPORTED:
@@ -180,6 +309,33 @@ class TFLiteNet(nn.Module):
         self.consts = graph.consts
         self.inputs = graph.inputs
         self.outputs = graph.outputs
+        self.runs = (_residual_runs(graph.ops, graph.consts,
+                                    set(graph.outputs))
+                     if fuse_blocks else [])
+        # id(op) -> run index for each run's first op; ids of the others
+        self._run_start = {id(run[0]["ops"][0]): k
+                           for k, run in enumerate(self.runs)}
+        self._in_run = {id(node) for run in self.runs for b in run
+                        for node in b["ops"][1:]} | {
+            id(b["ops"][0]) for run in self.runs for b in run[1:]}
+        # (C, H, W, layers) of each run, from the graph's tensor shapes
+        self.run_shapes = [
+            (run[0]["c"], *graph.tensors[run[0]["input"]]["shape"][1:3],
+             len(run)) for run in self.runs]
+        for k, run in enumerate(self.runs):
+            for name, value in _stack_run(run, params).items():
+                self.register_buffer(f"run{k}_{name}", value)
+
+    def fused_launches(self, itemsize: int = 4) -> int:
+        """Kernel launches of one ``forward`` on the card: those the
+        wrapper's tiling plan makes for each run."""
+        return sum(len(fused_block.plan(c, h, w, layers, itemsize)[1])
+                   for c, h, w, layers in self.run_shapes)
+
+    def _run(self, k, x):
+        return fused_block.fused_blocks(
+            x, *(getattr(self, f"run{k}_{n}") for n in ("wd", "bd", "wp",
+                                                        "bp")))
 
     def _conv(self, x, node, depthwise):
         o, ins = node["options"], node["inputs"]
@@ -222,6 +378,14 @@ class TFLiteNet(nn.Module):
             return v.permute(0, 2, 3, 1) if i in nchw else v
 
         for node in self.ops:
+            if id(node) in self._in_run:
+                continue
+            if id(node) in self._run_start:
+                run = self.runs[self._run_start[id(node)]]
+                env[run[-1]["output"]] = self._run(
+                    self._run_start[id(node)], env[run[0]["input"]])
+                nchw.add(run[-1]["output"])
+                continue
             op, ins, o = node["op"], node["inputs"], node["options"]
             layout_nchw = all(i in nchw for i in ins if i in env)
             if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
@@ -270,6 +434,6 @@ class TFLiteNet(nn.Module):
         return tuple(nhwc(i).contiguous().float() for i in self.outputs)
 
 
-def build_torch_fn(graph, device=None):
+def build_torch_fn(graph, device=None, fuse_blocks=True):
     """The graph as a ``TFLiteNet`` in eval mode on ``device``."""
-    return TFLiteNet(graph).to(device).eval()
+    return TFLiteNet(graph, fuse_blocks=fuse_blocks).to(device).eval()

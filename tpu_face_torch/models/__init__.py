@@ -1,2 +1,22 @@
-"""Model constants shared by the cascade (file names, SSD options, ROI
-scales and landmark index maps)."""
+"""The standalone models (counterparts of tpu_face.models): BlazeFace
+detection, the 468-point face mesh and the iris landmarks, with the ROI
+helpers that chain them.  The embeddings model and the render-data helpers
+are not ported yet."""
+
+from .face_detection import FaceDetection, FaceDetectionModel, FaceIndex
+from .face_landmark import (FACE_LANDMARK_CONNECTIONS, FaceLandmark,
+                            face_detection_to_roi)
+from .iris_landmark import (EYE_LANDMARK_CONNECTIONS, IrisIndex,
+                            IrisLandmark, IrisResults, get_iris_depth,
+                            get_iris_diameter, iris_roi_from_face_landmarks,
+                            update_face_landmarks_with_iris_results)
+
+__all__ = [
+    "FaceDetection", "FaceDetectionModel", "FaceIndex",
+    "FaceLandmark", "face_detection_to_roi", "FACE_LANDMARK_CONNECTIONS",
+    "IrisLandmark", "IrisResults", "IrisIndex",
+    "iris_roi_from_face_landmarks",
+    "update_face_landmarks_with_iris_results",
+    "get_iris_diameter", "get_iris_depth",
+    "EYE_LANDMARK_CONNECTIONS",
+]

@@ -32,12 +32,18 @@ _I = ctypes.c_int
 #  stream) -> cudaError_t, the entry points of both warp kernels
 _WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P, _P), _I)
 
+# (x, out, wd, bd, wpt, bp, batch, c, h, w, layers, tile, stream) ->
+# cudaError_t, the entry points of the fused residual-block kernel
+_BLOCK_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
     "warp_bilinear": {"warp_bilinear": _WARP_SIG},
     "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
                              "warp_bilinear_strips_f32": _WARP_SIG},
+    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG,
+                          "fused_dw_pw_block_bf16": _BLOCK_SIG},
 }
 
 _LIBS = {}

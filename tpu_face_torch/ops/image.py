@@ -10,11 +10,16 @@ Functions take an optional leading batch: ROI tensors ``[..., 5]`` give
 coordinate grids ``[..., Ho, Wo]``, and per-frame scalars broadcast over
 the grid.  All arithmetic is f32 in the JAX package's order, so the two
 packages agree to rounding.
+
+The standalone models' entry into it is ``warp_image_to_tensor``, whose
+"pallas" method is the warp kernels (``ops/warp.py``).
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from . import warp
 
 
 def bilinear_sample(image, xs, ys):
@@ -303,3 +308,145 @@ def _separable_planar_f32(planes, wx, wy):
     t1 = torch.matmul(wy.unsqueeze(-3), planes)    # [..., 3, Ho, W]
     out = torch.matmul(t1, wx.unsqueeze(-3).transpose(-1, -2))
     return out.movedim(-3, -1)
+
+
+# Sampling methods of ``warp_image_to_tensor``; the JAX package's "mxu"
+# (its banded hat-matmul warp in pure XLA, a portable check of its TPU
+# kernel) is not ported.
+WARP_METHODS = ("gather", "pallas", "separable")
+
+
+def _check_method(method):
+    if method == "mxu":
+        raise NotImplementedError("warp method 'mxu' is not ported; use "
+                                  "'pallas' (the warp kernels) or 'gather'")
+    if method not in WARP_METHODS:
+        raise ValueError(f"warp method {method!r}, expected one of "
+                         f"{WARP_METHODS}")
+
+
+def warp_image_to_tensor(image, roi_abs, out_size: Tuple[int, int],
+                         keep_aspect_ratio: bool,
+                         output_range: Tuple[float, float] = (0.0, 1.0),
+                         flip_horizontal=False,
+                         quantize_uint8: bool = True,
+                         method: str = "gather"):
+    """The fused ``image_to_tensor``: one resampling pass + one fma.
+
+    image: [H, W, 3] or a batch [B, H, W, 3] (uint8 or float, RGB);
+    roi_abs: (5,) or [B, 5] (cx, cy, w, h, rotation) in absolute pixels;
+    flip_horizontal: bool, or a bool tensor () / [B] (per frame).
+    method:
+      "gather"    the plain zero-border gather (``bilinear_sample``);
+      "pallas"    the warp kernels, as the JAX package's Pallas path:
+                  f32 planes (``warp.make_planes``), K1
+                  (``warp.warp_bilinear``) where ``warp.planes_fit_vmem``
+                  holds, else K2 (``warp.warp_bilinear_strips``) over the
+                  same f32 planes; on a CPU tensor their plain versions;
+      "separable" two hat matmuls, for rotation-free ROIs.
+
+    Returns (tensor [(B,) Ho, Wo, 3] f32, padding [(B,) 4] f32)."""
+    _check_method(method)
+    batched = image.dim() == 4
+    images = image if batched else image[None]
+    rois = roi_abs if batched else roi_abs[None]
+    if isinstance(flip_horizontal, torch.Tensor):
+        flip_horizontal = flip_horizontal.reshape(rois.shape[:-1])
+    src_x, src_y, padding = _source_coords(rois, out_size,
+                                           keep_aspect_ratio,
+                                           flip_horizontal)
+    if method == "pallas":
+        b, h, w = images.shape[:3]
+        planes = warp.make_planes(images)
+        kernel = (warp.warp_bilinear if warp.planes_fit_vmem(h, w)
+                  else warp.warp_bilinear_strips)
+        out = kernel(planes, src_x.reshape(b, -1), src_y.reshape(b, -1))
+        out = out.reshape(b, 3, *src_x.shape[1:]).movedim(1, -1)
+    elif method == "separable":
+        out = separable_sample(images.float(), src_x, src_y)
+    else:
+        out = bilinear_sample(images.float(), src_x, src_y)
+    out = _normalize_pixels(out, output_range, quantize_uint8)
+    if not batched:
+        out, padding = out[0], padding[0]
+    return out, padding
+
+
+def resolve_warp_method(method: str = "auto", device=None) -> str:
+    """Map "auto" to the device's fast exact path: the warp kernels
+    ("pallas", the JAX package's name for its kernel path) on the card,
+    the plain gather on the CPU.  ``device=None`` means the card."""
+    if method == "auto":
+        dev = torch.device("cuda" if device is None else device)
+        return "pallas" if dev.type == "cuda" else "gather"
+    _check_method(method)
+    return method
+
+
+def choose_warp_method(method: str, roi_abs_rows, image_size,
+                       out_size, keep_aspect_ratio: bool,
+                       plane_dtype=None):
+    """Per-call warp dispatch of the standalone models' host APIs.
+
+    The JAX version sizes its TPU kernel's block geometry and static
+    sampling window to the call's concrete ROIs and falls back to the
+    exact gather beyond them.  The card's warp kernels have no window and
+    sample every ROI exactly, so there is nothing to size: the method
+    comes back as it is (validated).  The other arguments are kept for
+    signature parity."""
+    _check_method(method)
+    return method
+
+
+def whole_image_roi(image_size: Tuple[int, int], device=None):
+    """Default ROI covering the full image, in absolute coordinates
+    (reference transform.rs:190-199), on ``device`` (None: the card)."""
+    from .. import resolve_device
+    w, h = image_size
+    return torch.tensor([0.5 * w, 0.5 * h, float(w), float(h), 0.0],
+                        dtype=torch.float32, device=resolve_device(device))
+
+
+def image_to_tensor(image, roi=None, output_size: Optional[Tuple[int, int]]
+                    = None, keep_aspect_ratio: bool = False,
+                    output_range: Tuple[float, float] = (0.0, 1.0),
+                    flip_horizontal: bool = False, device=None):
+    """Host-facing ``image_to_tensor`` with the reference signature
+    (reference transform.rs:188-309): RGB image + optional normalized
+    ``Rect`` ROI -> ``ImageTensor`` (tensor, letterbox padding, original
+    size), computed on ``device`` (None: the card) with the plain
+    gather, as the JAX version's default method."""
+    import numpy as np
+
+    from .. import exact_f32, resolve_device
+    from ..types import ImageTensor, Rect
+    from ..utils.image_io import load_image
+
+    dev = resolve_device(device)
+    img = load_image(image)
+    h, w = img.shape[:2]
+    whole = roi is None
+    if roi is None:
+        roi = Rect(0.5, 0.5, 1.0, 1.0, 0.0, normalized=True)
+    r = roi.scaled((float(w), float(h)), normalize=False)
+    if output_size is None:
+        output_size = (int(r.width), int(r.height))
+    two = (letterbox_two_stage_params((w, h), output_size)
+           if (whole and keep_aspect_ratio) else None)
+    frame = torch.from_numpy(np.require(img, requirements="CW")).to(dev)
+    with torch.inference_mode(), exact_f32():
+        if two is not None:
+            tensor, padding = letterbox_two_stage(
+                frame.float(), (w, h), output_size, two, output_range)
+            if flip_horizontal:
+                tensor = tensor.flip(1)  # reference flips the final Mat
+        else:
+            roi_abs = torch.tensor(
+                [r.x_center, r.y_center, r.width, r.height, r.rotation],
+                dtype=torch.float32, device=dev)
+            tensor, padding = warp_image_to_tensor(
+                frame, roi_abs, output_size, keep_aspect_ratio,
+                output_range, flip_horizontal)
+    pad = padding.cpu().numpy().astype(np.float64)
+    return ImageTensor(tensor.cpu().numpy(),
+                       (pad[0], pad[1], pad[2], pad[3]), (w, h))

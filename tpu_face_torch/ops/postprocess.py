@@ -5,6 +5,7 @@ tpu_face/ops/postprocess.py).
 * ``clamped_sigmoid``     — reference face_detection.rs:300-314 (±80 clamp)
 * ``weighted_nms``        — reference nms.rs:56-124 (one face per frame,
   or the full-pool sequential merge for K faces)
+* ``plain_nms``           — reference nms.rs:19-53
 * ``letterbox_removal``   — reference transform.rs:115-142
 * ``project_landmarks``   — reference transform.rs:351-432
 
@@ -147,6 +148,58 @@ def _weighted_nms_pool(data, scores, valid, max_outputs, threshold):
         stopped = stopped | ~cand.any(-1)
     return (torch.stack(outs_d, -3), torch.stack(outs_s, -1),
             torch.stack(outs_v, -1))
+
+
+def _iou_matrix(boxes):
+    """Pairwise IoU of corner-format boxes [..., M, 4] -> [..., M, M]
+    (reference nms.rs:5-17: an empty intersection or a non-positive
+    union gives 0)."""
+    xmin, ymin, xmax, ymax = boxes.unbind(-1)
+    ixmin = torch.maximum(xmin[..., :, None], xmin[..., None, :])
+    iymin = torch.maximum(ymin[..., :, None], ymin[..., None, :])
+    ixmax = torch.minimum(xmax[..., :, None], xmax[..., None, :])
+    iymax = torch.minimum(ymax[..., :, None], ymax[..., None, :])
+    iw = ixmax - ixmin
+    ih = iymax - iymin
+    inter = torch.where((iw > 0) & (ih > 0), iw * ih, 0.0)
+    w = xmax - xmin
+    h = ymax - ymin
+    area = torch.where((w > 0) & (h > 0), w * h, 0.0)
+    union = area[..., :, None] + area[..., None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
+def plain_nms(data, scores, valid, max_outputs: int,
+              threshold: float = MIN_SUPPRESSION_THRESHOLD,
+              top_m: int = 128):
+    """Greedy (non-weighted) NMS, reference nms.rs:19-53.
+
+    data [..., N, P, 2], scores/valid [..., N].  The ``top_m`` best valid
+    candidates by score (a stable sort: the first index wins ties, as
+    the JAX version's ``top_k``) are visited in order; each is kept
+    unless it overlaps (IoU > threshold) one already kept.  Returns the
+    kept rows first, in score order, then the others: (data
+    [..., T, P, 2], scores [..., T], keep [..., T]) with T =
+    min(max_outputs, top_m, N)."""
+    masked = torch.where(valid, scores, -1e30)
+    order = torch.sort(masked, dim=-1, descending=True,
+                       stable=True).indices[..., :top_m]
+    d = torch.gather(data, -3, order[..., None, None].expand(
+        *order.shape, *data.shape[-2:]))
+    sc = torch.gather(scores, -1, order)
+    v = torch.gather(valid, -1, order)
+    iou = _iou_matrix(torch.stack([d[..., 0, 0], d[..., 0, 1],
+                                   d[..., 1, 0], d[..., 1, 1]], dim=-1))
+    keep = torch.zeros_like(v)
+    for i in range(v.shape[-1]):
+        suppressed = (keep & (iou[..., i, :] > threshold)).any(-1)
+        keep[..., i] = v[..., i] & ~suppressed
+    # compact the kept rows to the front (stable), fixed size
+    front = torch.sort((~keep).to(torch.uint8), dim=-1,
+                       stable=True).indices[..., :max_outputs]
+    return (torch.gather(d, -3, front[..., None, None].expand(
+                *front.shape, *d.shape[-2:])),
+            torch.gather(sc, -1, front), torch.gather(keep, -1, front))
 
 
 def letterbox_removal(data, padding):

@@ -9,8 +9,11 @@ Counterpart of tpu_face/ops/pallas_warp.py, with both of its kernels:
   (``csrc/warp_bilinear_strips.cu``, which replaces the HBM strip-DMA
   Pallas ``_warp_kernel_strips``; it also takes f32 planes).
 
-``warp_sample_multi`` dispatches on the plane type as the JAX version
-dispatches on a list of planes versus one stacked array.  On a CUDA
+``warp_sample_multi`` (the cascade) dispatches on the plane type as the
+JAX version dispatches on a list of planes versus one stacked array; the
+standalone models' ``image.warp_image_to_tensor`` calls the wrappers
+itself and sends f32 planes to the strip kernel beyond the residency rule
+(``planes_fit_vmem``).  On a CUDA
 tensor each wrapper launches its kernel or raises; on a CPU tensor it
 runs its plain PyTorch version.  The kernels have no static sampling
 window, so unlike the TPU kernels they need no envelope check: every ROI

@@ -23,7 +23,6 @@ Everything runs in full f32: TF32 is switched off for the convolutions
 and the matmuls while the cascade runs (``exact_f32``).
 """
 
-import contextlib
 import math
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -31,7 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import exact_f32, resolve_device
 from .compiler import Graph, build_torch_fn
 from .models.face_detection import (_DATA_DIR, _MODEL_FILES, _SSD_OPTS,
                                     FaceDetectionModel)
@@ -66,20 +65,6 @@ class CascadeResult(NamedTuple):
     iris: torch.Tensor           # [B, 2, 5, 3] left/right iris landmarks
     envelope_ok: torch.Tensor    # [B] bool, always True: the CUDA warp
     # samples every ROI exactly (as the JAX exact-gather path does)
-
-
-@contextlib.contextmanager
-def exact_f32():
-    """Full-f32 convolutions and matmuls (no TF32) inside the block;
-    the previous settings come back after it."""
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_tf32
-    matmul.allow_tf32 = False
-    try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            yield
-    finally:
-        matmul.allow_tf32 = saved
 
 
 def _norm_rotation(angle):
