@@ -133,10 +133,14 @@ def test_default_device_is_the_card():
 
 
 def test_unported_options_raise():
-    """bf16 nets are not ported and raise; ``max_faces=2`` runs and gives
+    """bf16 nets construct and run (tests/test_torch_bf16.py holds them
+    against JAX), other dtypes raise; ``max_faces=2`` runs and gives
     every field a face axis after the batch axis."""
+    bf16 = FaceCascade(device="cpu", compute_dtype=torch.bfloat16)
+    res = bf16.infer_batch(_frame(FRAMES_540[0])[None])
+    assert bool(res.mesh_valid[0]) and res.mesh.dtype == torch.float32
     with pytest.raises(NotImplementedError):
-        FaceCascade(device="cpu", compute_dtype=torch.bfloat16)
+        FaceCascade(device="cpu", compute_dtype=torch.float16)
     two = FaceCascade(device="cpu", max_faces=2)
     res = two.infer_batch(_frame(FRAMES_540[0])[None])
     assert tuple(res.mesh.shape) == (1, 2, 468, 3)

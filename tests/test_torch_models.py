@@ -236,8 +236,16 @@ def test_unported_options_raise():
     for model in ("FULL", "FULL_SPARSE"):
         with pytest.raises(NotImplementedError):
             tm.FaceDetection(tm.FaceDetectionModel[model], device="cpu")
+    # bf16 nets construct and run (held against JAX in
+    # tests/test_torch_bf16.py); other dtypes raise
+    img = load_image(ROT / "man_rotp15.png")
+    lmk, presence = tm.FaceLandmark(compute_dtype=torch.bfloat16,
+                                    device="cpu").infer_batch(img[None],
+                                                              [None])
+    assert lmk.shape == (1, 468, 3) and np.isfinite(lmk).all()
+    assert presence.shape == (1,)
     with pytest.raises(NotImplementedError):
-        tm.FaceLandmark(compute_dtype=torch.bfloat16, device="cpu")
+        tm.FaceLandmark(compute_dtype=torch.float16, device="cpu")
     with pytest.raises(NotImplementedError):
         tm.IrisLandmark(warp_method="mxu", device="cpu")
     with pytest.raises(ValueError):

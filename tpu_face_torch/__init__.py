@@ -2,11 +2,13 @@
 
 ``tpu_face_torch.pipeline.FaceCascade`` runs detect -> face ROI -> mesh ->
 both irises on one CUDA card; ``tpu_face_torch.models`` has the standalone
-``FaceDetection``, ``FaceLandmark`` and ``IrisLandmark``.  The kernels are
-hand-written CUDA (``csrc/``): the rotated bilinear ROI warp
-(``warp_bilinear.cu``, ``warp_bilinear_strips.cu``) and the detectors'
-fused residual blocks (``fused_dw_pw_block.cu``).  Module names follow the
-JAX package so each counterpart is easy to find.
+``FaceDetection``, ``FaceLandmark`` and ``IrisLandmark``, each with f32
+or bf16 nets (``compute_dtype``).  The kernels are hand-written CUDA
+(``csrc/``): the rotated bilinear ROI warp (``warp_bilinear.cu``,
+``warp_bilinear_strips.cu``, and its shared-memory staged variants
+``warp_strips_staged.cu``) and the detectors' fused residual blocks
+(``fused_dw_pw_block.cu``).  Module names follow the JAX package so each
+counterpart is easy to find.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back.

@@ -17,6 +17,11 @@ Runs of identity-skip residual blocks (3x3 depthwise, C -> C 1x1, the
 skip ADD, RELU: the body of the BlazeFace detectors) are found once at
 construction (``_residual_runs``) and each runs as one call of
 ``ops.fused_block.fused_blocks``, a hand-written CUDA kernel on the card.
+
+``compute_dtype=torch.bfloat16`` runs the net in bf16 as
+``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
+bf16 input, weights, biases and PReLU alphas, every op's output in bf16
+(the convolutions accumulate in f32), outputs back in f32.
 """
 
 import json
@@ -229,7 +234,7 @@ def _stack_run(run, params):
         ins = node["inputs"]
         if len(ins) > 2 and ins[2] >= 0:
             return params[f"t{ins[2]}"]
-        return torch.zeros(c)
+        return torch.zeros(c, dtype=params[f"t{ins[1]}"].dtype)
 
     c = run[0]["c"]
     dws = [b["ops"][0] for b in run]
@@ -284,7 +289,7 @@ def _window_pads(padding, hw, kernel, stride, dilation):
 class TFLiteNet(nn.Module):
     """``forward(x: [B, H, W, C]) -> tuple(outputs)`` of a TFLite graph,
     batched over the leading axis, outputs in the graph's own NHWC
-    shapes with the batch in place of the graph's leading 1.
+    shapes with the batch in place of the graph's leading 1, in f32.
 
     ``params`` defaults to ``params_from_consts(graph.ops,
     graph.consts)``; the weights are buffers, so ``.to(device)`` moves
@@ -294,15 +299,30 @@ class TFLiteNet(nn.Module):
     residual blocks (``_residual_runs``) goes to
     ``ops.fused_block.fused_blocks`` as one call, with the run's weights
     stacked from ``params``: the CUDA kernel on the card, the same per-op
-    arithmetic on the CPU.  ``fuse_blocks=False`` runs them op by op."""
+    arithmetic on the CPU.  ``fuse_blocks=False`` runs them op by op.
 
-    def __init__(self, graph, params=None, fuse_blocks=True):
+    ``compute_dtype`` is float32 or bfloat16.  In bf16 the input and
+    every float constant are cast to bf16 and every op computes in bf16;
+    a convolution's bias is added after it as a separate bf16 op, so the
+    sum is rounded twice, as in JAX (``F.conv2d`` with the bias would
+    round once on some backends and twice on others).  The residual runs
+    get bf16 activations: the kernel's bf16 entry point on the card.  The
+    f32 path is unchanged by the option."""
+
+    def __init__(self, graph, params=None, fuse_blocks=True,
+                 compute_dtype=torch.float32):
         super().__init__()
         for node in graph.ops:
             if node["op"] not in _SUPPORTED:
                 raise NotImplementedError(f"op {node['op']}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(
+                f"compute_dtype {compute_dtype} (float32 and bfloat16 are "
+                f"ported)")
+        self.compute_dtype = compute_dtype
         if params is None:
             params = params_from_consts(graph.ops, graph.consts)
+        params = {k: v.to(compute_dtype) for k, v in params.items()}
         for name, value in params.items():
             self.register_buffer(name, value)
         self.ops = graph.ops
@@ -326,9 +346,13 @@ class TFLiteNet(nn.Module):
             for name, value in _stack_run(run, params).items():
                 self.register_buffer(f"run{k}_{name}", value)
 
-    def fused_launches(self, itemsize: int = 4) -> int:
+    def fused_launches(self, itemsize=None) -> int:
         """Kernel launches of one ``forward`` on the card: those the
-        wrapper's tiling plan makes for each run."""
+        wrapper's tiling plan makes for each run at activations of
+        ``itemsize`` bytes (default: the net's compute dtype's, 2 for a
+        bf16 net)."""
+        if itemsize is None:
+            itemsize = torch.finfo(self.compute_dtype).bits // 8
         return sum(len(fused_block.plan(c, h, w, layers, itemsize)[1])
                    for c, h, w, layers in self.run_shapes)
 
@@ -351,9 +375,12 @@ class TFLiteNet(nn.Module):
         else:
             x = F.pad(x, (pl, pr, pt, pb))
             pad = (0, 0)
-        y = F.conv2d(x, w, b, stride=stride, padding=pad,
+        bf16 = self.compute_dtype == torch.bfloat16
+        y = F.conv2d(x, w, None if bf16 else b, stride=stride, padding=pad,
                      dilation=dilation,
                      groups=x.shape[1] if depthwise else 1)
+        if bf16 and b is not None:
+            y = y + b[:, None, None]
         return _act(y, o["activation"])
 
     @staticmethod
@@ -370,7 +397,8 @@ class TFLiteNet(nn.Module):
         batch = x.shape[0]
         # env holds 4-D activations NCHW (ids in `nchw`), anything else
         # in the graph's own layout
-        env = {self.inputs[0]: x.permute(0, 3, 1, 2)}
+        env = {self.inputs[0]:
+               x.permute(0, 3, 1, 2).to(self.compute_dtype)}
         nchw = {self.inputs[0]}
 
         def nhwc(i):
@@ -434,6 +462,9 @@ class TFLiteNet(nn.Module):
         return tuple(nhwc(i).contiguous().float() for i in self.outputs)
 
 
-def build_torch_fn(graph, device=None, fuse_blocks=True):
-    """The graph as a ``TFLiteNet`` in eval mode on ``device``."""
-    return TFLiteNet(graph, fuse_blocks=fuse_blocks).to(device).eval()
+def build_torch_fn(graph, device=None, fuse_blocks=True,
+                   compute_dtype=torch.float32):
+    """The graph as a ``TFLiteNet`` in eval mode on ``device``, computing
+    in ``compute_dtype``."""
+    return TFLiteNet(graph, fuse_blocks=fuse_blocks,
+                     compute_dtype=compute_dtype).to(device).eval()

@@ -83,10 +83,9 @@ def frames_on(images, device):
 
 
 def load_net(file_name: str, model_path, compute_dtype, device):
-    """(graph, lowered net on ``device``) of ``<model_path>/<file_name>``;
-    only f32 nets are ported."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError("only compute_dtype=float32 is ported")
+    """(graph, lowered net on ``device`` computing in ``compute_dtype``,
+    float32 or bfloat16; any other raises) of
+    ``<model_path>/<file_name>``."""
     base = Path(model_path) if model_path else _DATA_DIR
     npz = base / file_name
     if not npz.exists():
@@ -94,7 +93,8 @@ def load_net(file_name: str, model_path, compute_dtype, device):
             f"converted model not found: {npz} — run "
             f"tools/convert_tflite.py on the .tflite first")
     graph = Graph(npz)
-    return graph, build_torch_fn(graph, device)
+    return graph, build_torch_fn(graph, device,
+                                 compute_dtype=compute_dtype)
 
 
 class FaceDetection:
@@ -104,7 +104,10 @@ class FaceDetection:
 
     Runs on the card unless ``device="cpu"`` (and raises without one).
     BACK, FRONT and SHORT are ported; FULL and FULL_SPARSE raise
-    ``NotImplementedError``, as does any ``compute_dtype`` but f32.
+    ``NotImplementedError``, as does any ``compute_dtype`` but f32 and
+    bf16.  In bf16 the net computes in bf16 (as JAX's
+    ``build_jax_fn(..., compute_dtype=jnp.bfloat16)``); the warp and the
+    post-processing stay f32.
     ``nms_top_m`` is accepted for signature parity: the weighted NMS
     always merges over the full pool, as in JAX."""
 

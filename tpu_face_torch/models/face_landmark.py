@@ -94,7 +94,8 @@ class FaceLandmark:
     """468-point face mesh. ``infer(image, roi)`` returns normalized
     ``Landmark`` objects (empty list when the presence score is below
     threshold, reference face_landmark.rs:292-296).  Runs on the card
-    unless ``device="cpu"``."""
+    unless ``device="cpu"``.  ``compute_dtype`` float32 or bfloat16 sets
+    the net's (``TFLiteNet``); the warp stays f32."""
 
     def __init__(self, model_path: Optional[str] = None,
                  compute_dtype=torch.float32, warp_method: str = "auto",

@@ -179,7 +179,8 @@ class IrisLandmark:
     roi, is_right_eye)`` mirrors the eye horizontally for the right eye
     before inference and un-mirrors the projected landmarks
     (iris_landmark.rs:158-248).  Runs on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``compute_dtype`` float32 or bfloat16 sets the
+    net's (``TFLiteNet``); the warp stays f32."""
 
     def __init__(self, model_path: Optional[str] = None,
                  compute_dtype=torch.float32, warp_method: str = "auto",

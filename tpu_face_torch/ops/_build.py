@@ -36,6 +36,10 @@ _WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P, _P), _I)
 # cudaError_t, the entry points of the fused residual-block kernel
 _BLOCK_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
 
+# (planes, batch, h, w, xs, ys, groups, gh, gw, rt, cw, cap, out, stream)
+# -> cudaError_t, the entry points of the staged strip warp
+_STAGED_SIG = ((_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
@@ -44,6 +48,9 @@ SIGNATURES = {
                              "warp_bilinear_strips_f32": _WARP_SIG},
     "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG,
                           "fused_dw_pw_block_bf16": _BLOCK_SIG},
+    "warp_strips_staged": {f"warp_strips_staged_{copies}_{t}": _STAGED_SIG
+                           for copies in ("fused", "split")
+                           for t in ("bf16", "f32")},
 }
 
 _LIBS = {}

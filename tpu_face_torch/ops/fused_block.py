@@ -11,8 +11,9 @@ lowered nets run in; weights are stacked per run: ``wd [L, C, 3, 3]``,
 
 ``fused_blocks`` launches the kernel on a CUDA tensor or raises, and runs
 ``fused_blocks_plain`` (the per-op sequence the lowered net runs without
-the kernel) on a CPU tensor.  ``LAUNCHES`` counts kernel launches; the
-plain path never adds to it.
+the kernel) on a CPU tensor.  ``LAUNCHES`` counts launches of the f32
+entry point and ``BF16_LAUNCHES`` those of the bf16 one; the plain path
+never adds to them.
 
 The kernel stages a tile plus a halo of as many pixels as it runs layers
 in shared memory, so the wrapper chooses, per run shape, the tile side and
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-LAUNCHES = 0
+LAUNCHES = 0        # fused_dw_pw_block_f32
+BF16_LAUNCHES = 0   # fused_dw_pw_block_bf16
 
 SMEM_LIMIT = 232448      # opt-in shared memory per block on an H100
 GROUP = 8                # output channels per thread in the kernel's 1x1
@@ -121,15 +123,22 @@ def fused_blocks_plain(x, wd, bd, wp, bp):
     """Plain PyTorch version: per layer a depthwise ``F.conv2d`` (groups
     = C, padding 1), a 1x1 ``F.conv2d``, the residual add and the relu,
     the sequence ``TFLiteNet`` runs op by op.  In bf16 the weights are
-    cast to bf16 and every op's output is bf16, as in the JAX reference
-    ``xla_blocks`` of docs/experiments/fused_block_v2.py."""
+    cast to bf16, every op's output is bf16 and each bias is added after
+    its convolution as a separate op, as in the JAX reference
+    ``xla_blocks`` of docs/experiments/fused_block_v2.py and in
+    ``TFLiteNet``'s bf16 convolutions."""
     _check(x, wd, bd, wp, bp)
     c = x.shape[1]
     dt = x.dtype
+
+    def conv(v, w, b, **kw):
+        if dt == torch.float32:
+            return F.conv2d(v, w, b, **kw)
+        return F.conv2d(v, w.to(dt), None, **kw) + b.to(dt)[:, None, None]
+
     for l in range(wd.shape[0]):
-        y = F.conv2d(x, wd[l, :, None].to(dt), bd[l].to(dt), padding=1,
-                     groups=c)
-        z = F.conv2d(y, wp[l, :, :, None, None].to(dt), bp[l].to(dt))
+        y = conv(x, wd[l, :, None], bd[l], padding=1, groups=c)
+        z = conv(y, wp[l, :, :, None, None], bp[l])
         x = torch.relu(z + x)
     return x
 
@@ -139,7 +148,7 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None):
     CUDA tensor, ``fused_blocks_plain`` for a CPU tensor.  ``tiling``
     ((tile, layers of each launch)) overrides ``plan``; it is for
     measuring other tilings."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     _check(x, wd, bd, wp, bp)
     if x.device.type == "cpu":
         return fused_blocks_plain(x, wd, bd, wp, bp)
@@ -162,8 +171,9 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None):
     # C_out]); in bf16 they carry bf16 values, as the plain version's do
     wd, bd, wpt, bp = (t.to(x.dtype).float().contiguous()
                        for t in (wd, bd, wp.transpose(1, 2), bp))
+    bf16 = x.dtype == torch.bfloat16
     fn = getattr(_build.load("fused_dw_pw_block"),
-                 "fused_dw_pw_block_bf16" if x.dtype == torch.bfloat16
+                 "fused_dw_pw_block_bf16" if bf16
                  else "fused_dw_pw_block_f32")
     x = x.contiguous()
     if b * h * w == 0:
@@ -180,7 +190,10 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None):
                 raise RuntimeError(f"fused_dw_pw_block launch failed: CUDA "
                                    f"error {err} (B={b} C={c} {h}x{w}, "
                                    f"{k} layers, tile {tile})")
-            LAUNCHES += 1
+            if bf16:
+                BF16_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
             x = out
             first += k
     return x

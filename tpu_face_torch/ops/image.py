@@ -279,19 +279,36 @@ def separable_sample(image, src_x, src_y):
 UPCAST_CHUNK_BYTES = 256 * 2**20
 
 
-def separable_sample_planar(planes, src_x, src_y):
+def separable_sample_planar(planes, src_x, src_y, dot_dtype=None):
     """``separable_sample`` over channel planes [B, 3, H, W]: per
     channel ``wy @ P @ wx^T``.  src_x/src_y: [Ho, Wo] (shared) or
-    [B, Ho, Wo].  Returns [B, Ho, Wo, 3] (a channel-last view of
+    [B, Ho, Wo].  Returns [B, Ho, Wo, 3] f32 (a channel-last view of
     channel-major storage).
 
-    bf16 planes are upcast to f32 before the products, which is exact for
-    uint8 pixel values (the JAX version's ``dot_dtype=None``), so bf16
-    and f32 planes give the same result; the upcast runs over chunks of
-    frames of at most ``UPCAST_CHUNK_BYTES``."""
+    ``dot_dtype=None``: bf16 planes are upcast to f32 before the
+    products, which is exact for uint8 pixel values, so bf16 and f32
+    planes give the same result; the upcast runs over chunks of frames of
+    at most ``UPCAST_CHUNK_BYTES``.
+
+    ``dot_dtype=torch.bfloat16`` (the JAX version's): the hat weights are
+    rounded to bf16 and the planes read as bf16 (exact for uint8); the
+    first product accumulates in f32 and is stored as bf16, the second
+    takes those bf16 values and accumulates in f32 (its operands widened
+    to f32, which is exact).  Only the rounded weights and the bf16
+    intermediate differ from the f32 path: at most one uint8 level on
+    the output."""
     h, w = planes.shape[-2:]
     wx = _hat_rows(src_x[..., 0, :], w)            # [..., Wo, W]
     wy = _hat_rows(src_y[..., :, 0], h)            # [..., Ho, H]
+    if dot_dtype is not None:
+        if dot_dtype != torch.bfloat16:
+            raise ValueError(f"dot_dtype must be None or bfloat16, got "
+                             f"{dot_dtype}")
+        bf = torch.bfloat16
+        t1 = torch.matmul(wy.to(bf).unsqueeze(-3), planes.to(bf))
+        out = torch.matmul(t1.float(),
+                           wx.to(bf).float().unsqueeze(-3).transpose(-1, -2))
+        return out.movedim(-3, -1)
     if planes.dtype == torch.float32:
         return _separable_planar_f32(planes, wx, wy)
     step = max(1, UPCAST_CHUNK_BYTES // (3 * h * w * 4))

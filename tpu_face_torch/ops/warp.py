@@ -19,9 +19,17 @@ runs its plain PyTorch version.  The kernels have no static sampling
 window, so unlike the TPU kernels they need no envelope check: every ROI
 is sampled exactly.
 
-``LAUNCHES`` and ``STRIP_LAUNCHES`` count kernel launches (the plain
-paths never add to them), so a run can show that the main path went
-through the kernels.
+``warp_bilinear_strips_staged`` computes the same function as
+``warp_bilinear_strips`` with each output block's source window staged
+in shared memory (``csrc/warp_strips_staged.cu``), the TPU design: with
+one copy of all three channels per block (``copies="fused"``, as
+``_warp_kernel_strips``) or three per-channel copies (``"split"``, the
+A/B baseline of ``tools/tpu_strip_dma_probe.py``).  The cascade does not
+call it: it is the measured counterpart of the gather kernel.
+
+``LAUNCHES``, ``STRIP_LAUNCHES`` and ``STAGED_LAUNCHES`` count kernel
+launches (the plain paths never add to them), so a run can show that the
+main path went through the kernels.
 """
 
 import math
@@ -32,6 +40,13 @@ from . import _build
 
 LAUNCHES = 0          # warp_bilinear.cu
 STRIP_LAUNCHES = 0    # warp_bilinear_strips.cu
+STAGED_LAUNCHES = {"fused": 0, "split": 0}   # warp_strips_staged.cu
+
+# Shared memory of one of the staged kernel's two window buffers (all
+# three channels): two buffers of 48 KiB leave room for two CTAs per SM
+# on an H100.  A block whose window does not fit reads the rest of its
+# taps from global memory.
+STAGE_BYTES = 48 * 1024
 
 XWIN = 128            # the TPU kernel's x-window (lanes)
 XLOAD = 2 * XWIN      # its aligned strip load width
@@ -182,6 +197,70 @@ def warp_bilinear_strips(planes, xs, ys):
                   if planes.dtype == torch.bfloat16
                   else "warp_bilinear_strips_f32", planes, xs, ys)
     STRIP_LAUNCHES += 1
+    return out
+
+
+def staged_block(h: int, w: int):
+    """(rt, cw): the output rows and columns of one block of the staged
+    kernel, the JAX cascade's strip geometry (``pipeline._warp_cfg``):
+    16 x 32 up to 2560 px, 8 x 16 above."""
+    return (8, 16) if max(h, w) > 2560 else (16, 32)
+
+
+def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
+    """Samples [B, 3, P] of bf16 or f32 planes [B, 3, H, W] at xs/ys
+    [B, ..., Ho, Wo] (the grids of each frame, all of one size; P their
+    pixels in order): the staged kernel for CUDA tensors,
+    ``warp_bilinear_strips_plain`` for CPU tensors.  ``copies`` is
+    "fused" (one copy of the three channels' window per block) or
+    "split" (one per channel)."""
+    if copies not in STAGED_LAUNCHES:
+        raise ValueError(f"copies must be one of {sorted(STAGED_LAUNCHES)}, "
+                         f"got {copies!r}")
+    if xs.dim() < 3:
+        raise ValueError(f"xs/ys must be [B, ..., Ho, Wo] grids, got "
+                         f"{tuple(xs.shape)}")
+    flat_x, flat_y = xs.flatten(1), ys.flatten(1)
+    _check(planes, flat_x, flat_y, (torch.bfloat16, torch.float32))
+    if xs.shape != ys.shape:
+        raise ValueError(f"xs {tuple(xs.shape)} and ys {tuple(ys.shape)} "
+                         f"differ")
+    if planes.device.type == "cpu":
+        return warp_bilinear_strips_plain(planes, flat_x, flat_y)
+    if planes.device.type != "cuda":
+        raise ValueError(f"no warp kernel for device {planes.device}")
+    b, _, h, w = planes.shape
+    gh, gw = xs.shape[-2:]
+    groups = math.prod(xs.shape[1:-2])
+    if b > 65535 or flat_x.shape[1] >= 2**30 or max(h, w) >= 2**24:
+        raise ValueError(f"warp too large: B={b} P={flat_x.shape[1]} H={h} "
+                         f"W={w}")
+    planes = planes.contiguous()
+    if planes.data_ptr() % 4:
+        raise ValueError("the staged kernel copies 4-byte words: the planes "
+                         "must start 4-byte aligned")
+    rt, cw = staged_block(h, w)
+    tiles = -(-gh // rt)
+    if groups * tiles >= 2**31:
+        raise ValueError(f"too many row tiles: {groups} grids x {tiles}")
+    # elements of one channel's window per buffer, even (bf16 pairs)
+    cap = STAGE_BYTES // (3 * planes.element_size()) // 2 * 2
+    xs, ys = flat_x.contiguous(), flat_y.contiguous()
+    out = torch.empty((b, 3, xs.shape[1]), dtype=torch.float32,
+                      device=planes.device)
+    if out.numel() == 0:
+        return out
+    name = "bf16" if planes.dtype == torch.bfloat16 else "f32"
+    fn = getattr(_build.load("warp_strips_staged"),
+                 f"warp_strips_staged_{copies}_{name}")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(planes.data_ptr(), b, h, w, xs.data_ptr(), ys.data_ptr(),
+                 groups, gh, gw, rt, cw, cap, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"warp_strips_staged_{copies}_{name} launch "
+                           f"failed: CUDA error {err}")
+    STAGED_LAUNCHES[copies] += 1
     return out
 
 

@@ -19,8 +19,12 @@ Stage semantics match the standalone models of the reference:
   iris x2      iris_landmark.rs:158-248 (right eye mirrored)
   refinement   iris_landmark.rs:380-398
 
-Everything runs in full f32: TF32 is switched off for the convolutions
-and the matmuls while the cascade runs (``exact_f32``).
+With ``compute_dtype=torch.float32`` everything runs in full f32: TF32
+is switched off for the convolutions and the matmuls while the cascade
+runs (``exact_f32``).  With ``torch.bfloat16`` (the JAX package's bench
+configuration) the three nets compute in bf16 and, above 720 px, the
+detection warp's hat matmuls run in bf16 with f32 accumulation; the ROI
+warps, the post-processing and the results stay f32.
 """
 
 import math
@@ -110,6 +114,15 @@ class FaceCascade:
     the cascade's device.  ``device=None`` means the CUDA card and
     raises without one; pass ``device="cpu"`` for the plain path.
 
+    ``compute_dtype`` is ``torch.float32`` or ``torch.bfloat16``, as in
+    ``tpu_face.pipeline.FaceCascade``: in bf16 the detector, mesh and
+    iris nets run in bf16 (``TFLiteNet``; the detector's residual runs on
+    the fused kernel's bf16 entry point), and frames larger than 720 px
+    on a side take bf16 hat matmuls in the detection warp
+    (``separable_sample_planar(..., dot_dtype=torch.bfloat16)``).  The
+    plane type still follows the frame size alone, the ROI warps do not
+    change, and every result is f32.  Any other dtype raises.
+
     ``max_faces`` faces per frame come out of the weighted NMS; the
     per-face stages run over [B, max_faces].  Two arguments are accepted
     for parity with ``tpu_face.pipeline.FaceCascade`` and have no effect
@@ -133,9 +146,6 @@ class FaceCascade:
                  input_layout: str = "hwc",
                  warp_profile: str = "auto",
                  device=None):
-        if compute_dtype != torch.float32:
-            raise NotImplementedError("only compute_dtype=float32 is "
-                                      "ported")
         if int(max_faces) != max_faces or max_faces < 1:
             raise ValueError(f"max_faces must be a positive int, got "
                              f"{max_faces!r}")
@@ -144,6 +154,7 @@ class FaceCascade:
         if warp_profile not in ("coverage", "speed", "auto"):
             raise ValueError(f"warp_profile {warp_profile!r}")
         self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
         self.max_faces = int(max_faces)
         self.nms_top_m = nms_top_m
         self._layout = input_layout
@@ -151,9 +162,9 @@ class FaceCascade:
         det_graph = Graph(base / f"{_MODEL_FILES[detection_model]}.npz")
         mesh_graph = Graph(base / "face_landmark.npz")
         iris_graph = Graph(base / "iris_landmark.npz")
-        self._det_net = build_torch_fn(det_graph, self.device)
-        self._mesh_net = build_torch_fn(mesh_graph, self.device)
-        self._iris_net = build_torch_fn(iris_graph, self.device)
+        self._det_net, self._mesh_net, self._iris_net = (
+            build_torch_fn(g, self.device, compute_dtype=compute_dtype)
+            for g in (det_graph, mesh_graph, iris_graph))
         self.anchors = torch.from_numpy(anchors_lib.ssd_generate_anchors(
             _SSD_OPTS[detection_model])).to(self.device)
         _, self.det_h, self.det_w, _ = det_graph.input_shape
@@ -238,9 +249,15 @@ class FaceCascade:
             tensor, padding = image_ops.letterbox_two_stage(
                 planes, (w, h), det_size, two, (-1.0, 1.0), planar=True)
         else:
+            # bf16 hat matmuls for large frames in a bf16 cascade, as
+            # JAX's (at most one uint8 level; the f32 cascade stays exact)
+            dot_dtype = (torch.bfloat16
+                         if (self.compute_dtype == torch.bfloat16
+                             and max(w, h) > 720) else None)
             dx, dy, padding = self._whole_frame_coords(image_size)
             tensor = image_ops._normalize_pixels(
-                image_ops.separable_sample_planar(planes, dx, dy),
+                image_ops.separable_sample_planar(planes, dx, dy,
+                                                  dot_dtype=dot_dtype),
                 (-1.0, 1.0), True)
         raw_boxes, raw_scores = self._det_net(tensor)
         boxes = post.decode_boxes(raw_boxes, self.anchors,
