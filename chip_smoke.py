@@ -6,17 +6,25 @@
 Phases, each of which fails loudly (nonzero exit, no result line):
 
 1. device  -- the card's name and power limit (nvidia-smi), torch's name;
-2. build   -- compiles the four kernel sources from tpu_face_torch/csrc
+2. build   -- compiles the five kernel sources from tpu_face_torch/csrc
               (the gather warps warp_bilinear.cu and
-              warp_bilinear_strips.cu, the fused residual block, the
-              staged strip warp warp_strips_staged.cu), one nvcc per
-              source, started together, and prints their ptxas lines;
+              warp_bilinear_strips.cu, the fused residual block in f32,
+              fused_dw_pw_block.cu, and in bf16,
+              fused_dw_pw_block_bf16.cu, the staged strip warp
+              warp_strips_staged.cu), one nvcc per source, started
+              together, and prints their ptxas lines;
 3. kernel  -- each kernel against its plain PyTorch version.  The warps
               (max abs error <= 1e-3) on random ROIs to +-45 deg,
               mirrored grids and taps past the frame edge, with the
               cascade's grids (a 192x192 mesh grid, 64x64 left and
-              mirrored right iris grids): warp_bilinear on f32 planes of
-              32 frames of 540x360, a 1280x720 and a 64x64 frame;
+              mirrored right iris grids): warp_bilinear_segments on f32
+              planes of 32 frames of 540x360, a 1280x720 and two 64x64
+              frames (two faces each), bit-exact, with the mesh grid,
+              both iris grids and all three as one, two and three
+              segments, a 37x37 grid cut from the mesh grid (not
+              contiguous, rows not a multiple of 4) and the one-segment
+              warp_bilinear on the concatenated coordinates; f32
+              warp_sample_multi takes it in one launch;
               warp_bilinear_strips and both staged variants (one fused
               copy per block, three per-channel copies) on the same calls
               over bf16 and f32 planes of 8 frames of 1920x1080, 2 of
@@ -29,10 +37,13 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               run of the BACK detector (128x128x24, 64x64x24, 32x32x48,
               16x16x96, seven blocks each, batch 64, the f32 and the bf16
               detector's weights), f32 within 1e-4 * max(1, max|plain|),
-              bf16 within 2e-2 * max|plain|, and f32 and bf16 at the Pallas
-              prototypes' shape (batch 256, 128x128x24, 7 blocks, their
-              seeded weights), bf16 within 2e-2 * max|plain|; the tiling
-              the wrapper chose for each run is printed;
+              bf16 within one bf16 ulp of max|plain| (the kernel rounds
+              where the plain version rounds), and f32 and bf16 at the
+              Pallas prototypes' shape (batch 256, 128x128x24, 7 blocks,
+              their seeded weights); the tiling
+              the wrapper chose for each run is printed, and for bf16 the
+              error of the f32-staged kernel it replaced on the same
+              inputs;
 4. cascade -- the main paths, with every launch count set to 0 before
               each and read after it.  f32: FaceCascade() on the seven
               rotated frames of assets/rotated/ (one infer_batch per
@@ -42,13 +53,21 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               px) and the port's own CPU result; then canvas (a) at
               1920x1080 (K=1) and (b) at 1280x824 (K=2), 2
               warp_bilinear_strips launches each, and (c) at 1080x720
-              (K=4), 2 warp_bilinear launches; every face valid and within
+              (K=4), 2 warp_bilinear launches (the mesh grid as one
+              segment, both iris grids as two, no coordinate
+              concatenation); every face valid and within
               0.25 px / 1e-3 of the CPU port.  bf16:
               FaceCascade(compute_dtype=torch.bfloat16) on the same frames
               and canvases (a) and (c), the detector's residual runs on
-              the bf16 instantiation only (its planned launches per call,
-              none of the f32 one), against the ground truth and the CPU
-              port's bf16 result (the BF16_* tolerances);
+              fused_dw_pw_block_bf16 only (its planned launches per call,
+              none of the f32 kernel's), against the ground truth and the
+              CPU port's bf16 result (the BF16_* tolerances; with K=4 the
+              faces matched by position, since the score sort may swap
+              faces whose bf16 scores nearly tie: a swap passes only
+              where the CPU's two scores differ by at most
+              BF16_SCORE_TOL, and each side's slot scores are printed);
+              with K > 1 the card's valid faces must come in
+              non-increasing score, and f32 faces match slot by slot;
 5. models  -- the standalone models, counts set to 0 before and read
               after: FaceDetection(BACK) -> face_detection_to_roi ->
               FaceLandmark -> iris_roi_from_face_landmarks -> IrisLandmark
@@ -75,7 +94,11 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               the gather kernel and both staged variants in turns, and
               each kernel's time at its path's shapes beside its bound,
               its plain version and, for the warps,
-              torch.nn.functional.grid_sample (a yardstick only).
+              torch.nn.functional.grid_sample (a yardstick only): the call
+              time (CUDA events over back-to-back calls, the host's
+              launch path included) and the device time (the same calls
+              queued behind a ``torch.cuda._sleep``, ``queued_ms``).  The
+              f32 and the bf16 fused kernel are timed on the same runs.
 
 Its last lines are the nvidia-smi line, a JSON line of numbers, the
 kernels' JSON line and {"ok": true, "device": {...}}.  Imports nothing
@@ -91,8 +114,9 @@ into DIR.
 
     python3 chip_smoke.py --sweep
 
-adds the fused kernel's time at each residual run of the BACK detector
-(batch 64) for every tiling that fits shared memory.
+adds each fused kernel's device time (``queued_ms``) at each residual
+run of the BACK detector (batch 64) for every tiling that fits shared
+memory (tiles a multiple of 4, and the plan's), beside the plan's pick.
 """
 
 import argparse
@@ -116,12 +140,12 @@ H100_BF16_FLOPS = 989e12        # bf16 tensor cores, f32 accumulation
 
 KERNEL_TOL = 1e-3               # 0-255 units, before rounding
 BLOCK_TOL_F32 = 1e-4            # fused block, x max(1, max|plain|)
-BLOCK_TOL_BF16 = 2e-2           # fused block in bf16, x max|plain|
+BLOCK_TOL_BF16 = 2e-2           # bf16 BACK net, fused vs op by op, x max(1, max)
 CPU_PX_TOL = 0.25               # landmarks, GPU vs CPU port, pixels
 CPU_SCORE_TOL = 1e-3
 # bf16 nets, GPU vs CPU port: cuDNN and the CPU's convolutions round their
-# bf16 outputs at other places, and the card's detector runs K4, which
-# rounds once per block where the plain sequence rounds every op.  The
+# bf16 outputs at other places (the detector's residual runs, on K4 on
+# the card, round where the CPU's per-op sequence rounds).  The
 # detection, the iris points and the nose within 1 px and the scores
 # within 1e-2; the mesh in steps of the mesh net's bf16 output (1.0 in
 # its 192-px input above 128, i.e. ROI / 192 px in the frame) everywhere
@@ -307,11 +331,61 @@ def check_bf16_points(det, mesh, iris, nose, roi_px):
     return max(px, float(mesh.max()))
 
 
+def align_faces(res, ref):
+    """(``res`` (a result with a face axis, on the card) with each
+    frame's face slots in ``ref``'s order, the swaps): each valid slot of
+    ``ref`` takes the unused slot of ``res`` whose detection box centre
+    is nearest, the other slots follow in their order.  The swaps are
+    the (frame, j, k) of each two valid slots j < k of ``ref`` whose
+    faces ``res`` holds in the other order.  The cascade sorts faces by
+    score, and two faces whose scores differ by less than the bf16 nets'
+    rounding may come out in either order."""
+    centre = (lambda d: d[..., :2, :].mean(-2))       # noqa: E731
+    det, rdet = centre(res.detection.cpu()), centre(ref.detection)
+    orders = []
+    for i in range(det.shape[0]):
+        free = list(range(det.shape[1]))
+        order = []
+        for j in range(det.shape[1]):
+            if bool(ref.face_valid[i, j]):
+                k = min(free, key=lambda k: float((det[i, k]
+                                                   - rdet[i, j]).norm()))
+            else:
+                k = free[0]
+            free.remove(k)
+            order.append(k)
+        orders.append(order)
+    swaps = [(i, j, k) for i, order in enumerate(orders)
+             for j in range(len(order)) for k in range(j + 1, len(order))
+             if bool(ref.face_valid[i, k]) and order[j] > order[k]]
+    rows = torch.arange(det.shape[0])[:, None]
+    index = torch.tensor(orders)
+    return type(res)(*(f.cpu()[rows, index] for f in res)), swaps
+
+
 def check_against_cpu(res, ref, size, bf16=False):
     """GPU result vs the port's CPU result on the same frames: equal
     bools, and the numbers of every valid face slot, within the f32
     tolerances or, for bf16 nets, the bf16 ones; returns (worst landmark
-    px, worst score difference)."""
+    px, worst score difference).  Where there is a face axis the card's
+    valid faces must come in non-increasing score, and f32 results are
+    compared slot by slot; bf16 results are first matched to the CPU's
+    by ``align_faces``, and two faces may only have swapped where their
+    CPU scores differ by at most ``BF16_SCORE_TOL``."""
+    if res.face_valid.dim() == 2:
+        score, valid = res.score.cpu(), res.face_valid.cpu()
+        assert bool(((score[:, :-1] >= score[:, 1:])
+                     | ~valid[:, 1:]).all()), ("face order", score, valid)
+    if bf16 and res.face_valid.dim() == 2:
+        res, swaps = align_faces(res, ref)
+        for i, j, k in swaps:
+            gap = abs(float(ref.score[i, j] - ref.score[i, k]))
+            print(f"frame {i}: the card holds CPU faces {j} and {k} "
+                  f"(CPU scores {float(ref.score[i, j]):.5f}, "
+                  f"{float(ref.score[i, k]):.5f}; card "
+                  f"{float(res.score[i, j]):.5f}, "
+                  f"{float(res.score[i, k]):.5f}) in the other order")
+            assert gap <= BF16_SCORE_TOL, ("swap", i, j, k, gap)
     w, h = size
     for f in ("face_valid", "mesh_valid", "envelope_ok"):
         assert torch.equal(getattr(res, f).cpu(), getattr(ref, f)), f
@@ -436,24 +510,52 @@ def stage_coords(cascade, frames, size):
     return planes, [[(mx, my)], [(lx, ly), (rx, ry)]]
 
 
-def time_kernel(kernel, plain, planes, calls):
-    """A warp kernel at the main path's shapes: its max abs error
-    against its plain version, its time, the plain version's time,
-    torch.nn.functional.grid_sample's on an f32 copy of the planes (the
-    copy is not timed), and its bound."""
+def queued_ms(fn, reps=5, windows=3):
+    """Device time per call of ``fn`` (the kernels it launches, back to
+    back): the median over ``windows`` of CUDA events around ``reps``
+    calls queued behind a ~20 ms ``torch.cuda._sleep``, so the calls run
+    back to back on the device and the host's launch path is hidden
+    (``reps`` calls must queue in less time than that).  Unlike
+    ``median_ms`` it leaves out the host's launch path."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def time_kernel(kernel, plain, planes, calls, coords=None):
+    """A warp kernel at the main path's shapes, ``kernel(planes, *args)``
+    for each ``args`` of ``calls`` (``coords``: each call's flat
+    coordinates (xs, ys) [B, P], by default the calls themselves): its
+    max abs error against its plain version, its time (call time from
+    CUDA events over back-to-back calls, and device time, ``queued_ms``),
+    the plain version's time,
+    torch.nn.functional.grid_sample's call and device times on an f32
+    copy of the planes (the copy is not timed), and its bound."""
+    coords = calls if coords is None else coords
     err = 0.0
-    for xs, ys in calls:
-        err = max(err, float((kernel(planes, xs, ys)
-                              - plain(planes, xs, ys)).abs().max()))
+    for args in calls:
+        err = max(err, float((kernel(planes, *args)
+                              - plain(planes, *args)).abs().max()))
     assert err <= KERNEL_TOL, err
     h, w = planes.shape[2:]
     f32 = planes.float()
     grids = [torch.stack([xs * (2.0 / (w - 1)) - 1.0,
                           ys * (2.0 / (h - 1)) - 1.0], -1)[:, None]
-             for xs, ys in calls]                        # [B, 1, P, 2]
+             for xs, ys in coords]                       # [B, 1, P, 2]
 
     def run(fn):
-        return lambda: [fn(planes, xs, ys) for xs, ys in calls]
+        return lambda: [fn(planes, *args) for args in calls]
 
     def library():
         return [torch.nn.functional.grid_sample(
@@ -463,13 +565,17 @@ def time_kernel(kernel, plain, planes, calls):
     kernel_ms, _ = median_ms(run(kernel), reps=50)
     plain_ms, _ = median_ms(run(plain), reps=5)
     library_ms, _ = median_ms(library, reps=20)
+    kernel_dev = queued_ms(run(kernel))
+    library_dev = queued_ms(library)
     del f32
-    nbytes = sum(touched_bytes(planes, xs, ys) for xs, ys in calls)
-    flops = sum(xs.numel() * 3 * 9 for xs, _ in calls)
+    nbytes = sum(touched_bytes(planes, xs, ys) for xs, ys in coords)
+    flops = sum(xs.numel() * 3 * 9 for xs, _ in coords)
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = flops / H100_F32_FLOPS * 1e3
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": library_ms, "device_ms": kernel_dev,
+            "library_device_ms": library_dev,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "flops": flops}
 
@@ -507,15 +613,15 @@ def trace_cascade(cascade, batch, out, label, calls=3, top=12):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{label}_kernels.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=60))
     prof.export_chrome_trace(str(out / f"{label}_trace.json"))
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return {
-        "calls": calls, "wall_ms": wall_ms, "device_ms": device_ms,
-        "idle_share": 1.0 - device_ms / wall_ms,
+        "calls": calls, "wall_ms": wall_ms, "device_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
         "launches_per_call": sum(e.count for e in kernels) / calls,
         "top": [[e.key[:80], e.self_device_time_total / 1e3 / calls,
                  e.count // calls] for e in kernels[:top]]}
@@ -606,13 +712,39 @@ def phase_kernels(rng):
             errs[name] = max(errs[name], err)
         return over
 
-    for b, (w, h) in ((32, (540, 360)), (1, (1280, 720)), (2, (64, 64))):
+    def check_segments(planes, coords):
+        """warp_bilinear_segments with each grid a segment, and
+        warp_bilinear on the concatenated coordinates: both bit-exact
+        with the plain version."""
+        segs = [(x, y, x.shape[-1]) for x, y in coords]
+        got, n = counted(lambda: warp.warp_bilinear_segments(planes, segs))
+        assert n == only(warp_bilinear=1), n
+        ref = warp.warp_bilinear_plain(planes, *flat(coords))
+        err = float((got - ref).abs().max())
+        b, _, h, w = planes.shape
+        print(f"warp_bilinear_segments B={b} {w}x{h} segments "
+              f"{[tuple(x.shape[1:]) for x, _ in coords]}: max abs err "
+              f"{err:.3g}, bit-exact {bool(torch.equal(got, ref))}")
+        assert torch.equal(got, ref), err
+        flat_got = check("warp_bilinear", warp.warp_bilinear,
+                         warp.warp_bilinear_plain, planes, coords)
+        assert torch.equal(flat_got, ref)
+        errs["warp_bilinear"] = max(errs["warp_bilinear"], err)
+
+    for b, (w, h), faces in ((32, (540, 360), 1), (1, (1280, 720), 1),
+                             (2, (64, 64), 2)):
         frames = torch.from_numpy(
             rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).cuda()
         planes = warp.make_planes(frames)
-        for coords in random_coords(rng, b, w, h, image_ops):
-            check("warp_bilinear", warp.warp_bilinear,
-                  warp.warp_bilinear_plain, planes, coords)
+        mesh, iris = random_coords(rng, b, w, h, image_ops, faces)
+        for coords in (mesh, iris, mesh + iris):
+            check_segments(planes, coords)
+        # a grid whose rows are not a multiple of 4, not contiguous
+        check_segments(planes, [(x[..., :37, :37], y[..., :37, :37])
+                                for x, y in mesh])
+        # the cascade's f32 planes: one launch, each grid a segment
+        _, n = counted(lambda: warp.warp_sample_multi(planes, iris))
+        assert n == only(warp_bilinear=1), n
     # the strip kernel and both staged variants on the same calls; ROIs
     # of one to three times the short side overflow the staged kernel's
     # window budget, so its global-memory taps run too
@@ -687,25 +819,43 @@ def prototype_inputs(batch):
                torch.from_numpy(bias).cuda()]
 
 
+def bf16_ulp(v):
+    """One bf16 unit in the last place at magnitude ``v`` > 0 (8 bits of
+    significand)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+# max abs errors of the bf16 fused kernel that fused_dw_pw_block_bf16.cu
+# replaced (the f32 template with bf16 loads and stores) on
+# phase_fused_blocks' bf16 inputs, on an H100
+BF16_ERR_REPLACED = {"R1": 0.5, "R2": 0.156, "R3": 0.219, "R4": 0.281,
+                     "K4": 0.203}
+
+
 def check_fused(label, x, weights):
-    """The fused kernel against its plain version on one run (TF32 off);
-    returns the max abs error."""
+    """The fused kernel against its plain version on one run (TF32 off),
+    with the weights in the kernel's form made once as the lowered nets
+    make them; returns the max abs error."""
     b, c, h, w = x.shape
     tile, chunks = fused_block.plan(c, h, w, weights[0].shape[0],
                                     x.element_size())
+    packed = fused_block.kernel_weights(*weights, x.dtype)
     with torch.inference_mode(), exact_f32():
-        got, n = counted(lambda: fused_block.fused_blocks(x, *weights))
+        got, n = counted(lambda: fused_block.fused_blocks(
+            x, *weights, tiling=(tile, chunks), weights=packed))
         ref = fused_block.fused_blocks_plain(x, *weights)
     assert n == only(**{fused_entry(x.dtype): len(chunks)}), (label, n,
                                                               chunks)
     err = float((got.float() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
     tol = (BLOCK_TOL_F32 * max(1.0, scale) if x.dtype == torch.float32
-           else BLOCK_TOL_BF16 * scale)
+           else bf16_ulp(scale))
+    before = ("" if x.dtype == torch.float32 else
+              f"; the replaced kernel's {BF16_ERR_REPLACED[label[:2]]:.3g}")
     print(f"fused_dw_pw_block {str(x.dtype)[6:]} {label} B={b}: tile "
           f"{tile}x{tile}, layers per launch {list(chunks)}; max abs err "
-          f"{err:.3g} (max |plain| {scale:.3g}, tolerance {tol:.3g})",
-          flush=True)
+          f"{err:.3g} (max |plain| {scale:.3g}, tolerance {tol:.3g}"
+          f"{before})", flush=True)
     assert err <= tol, (label, err, tol)
     return err
 
@@ -734,65 +884,106 @@ def time_fused(cases, dtype):
     bound (each input and weight read once, each output written once;
     f32 operations at the f32 peak, bf16 ones at the bf16 tensor-core
     rate, which also accumulates in f32)."""
-    runs = [(x.to(dtype), w) for _, x, w in cases]
+    runs = [(x.to(dtype), w, fused_block.kernel_weights(*w, dtype),
+             fused_block.plan(x.shape[1], x.shape[2], x.shape[3],
+                              w[0].shape[0], torch.finfo(dtype).bits // 8))
+            for _, x, w in cases]
 
     def kernel():
-        for x, w in runs:
-            fused_block.fused_blocks(x, *w)
+        for x, w, packed, tiling in runs:
+            fused_block.fused_blocks(x, *w, tiling=tiling, weights=packed)
 
     def plain():
-        for x, w in runs:
+        for x, w, _, _ in runs:
             fused_block.fused_blocks_plain(x, *w)
 
     with torch.inference_mode(), exact_f32():
         kernel_ms, _ = median_ms(kernel, reps=10)
         plain_ms, _ = median_ms(plain, reps=3)
+        kernel_dev = queued_ms(kernel)
     flops = sum(x.shape[0] * x.shape[2] * x.shape[3] * w[0].shape[0]
-                * fused_block.block_flops(x.shape[1]) for x, w in runs)
+                * fused_block.block_flops(x.shape[1]) for x, w, _, _ in runs)
     nbytes = sum(2 * x.numel() * x.element_size()
-                 + sum(t.numel() * t.element_size() for t in w)
-                 for x, w in runs)
+                 + sum(t.numel() * t.element_size() for t in packed)
+                 for x, _, packed, _ in runs)
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = flops / (H100_F32_FLOPS if dtype == torch.float32
                       else H100_BF16_FLOPS) * 1e3
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "device_ms": kernel_dev, "library_device_ms": None,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "flops": flops, "bytes": nbytes,
-            "tilings": [fused_block.plan(x.shape[1], x.shape[2], x.shape[3],
-                                         w[0].shape[0], x.element_size())
-                        for x, w in runs]}
+            "tilings": [tiling for _, _, _, tiling in runs]}
 
 
-def sweep_tilings(cases):
-    """The fused kernel's time at each run for every tiling (tile a
-    multiple of 4, any layers per launch) that fits shared memory."""
+def sweep_tilings(cases, dtype):
+    """The fused kernel for ``dtype``: its device time (``queued_ms``) at
+    each run for every tiling that fits shared memory (a tile that is a
+    multiple of 4, up to the run's side plus 4, any layers per launch;
+    and the plan's), beside the plan's pick and its modelled time."""
     out = {}
+    itemsize = torch.finfo(dtype).bits // 8
     with torch.inference_mode(), exact_f32():
         for label, x, w in cases:
+            x = x.to(dtype)
             _, c, h, width = x.shape
             layers = w[0].shape[0]
+            packed = fused_block.kernel_weights(*w, dtype)
+            pick = fused_block.plan(c, h, width, layers, itemsize)
+
+            def fits(tile, per):
+                return (fused_block.smem_bytes_bf16(c, tile, per, h, width)
+                        if itemsize == 2 else
+                        fused_block.smem_bytes(c, tile, per)) <= \
+                    fused_block.SMEM_LIMIT
+
             times = {}
             for per in range(1, layers + 1):
                 chunks = fused_block.split_layers(layers, per)
-                for tile in range(4, max(h, width) + 1, 4):
-                    if fused_block.smem_bytes(c, tile, per) > \
-                            fused_block.SMEM_LIMIT:
-                        break
-                    times[f"L{per}_t{tile}"] = median_ms(
+                tiles = set(range(4, max(h, width) + 5, 4))
+                if chunks == pick[1]:
+                    tiles.add(pick[0])
+                for tile in sorted(t for t in tiles if fits(t, per)):
+                    times[f"L{per}_t{tile}"] = queued_ms(
                         lambda: fused_block.fused_blocks(
-                            x, *w, tiling=(tile, chunks)), reps=5)[0]
+                            x, *w, tiling=(tile, chunks), weights=packed))
             best = min(times, key=times.get)
-            print(f"sweep {label}: best {best} {times[best]:.4f} ms; plan "
-                  f"{fused_block.plan(c, h, width, layers)}", flush=True)
-            out[label] = times
+            mine = f"L{max(pick[1])}_t{pick[0]}"
+            print(f"sweep {str(dtype)[6:]} {label}: best {best} "
+                  f"{times[best]:.4f} ms; plan {mine} {times[mine]:.4f} ms",
+                  flush=True)
+            out[label] = {"best": best, "plan": mine, "ms": times}
     return out
 
 
+def segment_calls(fn):
+    """``fn()`` with warp.warp_bilinear_segments watched: returns (its
+    result, [(segments, whether every segment is a grid as it lies
+    ([B, ..., Ho, Wo], not flattened)) for each call])."""
+    real = warp.warp_bilinear_segments
+    seen = []
+
+    def spy(planes, segments):
+        seen.append((len(segments), all(x.dim() >= 3 for x, _, _ in segments)))
+        return real(planes, segments)
+
+    warp.warp_bilinear_segments = spy
+    try:
+        return fn(), seen
+    finally:
+        warp.warp_bilinear_segments = real
+
+
 def run_cascade(cascade, frames, launches):
-    """One infer_batch on the card, checked for its kernel launches."""
-    res, n = counted(lambda: cascade.infer_batch(frames))
+    """One infer_batch on the card, checked for its kernel launches; where
+    it warps f32 planes, for the mesh grid as one segment and the iris
+    grids as two, read where they lie (no coordinate concatenation)."""
+    (res, n), seen = segment_calls(
+        lambda: counted(lambda: cascade.infer_batch(frames)))
     assert n == launches, (n, launches)
+    assert seen == ([(1, True), (2, True)] if launches["warp_bilinear"]
+                    else []), seen
     return res
 
 
@@ -850,11 +1041,14 @@ def phase_cascade(dtype=torch.float32):
         res = canvas_results[key]
         assert bool(res.mesh_valid.all()), (key, res.mesh_valid)
         size = (img.shape[1], img.shape[0])
-        px, sc = check_against_cpu(res, cpu[k].infer_batch(img[None]), size,
-                                   bf16)
+        ref = cpu[k].infer_batch(img[None])
+        px, sc = check_against_cpu(res, ref, size, bf16)
         print(f"canvas ({key}) {size[0]}x{size[1]} K={k}: "
               f"{int(res.mesh_valid.sum())} valid faces; GPU vs CPU port "
-              f"{px:.4f} px, scores {sc:.2e}", flush=True)
+              f"{px:.4f} px, scores {sc:.2e}; slot scores card "
+              f"{[round(float(v), 5) for v in res.score.flatten()]}, CPU "
+              f"{[round(float(v), 5) for v in ref.score.flatten()]}",
+              flush=True)
     return launches
 
 
@@ -1065,18 +1259,23 @@ def phase_strip_dma(rng):
     # by both variants (the same function on the same inputs)
     base = time_kernel(staged("fused"), warp.warp_bilinear_strips_plain,
                        planes, [(xs, ys)])
-    timed = {f"warp_strips_{k}": dict(base, ms=statistics.mean(times[k]))
+    dev = {k: queued_ms(fn) for k, fn in runs.items()}
+    timed = {f"warp_strips_{k}": dict(base, ms=statistics.mean(times[k]),
+                                      device_ms=dev[k])
              for k in ("staged_fused", "staged_split")}
     numbers = {f"strip_dma_b{b}": {
         "grids": f"{b} x 192x192 mesh grids, 1920x1080 bf16 planes",
         "bit_exact": True, "blocks": blocks, "blocks_over_budget": over,
         **{f"{k}_ms": v for k, v in times.items()},
+        **{f"{k}_device_ms": v for k, v in dev.items()},
         "bound_ms": base["bound_ms"], "bytes": base["bytes"],
-        "plain_ms": base["plain_ms"], "library_ms": base["library_ms"]}}
+        "plain_ms": base["plain_ms"], "library_ms": base["library_ms"],
+        "library_device_ms": base["library_device_ms"]}}
     g, f, sp = (statistics.mean(times[k]) for k in
                 ("gather", "staged_fused", "staged_split"))
     print(f"strip_dma b{b}: gather {g:.4f} ms, staged fused copy {f:.4f} "
-          f"ms, staged split copies {sp:.4f} ms (turns {times}); bound "
+          f"ms, staged split copies {sp:.4f} ms (turns {times}; device "
+          f"{dev}); bound "
           f"{base['bound_ms']:.4f} ms; bit-exact; {over} of {blocks} "
           f"blocks over the window budget", flush=True)
     return launches, timed, numbers
@@ -1142,21 +1341,19 @@ def phase_numbers(rng, trace, sweep=False):
     # the fused block at the main path's shapes (the BACK detector's four
     # runs at batch 64, together and one by one; the bf16 detector's in
     # bf16) and at K3/K4's shape
+    # f32 (K3) and bf16 (K4) on the same runs: the same inputs and the
+    # f32 detector's weights (rounded to bf16 by the bf16 kernel's form)
     cases = detector_runs(cascade._det_net, rng, BATCH["fused"])
-    timed["fused_dw_pw_block_f32"] = time_fused(cases, torch.float32)
-    numbers[f"fused_runs_b{BATCH['fused']}"] = {
-        "all": timed["fused_dw_pw_block_f32"],
-        **{label: time_fused([(label, x, w)], torch.float32)
-           for label, x, w in cases}}
-    if sweep:
-        numbers[f"fused_sweep_b{BATCH['fused']}"] = sweep_tilings(cases)
-    del cases
-    cases = detector_runs(cascade16._det_net, rng, BATCH["fused"])
-    timed["fused_dw_pw_block_bf16"] = time_fused(cases, bf16)
-    numbers[f"fused_runs_bf16_b{BATCH['fused']}"] = {
-        "all": timed["fused_dw_pw_block_bf16"],
-        **{label: time_fused([(label, x, w)], bf16)
-           for label, x, w in cases}}
+    for dtype, key, entry in ((torch.float32, "", "fused_dw_pw_block_f32"),
+                              (bf16, "_bf16", "fused_dw_pw_block_bf16")):
+        timed[entry] = time_fused(cases, dtype)
+        numbers[f"fused_runs{key}_b{BATCH['fused']}"] = {
+            "all": timed[entry],
+            **{label: time_fused([(label, x, w)], dtype)
+               for label, x, w in cases}}
+        if sweep:
+            numbers[f"fused_sweep{key}_b{BATCH['fused']}"] = sweep_tilings(
+                cases, dtype)
     del cases
     x, w = prototype_inputs(BATCH["k3"])
     numbers[f"fused_k3_f32_b{BATCH['k3']}"] = time_fused(
@@ -1171,10 +1368,12 @@ def phase_numbers(rng, trace, sweep=False):
         cascade,
         torch.from_numpy(np.tile(frames, (b // 4, 1, 1, 1))).cuda(), size)
     timed["warp_bilinear"] = time_kernel(
-        warp.warp_bilinear, warp.warp_bilinear_plain, planes,
+        warp.warp_bilinear_segments, warp.warp_bilinear_segments_plain,
+        planes, [([(x, y, x.shape[-1]) for x, y in g],) for g in grids],
         [flat(g) for g in grids])
-    numbers[f"warp_b{b}"] = {"calls": ["mesh 192x192", "iris 2x64x64"],
-                             **timed["warp_bilinear"]}
+    numbers[f"warp_b{b}"] = {
+        "calls": ["mesh 192x192 (1 segment)", "iris 2x64x64 (2 segments)"],
+        **timed["warp_bilinear"]}
 
     # cascade throughput at batch 64 (the four 540p frames, x16), the
     # uint8 batch already on the card, f32 and bf16 nets
@@ -1300,7 +1499,7 @@ BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
          "fused": 64, "k3": 256, "strip_dma": 64}
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
-           "warp_strips_staged")
+           "fused_dw_pw_block_bf16", "warp_strips_staged")
 # the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
@@ -1309,7 +1508,7 @@ SOURCES = {
                              "tpu_face/ops/pallas_warp.py:249"),
     "fused_dw_pw_block_f32": ("tpu_face_torch/csrc/fused_dw_pw_block.cu",
                               "docs/experiments/fused_block_prototype.py:46"),
-    "fused_dw_pw_block_bf16": ("tpu_face_torch/csrc/fused_dw_pw_block.cu",
+    "fused_dw_pw_block_bf16": ("tpu_face_torch/csrc/fused_dw_pw_block_bf16.cu",
                                "docs/experiments/fused_block_v2.py:74"),
     "warp_strips_staged_fused": ("tpu_face_torch/csrc/warp_strips_staged.cu",
                                  "tpu_face/ops/pallas_warp.py:249"),
@@ -1369,7 +1568,7 @@ def main(argv=None):
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
-    # the bf16 paths run the bf16 instantiation and never the f32 one
+    # the bf16 paths run the bf16 kernel and never the f32 one
     for counts in (paths["cascade_bf16"], models["bf16"]):
         assert counts["fused_dw_pw_block_f32"] == 0, counts
         assert counts["fused_dw_pw_block_bf16"] > 0, counts
@@ -1390,9 +1589,10 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n,
             "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
-            "ms": t["ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"]})
 
     print(smi)
     print(json.dumps(numbers))

@@ -55,5 +55,6 @@ def test_port_covers_the_slice():
             "tpu_face_torch/pipeline.py"}
     assert want <= set(FILES)
     for kernel in ("warp_bilinear", "warp_bilinear_strips",
-                   "fused_dw_pw_block", "warp_strips_staged"):
+                   "fused_dw_pw_block", "fused_dw_pw_block_bf16",
+                   "warp_strips_staged"):
         assert (ROOT / f"tpu_face_torch/csrc/{kernel}.cu").exists()

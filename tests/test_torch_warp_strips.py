@@ -92,15 +92,23 @@ def test_plain_matches_bilinear_sample(case, dtype):
 
 
 def test_sample_multi_dispatches_on_plane_type(monkeypatch):
-    """bf16 planes take the strip kernel's wrapper, f32 planes the
-    resident one's; K faces per frame share one call."""
+    """bf16 planes take the strip kernel's wrapper (the grids
+    concatenated), f32 planes the resident one's segment wrapper (one
+    segment per grid, as it lies, its rows as wide as the grid's); K
+    faces per frame share one call."""
     calls = []
-    for name in ("warp_bilinear", "warp_bilinear_strips"):
-        real = getattr(warp, name)
-        monkeypatch.setattr(
-            warp, name,
-            lambda p, x, y, _n=name, _f=real: calls.append(
-                (_n, tuple(x.shape))) or _f(p, x, y))
+    real_strips, real_segments = (warp.warp_bilinear_strips,
+                                  warp.warp_bilinear_segments)
+    monkeypatch.setattr(
+        warp, "warp_bilinear_strips",
+        lambda p, x, y: calls.append(("warp_bilinear_strips",
+                                      tuple(x.shape)))
+        or real_strips(p, x, y))
+    monkeypatch.setattr(
+        warp, "warp_bilinear_segments",
+        lambda p, segs: calls.append(("warp_bilinear_segments", [
+            (tuple(x.shape), wd) for x, _, wd in segs]))
+        or real_segments(p, segs))
     rng = np.random.default_rng(5)
     frames = torch.from_numpy(_frames(rng, 2, 160, 120))
     coords = _case_coords("mirrored", rng, 2, 160, 120)
@@ -109,7 +117,8 @@ def test_sample_multi_dispatches_on_plane_type(monkeypatch):
     for dtype in ("f32", "bf16"):
         planes = warp.make_planes(frames, dtype=DTYPES[dtype])
         outs[dtype] = warp.warp_sample_multi(planes, coords)
-    assert calls == [("warp_bilinear", (2, 2 * 2 * 64 * 64)),
+    assert calls == [("warp_bilinear_segments",
+                      [((2, 2, 64, 64), 64), ((2, 2, 64, 64), 64)]),
                      ("warp_bilinear_strips", (2, 2 * 2 * 64 * 64))]
     assert (warp.LAUNCHES, warp.STRIP_LAUNCHES) == before  # CPU: plain
     for a, b, (x, _) in zip(outs["f32"], outs["bf16"], coords):

@@ -7,7 +7,8 @@ or bf16 nets (``compute_dtype``).  The kernels are hand-written CUDA
 (``csrc/``): the rotated bilinear ROI warp (``warp_bilinear.cu``,
 ``warp_bilinear_strips.cu``, and its shared-memory staged variants
 ``warp_strips_staged.cu``) and the detectors' fused residual blocks
-(``fused_dw_pw_block.cu``).  Module names follow the JAX package so each
+(``fused_dw_pw_block.cu`` in f32, ``fused_dw_pw_block_bf16.cu`` in bf16
+on the tensor cores).  Module names follow the JAX package so each
 counterpart is easy to find.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;

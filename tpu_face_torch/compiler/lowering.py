@@ -299,7 +299,10 @@ class TFLiteNet(nn.Module):
     residual blocks (``_residual_runs``) goes to
     ``ops.fused_block.fused_blocks`` as one call, with the run's weights
     stacked from ``params``: the CUDA kernel on the card, the same per-op
-    arithmetic on the CPU.  ``fuse_blocks=False`` runs them op by op.
+    arithmetic on the CPU.  Each run's weights are also kept in the form
+    its kernel reads (``fused_block.kernel_weights``, buffers
+    ``run<k>_kernel<i>``) and its tiling planned (``run_tilings``), both
+    once, here.  ``fuse_blocks=False`` runs them op by op.
 
     ``compute_dtype`` is float32 or bfloat16.  In bf16 the input and
     every float constant are cast to bf16 and every op computes in bf16;
@@ -342,24 +345,38 @@ class TFLiteNet(nn.Module):
         self.run_shapes = [
             (run[0]["c"], *graph.tensors[run[0]["input"]]["shape"][1:3],
              len(run)) for run in self.runs]
+        itemsize = torch.finfo(compute_dtype).bits // 8
+        # each run's tiling, planned once for the net's activations
+        self.run_tilings = [fused_block.plan(c, h, w, layers, itemsize)
+                            for c, h, w, layers in self.run_shapes]
+        self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
-            for name, value in _stack_run(run, params).items():
+            stacked = _stack_run(run, params)
+            for name, value in stacked.items():
                 self.register_buffer(f"run{k}_{name}", value)
+            names = []
+            for i, value in enumerate(fused_block.kernel_weights(
+                    **stacked, dtype=compute_dtype)):
+                names.append(f"run{k}_kernel{i}")
+                self.register_buffer(names[-1], value)
+            self._run_weights.append(names)
 
     def fused_launches(self, itemsize=None) -> int:
         """Kernel launches of one ``forward`` on the card: those the
         wrapper's tiling plan makes for each run at activations of
         ``itemsize`` bytes (default: the net's compute dtype's, 2 for a
-        bf16 net)."""
+        bf16 net, whose tilings were planned at construction)."""
         if itemsize is None:
-            itemsize = torch.finfo(self.compute_dtype).bits // 8
+            return sum(len(chunks) for _, chunks in self.run_tilings)
         return sum(len(fused_block.plan(c, h, w, layers, itemsize)[1])
                    for c, h, w, layers in self.run_shapes)
 
     def _run(self, k, x):
         return fused_block.fused_blocks(
             x, *(getattr(self, f"run{k}_{n}") for n in ("wd", "bd", "wp",
-                                                        "bp")))
+                                                        "bp")),
+            tiling=self.run_tilings[k],
+            weights=tuple(getattr(self, n) for n in self._run_weights[k]))
 
     def _conv(self, x, node, depthwise):
         o, ins = node["options"], node["inputs"]

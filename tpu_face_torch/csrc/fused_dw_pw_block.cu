@@ -5,14 +5,14 @@
 //     z = PW1x1(y, wp[l]) + bp[l]        C -> C
 //     x = relu(z + x)
 //
-// on NCHW activations [batch, c, h, w], f32 or bf16.  This is the body of
-// the BlazeFace detectors: the BACK graph holds 28 such blocks in four runs
-// of seven (128x128x24, 64x64x24, 32x32x48, 16x16x96).
+// on NCHW f32 activations [batch, c, h, w].  This is the body of the
+// BlazeFace detectors: the BACK graph holds 28 such blocks in four runs of
+// seven (128x128x24, 64x64x24, 32x32x48, 16x16x96).  (bf16 activations
+// go to fused_dw_pw_block_bf16.cu.)
 //
-// Replaces docs/experiments/fused_block_prototype.py::kernel (K3, f32) and
-// docs/experiments/fused_block_v2.py::kernel (K4, the same function in
-// bf16 activations with f32 accumulation), the Pallas TPU kernels that run
-// K fused layers per VMEM residency of a row chunk with a K-row halo.  The
+// Replaces docs/experiments/fused_block_prototype.py::kernel (K3), the
+// Pallas TPU kernel that runs K fused layers per VMEM residency of a row
+// chunk with a K-row halo.  The
 // same idea on Hopper: one CTA owns one spatial tile of one frame, stages
 // the tile plus a `layers`-pixel halo in shared memory, and runs every
 // layer of the launch in that residency; only the run's input is read and
@@ -38,11 +38,8 @@
 // The halo costs recomputed pixels, which the wrapper trades against
 // extra launches when it picks the tile and the layers per launch.
 //
-// Types: activations are loaded and stored as T and kept in f32 in shared
-// memory; sums are f32 (explicit fma, so -fmad=false does not split
-// them); for T = bf16 each layer's output is rounded to bf16 once.
+// Sums are f32 in explicit fma, so -fmad=false does not split them.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,29 +49,6 @@ constexpr int kThreads = 512;
 constexpr int kGroup = 8;   // output channels of the 1x1 per thread
 constexpr int kRows = 4;    // depthwise outputs per thread, down a column
 constexpr int kInFlight = 8;  // staging loads issued together per thread
-
-template <typename T>
-struct Act;
-
-template <>
-struct Act<float> {
-  static __device__ __forceinline__ float load(float v) { return v; }
-  static __device__ __forceinline__ float store(float v) { return v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Act<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
-    return __float2bfloat16(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-};
 
 // Walks (k, ry, rx) over k_count x ny x nx items, `step` items at a time,
 // without a division per item.
@@ -110,9 +84,8 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = s[i];
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    fused_blocks_kernel(const T* __restrict__ x, T* __restrict__ out,
+    fused_blocks_kernel(const float* __restrict__ x, float* __restrict__ out,
                         const float* __restrict__ wd,
                         const float* __restrict__ bd,
                         const float* __restrict__ wpt,
@@ -141,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ox = tile_x * tile - layers;
 
   // stage the tile and its halo, zeros outside the image
-  const T* xb = x + frame;
+  const float* xb = x + frame;
   for (Walk it(threadIdx.x, blockDim.x, e, e); it.k < c;) {
     float v[kInFlight];
     int dst[kInFlight];
@@ -154,8 +127,7 @@ __global__ void __launch_bounds__(kThreads)
         const int gx = ox + it.rx;
         dst[u] = it.k * np + it.ry * e + it.rx;
         if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-          v[u] = Act<T>::load(
-              xb[it.k * plane + static_cast<int64_t>(gy) * w + gx]);
+          v[u] = xb[it.k * plane + static_cast<int64_t>(gy) * w + gx];
         }
         it.next();
       }
@@ -257,16 +229,13 @@ __global__ void __launch_bounds__(kThreads)
       float* xa = xs + it.k * kGroup * np + pa;
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
-        xa[j * np] = in_a ? Act<T>::round(relu(acc_a[j] + xa[j * np]))
-                          : 0.0f;
+        xa[j * np] = in_a ? relu(acc_a[j] + xa[j * np]) : 0.0f;
       }
       if (has_b) {
         float* xb2 = xs + it.k * kGroup * np + pb;
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
-          xb2[j * np] = in_b
-                            ? Act<T>::round(relu(acc_b[j] + xb2[j * np]))
-                            : 0.0f;
+          xb2[j * np] = in_b ? relu(acc_b[j] + xb2[j * np]) : 0.0f;
         }
       }
     }
@@ -274,19 +243,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // write the tile (the staged centre) back
-  T* ob = out + frame;
+  float* ob = out + frame;
   for (Walk it(threadIdx.x, blockDim.x, tile, tile); it.k < c; it.next()) {
     const int gy = tile_y * tile + it.ry;
     const int gx = tile_x * tile + it.rx;
     if (gy < h && gx < w) {
-      ob[it.k * plane + static_cast<int64_t>(gy) * w + gx] = Act<T>::store(
-          xs[it.k * np + (layers + it.ry) * e + layers + it.rx]);
+      ob[it.k * plane + static_cast<int64_t>(gy) * w + gx] =
+          xs[it.k * np + (layers + it.ry) * e + layers + it.rx];
     }
   }
 }
 
-template <typename T>
-int launch(const T* x, T* out, const float* wd, const float* bd,
+int launch(const float* x, float* out, const float* wd, const float* bd,
            const float* wpt, const float* bp, int batch, int c, int h,
            int w, int layers, int tile, void* stream) {
   if (batch == 0 || h == 0 || w == 0) return 0;
@@ -306,14 +274,14 @@ int launch(const T* x, T* out, const float* wd, const float* bd,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      fused_blocks_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_x = (w + tile - 1) / tile;
   const int tiles_y = (h + tile - 1) / tile;
   const dim3 grid(tiles_x * tiles_y, batch);
-  fused_blocks_kernel<T><<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  fused_blocks_kernel<<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       x, out, wd, bd, wpt, bp, c, h, w, layers, tile, tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
@@ -322,9 +290,8 @@ int launch(const T* x, T* out, const float* wd, const float* bd,
 
 // x, out: [batch, c, h, w] contiguous, distinct buffers; wd: [layers, c,
 // 3, 3], bd: [layers, c], wpt: [layers, c_in, c_out] (the 1x1 weights
-// transposed), bp: [layers, c], all f32, contiguous and 16-byte aligned
-// (for the bf16 entry point the wrapper passes weights already rounded to
-// bf16 values).  c % 8 == 0, batch <= 65535, and the tile must fit shared
+// transposed), bp: [layers, c], all f32, contiguous and 16-byte aligned.
+// c % 8 == 0, batch <= 65535, and the tile must fit shared
 // memory: 4 (2 c (tile + 2 layers)^2 + layers (c^2 + 11 c)) bytes.
 // Launches on `stream` and returns a cudaError_t (0 on success).
 extern "C" int fused_dw_pw_block_f32(const float* x, float* out,
@@ -332,16 +299,6 @@ extern "C" int fused_dw_pw_block_f32(const float* x, float* out,
                                      const float* wpt, const float* bp,
                                      int batch, int c, int h, int w,
                                      int layers, int tile, void* stream) {
-  return launch(x, out, wd, bd, wpt, bp, batch, c, h, w, layers, tile,
-                stream);
-}
-
-extern "C" int fused_dw_pw_block_bf16(const __nv_bfloat16* x,
-                                      __nv_bfloat16* out, const float* wd,
-                                      const float* bd, const float* wpt,
-                                      const float* bp, int batch, int c,
-                                      int h, int w, int layers, int tile,
-                                      void* stream) {
   return launch(x, out, wd, bd, wpt, bp, batch, c, h, w, layers, tile,
                 stream);
 }

@@ -6,7 +6,8 @@ at the repository root, under a name keyed by a hash of the source and
 the flags, so a stale library is never loaded; the library is opened
 with ``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once.
 Nothing here runs when the module is imported: the CPU-only test
-environment has no ``nvcc``.
+environment has no ``nvcc``.  ``entry`` and ``launch`` are the lean
+launch path every kernel wrapper shares.
 """
 
 import ctypes
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_face_torch"
@@ -29,12 +32,22 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 
 # (planes, stride_b, stride_c, stride_h, batch, h, w, xs, ys, p, out,
-#  stream) -> cudaError_t, the entry points of both warp kernels
+#  stream) -> cudaError_t, the entry points of the strip warp
 _WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P, _P), _I)
 
+# (planes, stride_b, stride_c, stride_h, batch, h, w, segment table,
+#  segments, p, out, stream) -> cudaError_t, the segment warp's entry
+#  point; the table is nseg rows of int64 (xs, ys, p, width)
+_SEGMENT_WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _I, _I, _P, _P),
+                     _I)
+
 # (x, out, wd, bd, wpt, bp, batch, c, h, w, layers, tile, stream) ->
-# cudaError_t, the entry points of the fused residual-block kernel
+# cudaError_t, the f32 fused residual-block kernel's entry point
 _BLOCK_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
+
+# (x, out, packed weights, batch, c, h, w, layers, tile, stream) ->
+# cudaError_t, the bf16 fused residual-block kernel's entry point
+_BLOCK_BF16_SIG = ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
 
 # (planes, batch, h, w, xs, ys, groups, gh, gw, rt, cw, cap, out, stream)
 # -> cudaError_t, the entry points of the staged strip warp
@@ -43,17 +56,18 @@ _STAGED_SIG = ((_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P), _I)
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
-    "warp_bilinear": {"warp_bilinear": _WARP_SIG},
+    "warp_bilinear": {"warp_bilinear": _SEGMENT_WARP_SIG},
     "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
                              "warp_bilinear_strips_f32": _WARP_SIG},
-    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG,
-                          "fused_dw_pw_block_bf16": _BLOCK_SIG},
+    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG},
+    "fused_dw_pw_block_bf16": {"fused_dw_pw_block_bf16": _BLOCK_BF16_SIG},
     "warp_strips_staged": {f"warp_strips_staged_{copies}_{t}": _STAGED_SIG
                            for copies in ("fused", "split")
                            for t in ("bf16", "f32")},
 }
 
 _LIBS = {}
+_ENTRIES = {}    # entry point name -> ctypes function
 BUILD_LOG = {}   # name -> {"seconds": float, "ptxas": str, "cached": bool}
 
 
@@ -126,3 +140,29 @@ def load(name: str):
             fn.argtypes, fn.restype = argtypes, restype
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def entry(name: str, fn_name: str):
+    """The ctypes entry point ``fn_name`` of library ``name``, resolved
+    (the library built and loaded) on first use only."""
+    fn = _ENTRIES.get(fn_name)
+    if fn is None:
+        fn = _ENTRIES[fn_name] = getattr(load(name), fn_name)
+    return fn
+
+
+def launch(fn, device: int, *args):
+    """``fn(*args, stream)`` on the current stream of CUDA device index
+    ``device`` (``Tensor.get_device()``); raises if the entry point
+    returns a CUDA error.  Kept lean, since a small kernel's launch costs
+    less device time than this host path: the raw stream handle comes
+    from ``torch._C._cuda_getCurrentRawStream`` (no Stream object), and
+    the device's context is entered only when it is not the current
+    one."""
+    if device == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -3,8 +3,10 @@ coordinate grids from one frame's channel planes in one kernel launch.
 
 Counterpart of tpu_face/ops/pallas_warp.py, with both of its kernels:
 
-* f32 planes go to ``warp_bilinear`` (``csrc/warp_bilinear.cu``, which
-  replaces the resident-plane Pallas ``_warp_kernel``);
+* f32 planes go to ``warp_bilinear_segments`` (``csrc/warp_bilinear.cu``,
+  which replaces the resident-plane Pallas ``_warp_kernel``; it takes the
+  grids of a call as a table of segments, so their coordinates are never
+  concatenated; ``warp_bilinear`` is its one-segment call);
 * bf16 planes go to ``warp_bilinear_strips``
   (``csrc/warp_bilinear_strips.cu``, which replaces the HBM strip-DMA
   Pallas ``_warp_kernel_strips``; it also takes f32 planes).
@@ -33,6 +35,7 @@ main path went through the kernels.
 """
 
 import math
+import struct
 
 import torch
 
@@ -41,6 +44,12 @@ from . import _build
 LAUNCHES = 0          # warp_bilinear.cu
 STRIP_LAUNCHES = 0    # warp_bilinear_strips.cu
 STAGED_LAUNCHES = {"fused": 0, "split": 0}   # warp_strips_staged.cu
+
+MAX_SEGMENTS = 4      # grids per launch of warp_bilinear.cu
+# Row length warp_bilinear.cu gives a flat coordinate row whose grid
+# shape the caller does not give: its 16 x 16 tiles are then runs of 256
+# consecutive pixels.
+FLAT_WIDTH = 16
 
 # Shared memory of one of the staged kernel's two window buffers (all
 # three channels): two buffers of 48 KiB leave room for two CTAs per SM
@@ -119,64 +128,127 @@ def warp_bilinear_strips_plain(planes, xs, ys):
     return warp_bilinear_plain(planes, xs, ys)
 
 
-def _check(planes, xs, ys, plane_dtypes):
+def _check_planes(planes, plane_dtypes):
     if planes.dim() != 4 or planes.shape[1] != 3:
         raise ValueError(f"planes must be [B, 3, H, W], got "
                          f"{tuple(planes.shape)}")
-    if xs.dim() != 2 or xs.shape != ys.shape or xs.shape[0] != \
-            planes.shape[0]:
-        raise ValueError(f"xs/ys must be [B, P] with B = "
-                         f"{planes.shape[0]}, got {tuple(xs.shape)} and "
-                         f"{tuple(ys.shape)}")
     if planes.dtype not in plane_dtypes:
         raise TypeError(f"planes must be one of {plane_dtypes}, got "
                         f"{planes.dtype}")
+
+
+def _check_coords(planes, xs, ys, grid=False):
+    """xs/ys: [B, P] (``grid``: [B, ...]) f32 on the planes' device.
+    Cheap tensor attributes only: this runs on every launch."""
+    if (xs.dim() < 2 if grid else xs.dim() != 2) or xs.shape != ys.shape \
+            or xs.shape[0] != planes.shape[0]:
+        raise ValueError(f"xs/ys must be [B, {'...' if grid else 'P'}] "
+                         f"with B = "
+                         f"{planes.shape[0]}, got {tuple(xs.shape)} and "
+                         f"{tuple(ys.shape)}")
     for name, t in (("xs", xs), ("ys", ys)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != planes.device:
+        if t.is_cuda != planes.is_cuda or \
+                t.get_device() != planes.get_device():
             raise ValueError(f"{name} is on {t.device}, planes on "
                              f"{planes.device}")
 
 
-def _launch(lib_name, fn_name, planes, xs, ys):
-    """Launch the warp kernel ``fn_name`` of library ``lib_name`` (C
-    signature ``_build._WARP_SIG``) on CUDA tensors; returns [B, 3, P]
-    f32."""
-    if planes.device.type != "cuda":
+def _check(planes, xs, ys, plane_dtypes):
+    _check_planes(planes, plane_dtypes)
+    _check_coords(planes, xs, ys)
+
+
+def _cuda_planes(planes, p):
+    """The checks every warp kernel makes on CUDA planes and P output
+    pixels per frame."""
+    if not planes.is_cuda:
         raise ValueError(f"no warp kernel for device {planes.device}")
     if planes.stride(3) != 1:
         raise ValueError("planes need unit stride along W")
     b, _, h, w = planes.shape
-    p = xs.shape[1]
     if b > 65535 or p >= 2**30 or max(h, w) >= 2**24:
         raise ValueError(f"warp too large: B={b} P={p} H={h} W={w}")
+
+
+def _launch(lib_name, fn_name, planes, xs, ys):
+    """Launch the strip warp ``fn_name`` of library ``lib_name`` (C
+    signature ``_build._WARP_SIG``) on CUDA tensors; returns [B, 3, P]
+    f32."""
+    p = xs.shape[1]
+    _cuda_planes(planes, p)
+    b, _, h, w = planes.shape
     xs = xs.contiguous()
     ys = ys.contiguous()
-    out = torch.empty((b, 3, p), dtype=torch.float32, device=planes.device)
+    out = planes.new_empty((b, 3, p), dtype=torch.float32)
     if b * p == 0:
         return out
-    fn = getattr(_build.load(lib_name), fn_name)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planes.data_ptr(), planes.stride(0), planes.stride(1),
-                 planes.stride(2), b, h, w, xs.data_ptr(), ys.data_ptr(), p,
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    _build.launch(_build.entry(lib_name, fn_name), planes.get_device(),
+                  planes.data_ptr(), *planes.stride()[:3], b, h, w,
+                  xs.data_ptr(), ys.data_ptr(), p, out.data_ptr())
+    return out
+
+
+def warp_bilinear_segments_plain(planes, segments):
+    """Plain PyTorch version of ``warp_bilinear_segments``: each
+    segment's samples by ``warp_bilinear_plain``, side by side."""
+    b = planes.shape[0]
+    return torch.cat([warp_bilinear_plain(planes, xs.reshape(b, -1),
+                                          ys.reshape(b, -1))
+                      for xs, ys, _ in segments], dim=2)
+
+
+def warp_bilinear_segments(planes, segments):
+    """Samples [B, 3, P_1 + ... + P_n] of f32 planes [B, 3, H, W] at
+    every segment (xs_i, ys_i, width_i) of ``segments`` (1 to
+    ``MAX_SEGMENTS``): xs_i/ys_i [B, ...], the P_i pixels per frame of a
+    grid (or of K faces' grids) whose rows are ``width_i`` long, in
+    order; segment i's samples follow segment i - 1's.  One launch of
+    ``csrc/warp_bilinear.cu`` for CUDA tensors, which reads each
+    segment's coordinates where they are (no concatenation, no reshape)
+    and tiles each grid in 2-D by its width; the plain version for CPU
+    tensors."""
+    global LAUNCHES
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"1 to {MAX_SEGMENTS} segments, got "
+                         f"{len(segments)}")
+    _check_planes(planes, (torch.float32,))
+    for xs, ys, width in segments:
+        _check_coords(planes, xs, ys, grid=True)
+        if width < 1:
+            raise ValueError(f"grid width must be >= 1, got {width}")
+    if planes.is_cpu:
+        return warp_bilinear_segments_plain(planes, segments)
+    b, _, h, w = planes.shape
+    sizes = [xs.numel() // b if b else 0 for xs, _, _ in segments]
+    p = sum(sizes)
+    _cuda_planes(planes, p)
+    sb, sc, sh = planes.stride()[:3]
+    if 2 * sc + (h - 1) * sh + w >= 2**31:
+        raise ValueError(f"a frame's planes span {2 * sc + (h - 1) * sh + w}"
+                         f" elements; the kernel's offsets are 32-bit")
+    out = planes.new_empty((b, 3, p))
+    if b * p == 0:
+        return out
+    # the contiguous coordinates stay referenced until the launch
+    coords = [(xs.contiguous(), ys.contiguous()) for xs, ys, _ in segments]
+    table = []
+    for (xs, ys), (_, _, width), n in zip(coords, segments, sizes):
+        table += (xs.data_ptr(), ys.data_ptr(), n, width)
+    _build.launch(_build.entry("warp_bilinear", "warp_bilinear"),
+                  planes.get_device(), planes.data_ptr(), sb, sc, sh, b, h,
+                  w, struct.pack(f"{len(table)}q", *table), len(segments),
+                  p, out.data_ptr())
+    LAUNCHES += 1
     return out
 
 
 def warp_bilinear(planes, xs, ys):
     """Samples [B, 3, P] of f32 planes [B, 3, H, W] at xs/ys [B, P]: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    global LAUNCHES
-    _check(planes, xs, ys, (torch.float32,))
-    if planes.device.type == "cpu":
-        return warp_bilinear_plain(planes, xs, ys)
-    out = _launch("warp_bilinear", "warp_bilinear", planes, xs, ys)
-    LAUNCHES += 1
-    return out
+    CUDA kernel for CUDA tensors (one segment, tiled in runs of
+    ``FLAT_WIDTH`` pixels), the plain version for CPU tensors."""
+    return warp_bilinear_segments(planes, [(xs, ys, FLAT_WIDTH)])
 
 
 def warp_bilinear_strips(planes, xs, ys):
@@ -190,7 +262,7 @@ def warp_bilinear_strips(planes, xs, ys):
     planes without a copy."""
     global STRIP_LAUNCHES
     _check(planes, xs, ys, (torch.bfloat16, torch.float32))
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         return warp_bilinear_strips_plain(planes, xs, ys)
     out = _launch("warp_bilinear_strips",
                   "warp_bilinear_strips_bf16"
@@ -225,9 +297,9 @@ def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
     if xs.shape != ys.shape:
         raise ValueError(f"xs {tuple(xs.shape)} and ys {tuple(ys.shape)} "
                          f"differ")
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         return warp_bilinear_strips_plain(planes, flat_x, flat_y)
-    if planes.device.type != "cuda":
+    if not planes.is_cuda:
         raise ValueError(f"no warp kernel for device {planes.device}")
     b, _, h, w = planes.shape
     gh, gw = xs.shape[-2:]
@@ -251,15 +323,10 @@ def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
     if out.numel() == 0:
         return out
     name = "bf16" if planes.dtype == torch.bfloat16 else "f32"
-    fn = getattr(_build.load("warp_strips_staged"),
-                 f"warp_strips_staged_{copies}_{name}")
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planes.data_ptr(), b, h, w, xs.data_ptr(), ys.data_ptr(),
-                 groups, gh, gw, rt, cw, cap, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"warp_strips_staged_{copies}_{name} launch "
-                           f"failed: CUDA error {err}")
+    _build.launch(_build.entry("warp_strips_staged",
+                               f"warp_strips_staged_{copies}_{name}"),
+                  planes.get_device(), planes.data_ptr(), b, h, w, xs.data_ptr(),
+                  ys.data_ptr(), groups, gh, gw, rt, cw, cap, out.data_ptr())
     STAGED_LAUNCHES[copies] += 1
     return out
 
@@ -269,23 +336,35 @@ def warp_sample_multi(planes, coords):
     launch.
 
     planes: [B, 3, H, W] (``make_planes``): f32 planes go to
-    ``warp_bilinear``, bf16 planes to ``warp_bilinear_strips``.
+    ``warp_bilinear_segments`` (each grid a segment, read where it lies;
+    at most ``MAX_SEGMENTS`` grids), bf16 planes to
+    ``warp_bilinear_strips`` (the grids concatenated).
     coords: list of (src_x, src_y) pairs, each [B, ..., Ho_i, Wo_i] (a
     face axis K after the batch axis puts every face of a frame in the
     same launch, against that frame's planes).  Grids may differ in
     size.  Returns a list of [B, ..., Ho_i, Wo_i, 3] f32 samples."""
     b = planes.shape[0]
-    xs = torch.cat([sx.reshape(b, -1) for sx, _ in coords], dim=1)
-    ys = torch.cat([sy.reshape(b, -1) for _, sy in coords], dim=1)
     if planes.dtype == torch.bfloat16:
+        xs = torch.cat([sx.reshape(b, -1) for sx, _ in coords], dim=1)
+        ys = torch.cat([sy.reshape(b, -1) for _, sy in coords], dim=1)
         out = warp_bilinear_strips(planes, xs, ys)
     else:
-        out = warp_bilinear(planes, xs, ys)
-    sizes = [math.prod(sx.shape[1:]) for sx, _ in coords]
-    # channel-last views of channel-major storage: with one face per
-    # frame the nets read them back as NCHW without a copy
-    return [seg.reshape(b, 3, *sx.shape[1:]).movedim(1, -1)
-            for seg, (sx, _) in zip(out.split(sizes, dim=2), coords)]
+        out = warp_bilinear_segments(
+            planes, [(sx, sy, sx.shape[-1]) for sx, sy in coords])
+    # channel-last views [B, ..., Ho, Wo, 3] of each grid's part of the
+    # channel-major [B, 3, P] storage, one as_strided each (with one face
+    # per frame the nets read them back as NCHW without a copy)
+    p = out.shape[2]
+    views, off = [], out.storage_offset()
+    for sx, _ in coords:
+        shape = sx.shape[1:]
+        strides = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            strides[i] = strides[i + 1] * shape[i + 1]
+        views.append(out.as_strided((b, *shape, 3), (3 * p, *strides, p),
+                                    off))
+        off += math.prod(shape)
+    return views
 
 
 def warp_sample(planes, src_x, src_y):
