@@ -28,15 +28,16 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               warp_bilinear_strips and both staged variants (one fused
               copy per block, three per-channel copies) on the same calls
               over bf16 and f32 planes of 8 frames of 1920x1080, 2 of
-              3840x2160 and 2 of 1281x723 (odd rows of bf16 planes start
-              on odd elements), with 1 and 4 faces per frame and ROIs of one
-              to three times the short side, whose blocks overflow the
-              staged kernel's window budget (counted and printed; the
+              3840x2160 and 2 of 1281x723 (rows of bf16 planes start
+              off the 16-byte grid), with 1 and 4 faces per frame and ROIs
+              of one to three times the short side, whose blocks overflow
+              the staged kernel's window budget (counted and printed; the
               staged outputs' bit-exactness with the gather's is printed).
               The fused block (TF32 off): f32 and bf16 at each residual
               run of the BACK detector (128x128x24, 64x64x24, 32x32x48,
               16x16x96, seven blocks each, batch 64, the f32 and the bf16
-              detector's weights), f32 within 1e-4 * max(1, max|plain|),
+              detector's weights), f32 (the path's 1x1 route,
+              fused_block.F32_ROUTE) within 1e-4 * max(1, max|plain|),
               bf16 within one bf16 ulp of max|plain| (the kernel rounds
               where the plain version rounds), and f32 and bf16 at the
               Pallas prototypes' shape (batch 256, 128x128x24, 7 blocks,
@@ -67,7 +68,11 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               where the CPU's two scores differ by at most
               BF16_SCORE_TOL, and each side's slot scores are printed);
               with K > 1 the card's valid faces must come in
-              non-increasing score, and f32 faces match slot by slot;
+              non-increasing score, and f32 faces match slot by slot.
+              gather: FaceCascade(warp_method="gather") with f32 nets on the
+              rotated frames, no warp kernel launched (only the detector's
+              fused launches), against the ground truth and the kernel
+              path's result within 0.25 px / 1e-3;
 5. models  -- the standalone models, counts set to 0 before and read
               after: FaceDetection(BACK) -> face_detection_to_roi ->
               FaceLandmark -> iris_roi_from_face_landmarks -> IrisLandmark
@@ -83,7 +88,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
               path's launches), bit-exact with each other, then timed in
-              turns against one bound;
+              turns against one bound, the bytes the staged windows copied
+              printed beside those the gather's bound counts;
 7. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
@@ -94,7 +100,10 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               the gather kernel and both staged variants in turns, and
               each kernel's time at its path's shapes beside its bound,
               its plain version and, for the warps,
-              torch.nn.functional.grid_sample (a yardstick only): the call
+              torch.nn.functional.grid_sample (a yardstick only), and the
+              f32 fused kernel's two designs of the 1x1 (split TF32 on the
+              tensor cores, register-blocked FMAs) at the BACK runs R1 and
+              R4, each one's error and device time (k3_probe): the call
               time (CUDA events over back-to-back calls, the host's
               launch path included) and the device time (the same calls
               queued behind a ``torch.cuda._sleep``, ``queued_ms``).  The
@@ -137,6 +146,7 @@ ROT = ROOT / "assets" / "rotated"
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 H100_BF16_FLOPS = 989e12        # bf16 tensor cores, f32 accumulation
+H100_TF32_FLOPS = 495e12        # TF32 tensor cores, f32 accumulation
 
 KERNEL_TOL = 1e-3               # 0-255 units, before rounding
 BLOCK_TOL_F32 = 1e-4            # fused block, x max(1, max|plain|)
@@ -448,13 +458,15 @@ def stacked(coords):
             torch.stack([y for _, y in coords], 1))
 
 
-def blocks_over_budget(planes, gx, gy):
+def staged_windows(planes, gx, gy):
     """(blocks, blocks whose window does not fit one of the staged
     kernel's shared buffers, so that some of their taps read global
-    memory): the kernel's window rule (csrc/warp_strips_staged.cu) on
-    these grids [B, ..., Ho, Wo]."""
+    memory, bytes the windows' bulk copies move): the kernel's window
+    rule (csrc/warp_strips_staged.cu; its guard at the planes' very end
+    left out) on these grids [B, ..., Ho, Wo] over 16-byte aligned
+    planes."""
     b, _, h, w = planes.shape
-    rt, cw = warp.staged_block(h, w)
+    rt, cw = warp.STAGED_BLOCK
     gh, gw = gx.shape[-2:]
     assert gh % rt == 0 and gw % cw == 0, (gh, gw, rt, cw)
     x0 = torch.floor(gx).reshape(b, -1, gh // rt, rt, gw // cw, cw)
@@ -468,12 +480,32 @@ def blocks_over_budget(planes, gx, gy):
 
     xl, xh = ext(x0, 0, w - 1)
     yl, yh = ext(y0, 0, h - 1)
-    unit = 4 // planes.element_size()
-    cap = warp.STAGE_BYTES // (3 * planes.element_size()) // 2 * 2
-    pitch = torch.div(xh - xl + 1 + 2 * (unit - 1), unit,
+    size = planes.element_size()
+    unit = 16 // size
+    cap = warp.staged_cap(size)
+    some = xl <= xh
+    cols = torch.where(some, xh - xl + 1, 0.0).long()
+    rows = torch.where(some, yh - yl + 1, 0.0).long()
+    pitch = torch.div(cols + 2 * (unit - 1), unit,
                       rounding_mode="floor") * unit
-    over = (xl <= xh) & (pitch * (yh - yl + 1) > cap)
-    return xl.numel(), int(over.sum())
+    over = some & (pitch * rows > cap)
+    wide = pitch > cap
+    cols = torch.where(wide, cap - (unit - 1), cols)
+    rows = torch.where(wide, 1, torch.where(
+        over, torch.div(cap, pitch.clamp(min=1), rounding_mode="floor"),
+        rows))
+    # each row's copy: from the 16-byte boundary at or before its first
+    # element to the one at or after its last
+    frame = torch.arange(b, device=gx.device).reshape(b, 1, 1, 1, 1)
+    r = torch.arange(int(rows.max()) if rows.numel() else 0,
+                     device=gx.device)
+    copied = 0
+    for c in range(3):
+        start = (((frame * 3 + c) * h + yl.clamp(min=0).long()[..., None])
+                 * w + xl.clamp(min=0).long()[..., None]) + r * w
+        _, nbytes = warp.row_copy(start, cols[..., None], size)
+        copied += int(torch.where(r < rows[..., None], nbytes, 0).sum())
+    return xl.numel(), int(over.sum()), copied
 
 
 def touched_bytes(planes, xs, ys):
@@ -696,7 +728,7 @@ def phase_kernels(rng):
         xs, ys = flat(coords)
         plain = warp.warp_bilinear_strips_plain(planes, xs, ys)
         gx, gy = stacked(coords)
-        blocks, over = blocks_over_budget(planes, gx, gy)
+        blocks, over, _ = staged_windows(planes, gx, gy)
         for copies in ("fused", "split"):
             name = f"warp_strips_staged_{copies}"
             got, n = counted(lambda: warp.warp_bilinear_strips_staged(
@@ -878,12 +910,43 @@ def phase_fused_blocks():
     return {"fused_dw_pw_block_f32": err32, "fused_dw_pw_block_bf16": err16}
 
 
-def time_fused(cases, dtype):
+def fused_bound(runs, dtype, route):
+    """The fused kernel's bound on ``runs`` [(x, weights, packed, _)]: each
+    input and packed weight read once, each output written once, against
+    its operations at the card's peak for their type (bf16: all at the
+    bf16 tensor-core rate; f32 route "fma": all at the f32 FMA rate; f32
+    route "tf32x3": the 1x1's three TF32 products at the TF32
+    tensor-core rate beside the rest at the f32 FMA rate, running
+    together).  Returns (bound ms, "bytes" or "operations", bound ms of
+    every operation at the f32 FMA rate, flops, bytes)."""
+    flops = pw = 0
+    for x, w, _, _ in runs:
+        n = x.shape[0] * x.shape[2] * x.shape[3] * w[0].shape[0]
+        flops += n * fused_block.block_flops(x.shape[1])
+        pw += n * 2 * x.shape[1] ** 2
+    nbytes = sum(2 * x.numel() * x.element_size()
+                 + sum(t.numel() * t.element_size() for t in packed)
+                 for x, _, packed, _ in runs)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    f32_ms = flops / H100_F32_FLOPS * 1e3
+    if dtype == torch.bfloat16:
+        ops_ms = flops / H100_BF16_FLOPS * 1e3
+    elif route == "tf32x3":
+        ops_ms = max(3 * pw / H100_TF32_FLOPS,
+                     (flops - pw) / H100_F32_FLOPS) * 1e3
+    else:
+        ops_ms = f32_ms
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", f32_ms, flops,
+            nbytes)
+
+
+def time_fused(cases, dtype, route=None):
     """The fused kernel over ``cases`` [(label, x, weights)], all in one
-    timed call, in ``dtype``: its time, the plain version's and the
-    bound (each input and weight read once, each output written once;
-    f32 operations at the f32 peak, bf16 ones at the bf16 tensor-core
-    rate, which also accumulates in f32)."""
+    timed call, in ``dtype`` (f32: on ``route``, by default the path's
+    ``fused_block.F32_ROUTE``): its time, the plain version's and the
+    bound of its route (``fused_bound``)."""
+    route = route or fused_block.F32_ROUTE
     runs = [(x.to(dtype), w, fused_block.kernel_weights(*w, dtype),
              fused_block.plan(x.shape[1], x.shape[2], x.shape[3],
                               w[0].shape[0], torch.finfo(dtype).bits // 8))
@@ -891,7 +954,8 @@ def time_fused(cases, dtype):
 
     def kernel():
         for x, w, packed, tiling in runs:
-            fused_block.fused_blocks(x, *w, tiling=tiling, weights=packed)
+            fused_block.fused_blocks(x, *w, tiling=tiling, weights=packed,
+                                     route=route)
 
     def plain():
         for x, w, _, _ in runs:
@@ -901,20 +965,45 @@ def time_fused(cases, dtype):
         kernel_ms, _ = median_ms(kernel, reps=10)
         plain_ms, _ = median_ms(plain, reps=3)
         kernel_dev = queued_ms(kernel)
-    flops = sum(x.shape[0] * x.shape[2] * x.shape[3] * w[0].shape[0]
-                * fused_block.block_flops(x.shape[1]) for x, w, _, _ in runs)
-    nbytes = sum(2 * x.numel() * x.element_size()
-                 + sum(t.numel() * t.element_size() for t in packed)
-                 for x, _, packed, _ in runs)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / (H100_F32_FLOPS if dtype == torch.float32
-                      else H100_BF16_FLOPS) * 1e3
+    bound_ms, bound_by, f32_ms, flops, nbytes = fused_bound(runs, dtype,
+                                                            route)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "device_ms": kernel_dev, "library_device_ms": None,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **({} if dtype == torch.bfloat16 else
+               {"design": route, "bound_f32_fma_ms": f32_ms}),
             "flops": flops, "bytes": nbytes,
             "tilings": [tiling for _, _, _, tiling in runs]}
+
+
+def probe_f32_routes(cases):
+    """K3's two designs of the 1x1 (``fused_block.F32_ROUTES``) on the
+    same runs, each at the plan's tiling: max abs error against the plain
+    version (and whether it meets BLOCK_TOL_F32) and device time
+    (``queued_ms``)."""
+    out = {}
+    with torch.inference_mode(), exact_f32():
+        for label, x, w in cases:
+            b, c, h, width = x.shape
+            packed = fused_block.kernel_weights(*w, torch.float32)
+            tiling = fused_block.plan(c, h, width, w[0].shape[0])
+            ref = fused_block.fused_blocks_plain(x, *w)
+            tol = BLOCK_TOL_F32 * max(1.0, float(ref.abs().max()))
+            row = {}
+            for route in fused_block.F32_ROUTES:
+                def run():
+                    return fused_block.fused_blocks(
+                        x, *w, tiling=tiling, weights=packed, route=route)
+                err = float((run() - ref).abs().max())
+                row[route] = {"max_abs_err": err, "meets_tol": err <= tol,
+                              "device_ms": queued_ms(run)}
+            print(f"probe f32 1x1 {label} B={b} tiling {tiling}: "
+                  + "; ".join(f"{k} {v['device_ms']:.4f} ms, err "
+                              f"{v['max_abs_err']:.3g}" for k, v in
+                              row.items()) + f" (tolerance {tol:.3g})",
+                  flush=True)
+            out[label] = dict(row, tolerance=tol)
+    return out
 
 
 def sweep_tilings(cases, dtype):
@@ -933,10 +1022,9 @@ def sweep_tilings(cases, dtype):
             pick = fused_block.plan(c, h, width, layers, itemsize)
 
             def fits(tile, per):
-                return (fused_block.smem_bytes_bf16(c, tile, per, h, width)
-                        if itemsize == 2 else
-                        fused_block.smem_bytes(c, tile, per)) <= \
-                    fused_block.SMEM_LIMIT
+                smem = (fused_block.smem_bytes_bf16 if itemsize == 2
+                        else fused_block.smem_bytes)
+                return smem(c, tile, per, h, width) <= fused_block.SMEM_LIMIT
 
             times = {}
             for per in range(1, layers + 1):
@@ -987,16 +1075,22 @@ def run_cascade(cascade, frames, launches):
     return res
 
 
+def rotated_batches():
+    """The rotated frames by size: ({size: [names]}, {size: uint8 batch
+    [B, H, W, 3]})."""
+    groups = {}
+    for name, gt in GT.items():
+        groups.setdefault(gt["size"], []).append(name)
+    return groups, {size: np.stack([load_image(ROT / n) for n in names])
+                    for size, names in groups.items()}
+
+
 def phase_cascade(dtype=torch.float32):
     """A main path, FaceCascade(compute_dtype=dtype): returns the launches
     of each kernel in it."""
     bf16 = dtype == torch.bfloat16
     phase(f"cascade {str(dtype)[6:]}")
-    groups = {}
-    for name, gt in GT.items():
-        groups.setdefault(gt["size"], []).append(name)
-    batches = {size: np.stack([load_image(ROT / n) for n in names])
-               for size, names in groups.items()}
+    groups, batches = rotated_batches()
     cascade = FaceCascade(compute_dtype=dtype)
     # the detector's residual runs: one fused launch per layer chunk of
     # the wrapper's tiling plan (for the nets' type), per infer_batch, on
@@ -1049,6 +1143,39 @@ def phase_cascade(dtype=torch.float32):
               f"{[round(float(v), 5) for v in res.score.flatten()]}, CPU "
               f"{[round(float(v), 5) for v in ref.score.flatten()]}",
               flush=True)
+    return launches
+
+
+def phase_cascade_gather():
+    """The f32 cascade with warp_method="gather" on the rotated frames
+    (one infer_batch per geometry, the counts set to 0 before): no warp
+    kernel launched (the detector's fused launches only), its results
+    against the ground truth and against the kernel path's
+    (FaceCascade() on the same frames) within the CPU tolerances; returns
+    its launches."""
+    phase("cascade gather")
+    groups, batches = rotated_batches()
+    gather = FaceCascade(warp_method="gather")
+    kernels = FaceCascade()
+    assert (gather.warp_method, kernels.warp_method) == ("gather", "pallas")
+    fused = only(fused_dw_pw_block_f32=gather._det_net.fused_launches())
+    reset_counts()
+    results = {size: run_cascade(gather, batch, fused)
+               for size, batch in batches.items()}
+    launches = launch_counts()
+    print(f"launches of the gather cascade: {launches} for {len(batches)} "
+          f"infer_batch calls", flush=True)
+    for size, names in groups.items():
+        res = results[size]
+        for i, name in enumerate(names):
+            box_iou, px = check_gt(res, i, GT[name])
+            print(f"{name} (gather): IoU {box_iou:.4f}, worst landmark "
+                  f"{px:.3f} px vs ground truth")
+        ref = kernels.infer_batch(batches[size])
+        px, sc = check_against_cpu(res, type(ref)(*(f.cpu() for f in ref)),
+                                   size)
+        print(f"{size[0]}x{size[1]} gather vs kernel path: {px:.4f} px, "
+              f"scores {sc:.2e}", flush=True)
     return launches
 
 
@@ -1247,7 +1374,7 @@ def phase_strip_dma(rng):
                             warp_strips_staged_split=1), launches
     for k in ("staged_fused", "staged_split"):
         assert torch.equal(outs[k], outs["gather"]), k
-    blocks, over = blocks_over_budget(planes, *stacked(grids))
+    blocks, over, copied = staged_windows(planes, *stacked(grids))
     times = time_in_turns(runs)
     xs, ys = flat(grids)
 
@@ -1261,11 +1388,12 @@ def phase_strip_dma(rng):
                        planes, [(xs, ys)])
     dev = {k: queued_ms(fn) for k, fn in runs.items()}
     timed = {f"warp_strips_{k}": dict(base, ms=statistics.mean(times[k]),
-                                      device_ms=dev[k])
+                                      device_ms=dev[k], copied_bytes=copied)
              for k in ("staged_fused", "staged_split")}
     numbers = {f"strip_dma_b{b}": {
         "grids": f"{b} x 192x192 mesh grids, 1920x1080 bf16 planes",
         "bit_exact": True, "blocks": blocks, "blocks_over_budget": over,
+        "copied_bytes": copied,
         **{f"{k}_ms": v for k, v in times.items()},
         **{f"{k}_device_ms": v for k, v in dev.items()},
         "bound_ms": base["bound_ms"], "bytes": base["bytes"],
@@ -1277,7 +1405,8 @@ def phase_strip_dma(rng):
           f"ms, staged split copies {sp:.4f} ms (turns {times}; device "
           f"{dev}); bound "
           f"{base['bound_ms']:.4f} ms; bit-exact; {over} of {blocks} "
-          f"blocks over the window budget", flush=True)
+          f"blocks over the window budget; the windows copied {copied} "
+          f"bytes, the gather's bound touches {base['bytes']}", flush=True)
     return launches, timed, numbers
 
 
@@ -1354,6 +1483,9 @@ def phase_numbers(rng, trace, sweep=False):
         if sweep:
             numbers[f"fused_sweep{key}_b{BATCH['fused']}"] = sweep_tilings(
                 cases, dtype)
+    # K3's two designs of the 1x1 at R1 and R4
+    numbers[f"k3_probe_b{BATCH['fused']}"] = probe_f32_routes(
+        [cases[0], cases[3]])
     del cases
     x, w = prototype_inputs(BATCH["k3"])
     numbers[f"fused_k3_f32_b{BATCH['k3']}"] = time_fused(
@@ -1562,7 +1694,8 @@ def main(argv=None):
     errs = phase_kernels(rng)
     # the paths, each with the counts set to 0 before it and read after
     paths = {"cascade_f32": phase_cascade(),
-             "cascade_bf16": phase_cascade(torch.bfloat16)}
+             "cascade_bf16": phase_cascade(torch.bfloat16),
+             "cascade_gather": phase_cascade_gather()}
     models = {"f32": phase_models(), "bf16": phase_models(torch.bfloat16)}
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng)
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
@@ -1592,7 +1725,9 @@ def main(argv=None):
             "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library_device_ms": t["library_device_ms"]})
+            "library_device_ms": t["library_device_ms"],
+            **{k: t[k] for k in ("design", "bound_f32_fma_ms", "bytes",
+                                 "copied_bytes") if k in t}})
 
     print(smi)
     print(json.dumps(numbers))

@@ -130,19 +130,100 @@ def test_bad_shapes_raise(name):
         fused_block.fused_blocks(*_bad(name))
 
 
-@pytest.mark.parametrize("shape", [(24, 128, 128, 7), (24, 64, 64, 7),
-                                   (48, 32, 32, 7), (96, 16, 16, 7),
-                                   (24, 64, 64, 1), (96, 8, 8, 4)])
+# (C, H, W, layers): the BACK runs, the FRONT/SHORT runs
+PLAN_SHAPES = [(24, 128, 128, 7), (24, 64, 64, 7), (48, 32, 32, 7),
+               (96, 16, 16, 7), (24, 64, 64, 1), (96, 8, 8, 4)]
+
+
+def test_unknown_route_raises():
+    args = _port_args(*_experiment_inputs())
+    with pytest.raises(ValueError):
+        fused_block.fused_blocks(*args, route="tf32")
+    for route in fused_block.F32_ROUTES:
+        assert torch.equal(fused_block.fused_blocks(*args, route=route),
+                           fused_block.fused_blocks_plain(*args))
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_fits_shared_memory(shape):
     """Every run shape of the detectors gets a tiling that fits the
-    card's shared memory and covers every layer, the same each time."""
+    card's shared memory by the f32 kernel's formula and covers every
+    layer, the same each time, and it is the least modelled time of every
+    tiling that fits."""
     c, h, w, layers = shape
     tile, chunks = fused_block.plan(c, h, w, layers)
     assert sum(chunks) == layers and min(chunks) >= 1
-    assert fused_block.smem_bytes(c, tile, max(chunks)) <= \
+    assert fused_block.smem_bytes(c, tile, max(chunks), h, w) <= \
         fused_block.SMEM_LIMIT
     assert fused_block.plan(c, h, w, layers) == (tile, chunks)
     assert chunks == fused_block.split_layers(layers, chunks[0])
+    best = fused_block.f32_cost(c, h, w, tile, chunks)
+    for per in range(1, layers + 1):
+        for t in range(2, max(h, w) + 2, 2):
+            if fused_block.smem_bytes(c, t, per, h, w) <= \
+                    fused_block.SMEM_LIMIT:
+                assert best <= fused_block.f32_cost(
+                    c, h, w, t, fused_block.split_layers(layers, per))
+
+
+def test_f32_smem_formula_counts_the_clipped_box():
+    """Two f32 buffers of the box (tile + 2 layers per side, clipped to
+    the image and its border), c + 2 floats a pixel for c <= 48 and c + 4
+    for c = 96, and two layers' packed weights."""
+    c = 96
+    weights = 8 * fused_block.blob_floats(c)
+    assert fused_block.smem_bytes(c, 8, 2, 16, 16) == \
+        8 * 12 * 12 * (c + 4) + weights
+    assert fused_block.smem_bytes(c, 16, 7, 16, 16) == \
+        8 * 18 * 18 * (c + 4) + weights
+    assert fused_block.smem_bytes(24, 16, 3, 128, 128) == \
+        8 * 22 * 22 * 26 + 8 * fused_block.blob_floats(24)
+
+
+@pytest.fixture(scope="module")
+def back_runs():
+    """The BACK detector's four runs: (x, wd, bd, wp, bp), x relu'd
+    normal noise at batch 1, the weights the f32 net's own."""
+    net = TFLiteNet(Graph(_DATA_DIR / "face_detection_back.npz"))
+    rng = np.random.default_rng(5)
+    return [(torch.from_numpy(rng.standard_normal(
+        (1, c, h, w), dtype=np.float32)).relu_(),
+        *(getattr(net, f"run{k}_{n}") for n in ("wd", "bd", "wp", "bp")))
+        for k, (c, h, w, _) in enumerate(net.run_shapes)]
+
+
+@pytest.mark.parametrize("run", range(4))
+def test_tf32x3_emulation_meets_the_kernel_tolerance(back_runs, run):
+    """The f32 kernel's split-TF32 1x1, emulated on the CPU, stays within
+    chip_smoke.py's BLOCK_TOL_F32 (1e-4 x max(1, max|plain|)) of the plain
+    version over each BACK run with the real weights; a one-pass TF32
+    1x1 (the hi products only) does not."""
+    x, wd, bd, wp, bp = back_runs[run]
+    c = x.shape[1]
+    with torch.inference_mode():
+        want = fused_block.fused_blocks_plain(x, wd, bd, wp, bp)
+        got = fused_block.fused_blocks_tf32x3(x, wd, bd, wp, bp)
+        one = x
+        for l in range(wd.shape[0]):
+            y = torch.nn.functional.conv2d(one, wd[l, :, None], bd[l],
+                                           padding=1, groups=c)
+            yh, _ = fused_block.tf32_split(y)
+            wh, _ = fused_block.tf32_split(wp[l])
+            one = torch.relu(torch.nn.functional.conv2d(
+                yh, wh[:, :, None, None], bp[l]) + one)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert 0.0 < err <= tol, (err, tol)
+    assert float((one - want).abs().max()) > tol
+
+
+def test_tf32_split_rounds_to_nearest_away():
+    v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12, 3.0], dtype=torch.float32)
+    hi, lo = fused_block.tf32_split(v)
+    assert hi.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                           1.0 + 2.0 ** -10, 3.0]
+    assert torch.equal(hi + lo, v)
 
 
 @pytest.fixture(scope="module")

@@ -86,7 +86,7 @@ def _weights(c, layers=3, seed=0):
 
 
 @pytest.mark.parametrize("layers", [1, 3, 7])
-@pytest.mark.parametrize("c", fused_block.BF16_CHANNELS)
+@pytest.mark.parametrize("c", fused_block.CHANNELS)
 def test_packed_weights_unpack_to_the_stacked_ones(c, layers):
     wd, bd, wp, bp = _weights(c, layers)
     packed = fused_block.pack_bf16(wd, bd, wp, bp)
@@ -108,11 +108,23 @@ def test_packed_weights_unpack_to_the_stacked_ones(c, layers):
 
 
 def test_f32_kernel_weights_are_the_transposed_1x1():
-    wd, bd, wp, bp = _weights(24)
-    got = fused_block.kernel_weights(wd, bd, wp, bp, torch.float32)
-    assert all(t.is_contiguous() and t.dtype == torch.float32 for t in got)
-    for g, w in zip(got, (wd, bd, wp.transpose(1, 2), bp)):
-        assert torch.equal(g, w)
+    """The f32 kernel's blob per layer (``pack_f32``): the 1x1 transposed
+    to [C_in][C + 4] (zero padding columns), the taps as [9][C], then bd
+    and bp, all f32 as given."""
+    c, layers = 24, 3
+    wd, bd, wp, bp = _weights(c, layers)
+    (got,) = fused_block.kernel_weights(wd, bd, wp, bp, torch.float32)
+    assert got.is_contiguous() and got.dtype == torch.float32
+    assert tuple(got.shape) == (layers, fused_block.blob_floats(c))
+    assert fused_block.blob_floats(c) % 4 == 0      # 16-byte cp.async
+    n = c * (c + 4)
+    wpt = got[:, :n].reshape(layers, c, c + 4)
+    assert torch.equal(wpt[:, :, :c], wp.transpose(1, 2))
+    assert not wpt[:, :, c:].any()
+    taps = got[:, n:n + 9 * c].reshape(layers, 9, c)
+    assert torch.equal(taps.transpose(1, 2).reshape(layers, c, 3, 3), wd)
+    assert torch.equal(got[:, n + 9 * c:n + 10 * c], bd)
+    assert torch.equal(got[:, n + 10 * c:], bp)
 
 
 @pytest.fixture(scope="module")

@@ -13,11 +13,10 @@ values and bf16 and f32 planes:
 * the argument checks (an unknown ``copies``, flat coordinates, mismatched
   grids, bad planes) raise, and the launch counters never move on the
   CPU;
-* the block geometry follows the JAX cascade's strip configuration
-  (``pipeline._warp_cfg``: cw and rt) at every frame tier.
+* the block geometry keeps a block's window within the budget at the
+  cascade's downsampling, the two buffers fit shared memory, and a window
+  row's bulk copy is 16-byte aligned in start and length.
 """
-
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +24,6 @@ import pytest
 import torch
 
 from tpu_face.ops import image as jimage
-from tpu_face.pipeline import FaceCascade as JaxFaceCascade
 from tpu_face_torch.ops import image as timage
 from tpu_face_torch.ops import warp
 
@@ -116,19 +114,51 @@ def test_bad_arguments_raise(name):
 
 @pytest.mark.parametrize("size", [(1920, 1080), (2560, 1440), (2561, 1440),
                                   (3840, 2160), (1080, 2700)])
-def test_block_geometry_matches_jax_strip_config(size):
-    w, h = size
-    cw, _, _, rt = JaxFaceCascade._warp_cfg(types.SimpleNamespace(), size)
-    assert warp.staged_block(h, w) == (rt, cw)
-    # one CTA of rt x cw threads: whole warps, within the card's limit
+def test_block_geometry_keeps_windows_within_budget(size):
+    """One block geometry at every frame tier (replacing the JAX
+    cascade's per-tier strip configuration, which sized a TPU strip):
+    rt x cw threads, whole warps within the card's limit, and at up to
+    2.5x downsampling of a 192-px mesh grid, rotated by up to 0.3 rad,
+    the block's window over bf16 planes (the cascade's beyond ~720p) fits
+    one buffer."""
+    rt, cw = warp.STAGED_BLOCK
     assert (rt * cw) % 32 == 0 and rt * cw <= 1024
+    assert 192 % rt == 0 and 192 % cw == 0
+    w, h = size
+    s = min(2.5 * 192, min(w, h)) / 192     # source px per output px
+    rot = 0.3
+    span_x = s * (cw * np.cos(rot) + rt * np.sin(rot)) + 2
+    span_y = s * (rt * np.cos(rot) + cw * np.sin(rot)) + 2
+    unit = 8
+    pitch = (int(span_x) + 1 + 2 * (unit - 1)) // unit * unit
+    assert pitch * (int(span_y) + 1) <= warp.staged_cap(2), size
 
 
 def test_stage_budget_fits_two_buffers():
-    """Two window buffers of STAGE_BYTES leave room for two CTAs on one
-    H100 SM (228 KB of shared memory), and a bf16 window row keeps whole
-    4-byte copies."""
-    assert 2 * (2 * warp.STAGE_BYTES) <= 228 * 1024
+    """Two window buffers of STAGE_BYTES, with the window records and
+    mbarriers, leave room for nine CTAs on one H100 SM (228 KB of shared
+    memory, 1 KB reserved per CTA), and a window row is whole 16-byte
+    bulk-copy units for bf16 and f32 planes."""
     for itemsize in (2, 4):
-        cap = warp.STAGE_BYTES // (3 * itemsize) // 2 * 2
-        assert cap % 2 == 0 and 3 * cap * itemsize <= warp.STAGE_BYTES
+        cap = warp.staged_cap(itemsize)
+        assert (cap * itemsize) % 16 == 0
+        assert 3 * cap * itemsize <= warp.STAGE_BYTES
+        cta = 2 * 3 * cap * itemsize + warp.STAGED_STATIC_BYTES + 1024
+        assert 9 * cta <= 228 * 1024
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("start", [0, 1, 2, 7, 8, 9, 1919, 1920, 1921])
+def test_row_copy_is_16_byte_aligned(itemsize, start):
+    """A window row's bulk copy starts on the 16-byte boundary at or
+    before its first element (odd and even bf16 starts), ends on the one
+    at or after its last, and fits a row of the window's pitch."""
+    unit = 16 // itemsize
+    for cols in (1, 2, 15, 16, 17, 63):
+        shift, nbytes = warp.row_copy(start, cols, itemsize)
+        assert ((start - shift) * itemsize) % 16 == 0 and 0 <= shift < unit
+        assert nbytes % 16 == 0 and nbytes > 0
+        assert (shift + cols) * itemsize <= nbytes < \
+            (shift + cols) * itemsize + 16
+        pitch = (cols + 2 * (unit - 1)) // unit * unit
+        assert nbytes <= pitch * itemsize

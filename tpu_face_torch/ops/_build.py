@@ -41,9 +41,9 @@ _WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P, _P), _I)
 _SEGMENT_WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _I, _I, _P, _P),
                      _I)
 
-# (x, out, wd, bd, wpt, bp, batch, c, h, w, layers, tile, stream) ->
-# cudaError_t, the f32 fused residual-block kernel's entry point
-_BLOCK_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
+# (x, out, packed weights, batch, c, h, w, layers, tile, route, stream)
+# -> cudaError_t, the f32 fused residual-block kernel's entry point
+_BLOCK_SIG = ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I)
 
 # (x, out, packed weights, batch, c, h, w, layers, tile, stream) ->
 # cudaError_t, the bf16 fused residual-block kernel's entry point

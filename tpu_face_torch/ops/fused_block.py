@@ -4,7 +4,8 @@
 
 layer after layer, as one kernel per launch: f32 activations go to
 ``csrc/fused_dw_pw_block.cu`` (which replaces the Pallas prototype
-``docs/experiments/fused_block_prototype.py``, K3), bf16 activations to
+``docs/experiments/fused_block_prototype.py``, K3: the 1x1 in split
+TF32 on the tensor cores), bf16 activations to
 ``csrc/fused_dw_pw_block_bf16.cu`` (which replaces
 ``docs/experiments/fused_block_v2.py``, K4: the 1x1 on the tensor
 cores).  Activations are NCHW ``[B, C, H, W]``, the layout the lowered
@@ -14,9 +15,9 @@ nets run in; weights are stacked per run: ``wd [L, C, 3, 3]``,
 ``fused_blocks`` launches the kernel on a CUDA tensor or raises, and runs
 ``fused_blocks_plain`` (the per-op sequence the lowered net runs without
 the kernel) on a CPU tensor.  Each kernel reads its weights in its own
-form (``kernel_weights``: the f32 kernel the 1x1 transposed, the bf16
-kernel one packed blob per layer, ``pack_bf16``); a caller that runs the
-same weights again (``TFLiteNet``) makes that form once and passes it.
+form (``kernel_weights``: one packed blob per layer, ``pack_f32`` and
+``pack_bf16``); a caller that runs the same weights again
+(``TFLiteNet``) makes that form once and passes it.
 ``LAUNCHES`` counts launches of the f32 kernel and ``BF16_LAUNCHES``
 those of the bf16 one; the plain path never adds to them.
 
@@ -26,6 +27,10 @@ side and the layers per launch (``plan``, each kernel with its own
 shared-memory formula and cost model): more layers per launch cost
 recomputed halo pixels, fewer cost a round trip of the activations
 through device memory.
+
+``fused_blocks_tf32x3`` emulates on the CPU the f32 kernel's split-TF32
+1x1 (it runs on no path: the tests hold it to the plain version, and the
+card's check against the plain version is the one that decides).
 """
 
 import math
@@ -39,10 +44,23 @@ LAUNCHES = 0        # fused_dw_pw_block.cu (f32)
 BF16_LAUNCHES = 0   # fused_dw_pw_block_bf16.cu
 
 SMEM_LIMIT = 232448      # opt-in shared memory per block on an H100
-GROUP = 8                # output channels per thread in the f32 kernel's 1x1
-F32_FLOPS = 67e12        # H100 SXM f32 FMA peak (data sheet)
-BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (data sheet)
-FMA_SHARE = 0.3          # share of the f32 peak the f32 kernel's FMA loops reach
+# The f32 kernel's two designs of the 1x1 (its `route` argument):
+# split TF32 on the tensor cores, or register-blocked FMAs.
+# chip_smoke.py's probe times both; F32_ROUTE is the one the path takes.
+F32_ROUTES = {"tf32x3": 0, "fma": 1}
+F32_ROUTE = "tf32x3"
+# The f32 kernel's time model (f32_cost): one CTA's seconds per
+# pixel-channel it computes and per pixel-channel it stages or writes
+# back (as the bf16 kernel's below), per weight it fetches for a layer,
+# and per CTA.  Fitted by least squares (relative error) to chip_smoke.py
+# --sweep's device times of the BACK detector's four runs at batch 64 on
+# an H100 SXM; with them plan picks each run's tiling within 5% of the
+# sweep's best.
+F32_PX_S = 4.08e-10
+F32_STAGE_S = 2.10e-10
+F32_WEIGHT_S = 5.58e-10
+F32_CTA_S = 4.34e-6
+F32_CTAS_PER_SM = 2      # __launch_bounds__(256, 2)
 # The bf16 kernel's time model (bf16_cost): one CTA's seconds per
 # pixel-channel it computes (a layer's depthwise, 1x1 and epilogue) and
 # per pixel-channel it stages in or writes back, with 1 or
@@ -56,9 +74,9 @@ BF16_CTAS_PER_SM = 2     # __launch_bounds__(256, 2): its registers allow 2
 SMS = 132                # H100 SXM
 SM_SMEM = 233472         # shared memory per SM on an H100
 CTA_SMEM_RESERVED = 1024  # per resident CTA
-# channel counts the bf16 kernel is instantiated for: those of the
+# channel counts both kernels are instantiated for: those of the
 # detectors' residual runs (BACK, FRONT and SHORT)
-BF16_CHANNELS = (24, 48, 96)
+CHANNELS = (24, 48, 96)
 
 
 def block_flops(c: int) -> int:
@@ -68,12 +86,31 @@ def block_flops(c: int) -> int:
     return 2 * (9 * c + c * c) + 4 * c
 
 
-def smem_bytes(c: int, tile: int, layers: int) -> int:
-    """Shared memory of one block: the staged activations and the
-    depthwise output ([C, (tile + 2 layers)^2] f32 each) and the weights
-    of every layer of the launch."""
+def blob_floats(c: int) -> int:
+    """Floats of one layer's packed f32 weights (``pack_f32``)."""
+    return c * (c + 4) + 11 * c
+
+
+def _box(tile: int, layers: int, h: int, w: int) -> int:
+    """Pixels of a staged box: tile + 2 layers per side, clipped to the
+    image and its one-pixel border."""
     e = tile + 2 * layers
-    return 4 * (2 * c * e * e + layers * (c * c + 11 * c))
+    return min(e, h + 2) * min(e, w + 2)
+
+
+def pixel_floats(c: int) -> int:
+    """Floats per staged pixel of the f32 kernel: c + 2 where a lane owns
+    four pixels (c <= 48), c + 4 where it owns two (the padding keeps a
+    warp's loads in distinct banks)."""
+    return c + 2 if c <= 48 else c + 4
+
+
+def smem_bytes(c: int, tile: int, layers: int, h: int, w: int) -> int:
+    """Shared memory of one block of the f32 kernel: two f32 buffers of
+    the staged box (``_box``), ``pixel_floats(c)`` per pixel, and two
+    layers' packed weights."""
+    return (8 * _box(tile, layers, h, w) * pixel_floats(c)
+            + 8 * blob_floats(c))
 
 
 def weight_stride(c: int) -> int:
@@ -92,9 +129,7 @@ def smem_bytes_bf16(c: int, tile: int, layers: int, h: int, w: int) -> int:
     the staged box (tile + 2 layers per side, clipped to the image and
     its one-pixel border), c/2 + 2 words per pixel, and two layers'
     packed weights."""
-    e = tile + 2 * layers
-    return (8 * min(e, h + 2) * min(e, w + 2) * (c // 2 + 2)
-            + 2 * blob_bytes(c))
+    return 8 * _box(tile, layers, h, w) * (c // 2 + 2) + 2 * blob_bytes(c)
 
 
 def split_layers(layers: int, per_launch: int):
@@ -107,33 +142,26 @@ def split_layers(layers: int, per_launch: int):
 def plan(c: int, h: int, w: int, layers: int, itemsize: int = 4):
     """(tile side, layers of each launch) for a run of ``layers`` blocks
     on [C, H, W] activations of ``itemsize`` bytes: 4 for the f32
-    kernel, 2 for the bf16 kernel (``_plan_bf16``).
+    kernel, 2 for the bf16 kernel.
 
-    For the f32 kernel, among the tiles (multiples of 4) that fit shared
-    memory, it picks the one with the least modelled time per frame: the
-    pixels computed,
-    recomputed halo included, at ``FMA_SHARE`` of the f32 peak, plus one
-    read and one write of the activations per launch; ties go to more
+    Among the even tiles whose staged boxes fit shared memory (the
+    kernel's own formula, ``smem_bytes`` or ``smem_bytes_bf16``), the
+    least modelled time (``f32_cost`` or ``bf16_cost``); ties go to more
     layers per launch, then to the larger tile.  Deterministic, so a
     caller can count the launches a run will make."""
     if layers < 1:
         raise ValueError(f"layers must be >= 1, got {layers}")
-    if itemsize == 2:
-        return _plan_bf16(c, h, w, layers)
-    flops = block_flops(c)
+    smem, cost = ((smem_bytes_bf16, bf16_cost) if itemsize == 2
+                  else (smem_bytes, f32_cost))
     best = None
     for per_launch in range(layers, 0, -1):
         chunks = split_layers(layers, per_launch)
-        fits = [t for t in range(4, max(h, w) + 4, 4)
-                if smem_bytes(c, t, per_launch) <= SMEM_LIMIT]
-        for tile in reversed(fits):
-            tiles = math.ceil(h / tile) * math.ceil(w / tile)
-            pixels = sum(tiles * (tile + 2 * (k - 1 - l)) ** 2
-                         for k in chunks for l in range(k))
-            cost = (pixels * flops / (F32_FLOPS * FMA_SHARE)
-                    + len(chunks) * 2 * itemsize * c * h * w / BYTES_PER_S)
-            if best is None or cost < best[0]:
-                best = (cost, tile, chunks)
+        for tile in range(max(h, w) + max(h, w) % 2, 0, -2):
+            if smem(c, tile, per_launch, h, w) > SMEM_LIMIT:
+                continue
+            t = cost(c, h, w, tile, chunks)
+            if best is None or t < best[0]:
+                best = (t, tile, chunks)
     if best is None:
         raise ValueError(f"no tile of C={c} fits {SMEM_LIMIT} bytes of "
                          f"shared memory")
@@ -143,58 +171,84 @@ def plan(c: int, h: int, w: int, layers: int, itemsize: int = 4):
 def _spans(n: int, tile: int, layers: int, unit: int = 1):
     """Per layer l of a launch of ``layers``, the summed lengths along an
     axis of n pixels of every tile's computed span (the tile grown by
-    ``layers - 1 - l`` on each side, within the image: the bf16 kernel
-    computes only in-image pixels), each rounded up to ``unit`` pixels."""
+    ``layers - 1 - l`` on each side, within the image: the kernels
+    compute only in-image pixels), each rounded up to ``unit`` pixels."""
     return [sum(-(-(min(t0 + tile + g, n) - max(t0 - g, 0)) // unit) * unit
                 for t0 in range(0, n, tile))
             for g in range(layers - 1, -1, -1)]
 
 
+def _ctas_per_sm(smem: int, most: int) -> int:
+    """CTAs resident on one SM with ``smem`` bytes each, at most
+    ``most``."""
+    return max(1, min(most, SM_SMEM // (smem + CTA_SMEM_RESERVED)))
+
+
 def bf16_ctas_per_sm(c: int, tile: int, layers: int, h: int, w: int) -> int:
     """CTAs of the bf16 kernel resident on one SM at this tiling: as many
     as its shared memory allows, at most ``BF16_CTAS_PER_SM``."""
-    need = smem_bytes_bf16(c, tile, layers, h, w) + CTA_SMEM_RESERVED
-    return max(1, min(BF16_CTAS_PER_SM, SM_SMEM // need))
+    return _ctas_per_sm(smem_bytes_bf16(c, tile, layers, h, w),
+                        BF16_CTAS_PER_SM)
 
 
-def bf16_cost(c: int, h: int, w: int, tile: int, chunks) -> float:
-    """Modelled seconds per frame of the bf16 kernel on a run of
-    ``sum(chunks)`` layers at ``tile``, ``chunks`` layers per launch.
-    Per launch, its CTAs' work spread over the SMs: every computed
-    pixel-channel (recomputed halo included; along x in pairs) at
-    ``BF16_PX_S`` and every staged one (halo and one-pixel image border
-    included, and the tile written back) at ``BF16_STAGE_S``, each CTA
-    taking an SM's share of 1 / ``bf16_ctas_per_sm``, so a tiling whose
-    shared memory leaves one CTA per SM runs at half the rate."""
+def f32_ctas_per_sm(c: int, tile: int, layers: int, h: int, w: int) -> int:
+    """CTAs of the f32 kernel resident on one SM at this tiling: as many
+    as its shared memory allows, at most ``F32_CTAS_PER_SM``."""
+    return _ctas_per_sm(smem_bytes(c, tile, layers, h, w), F32_CTAS_PER_SM)
+
+
+def _cost(c, h, w, tile, chunks, px_s, stage_s, ctas_per_sm, unit=2,
+          weight_s=0.0, cta_s=0.0, blob=0) -> float:
+    """Modelled seconds per frame of a kernel on a run of ``sum(chunks)``
+    layers at ``tile``, ``chunks`` layers per launch.  Per launch, its
+    CTAs' work spread over the SMs: every computed pixel-channel
+    (recomputed halo included; along x in groups of ``unit`` pixels) at
+    ``px_s``, every staged one (halo and one-pixel image border included,
+    and the tile written back) at ``stage_s``, each CTA's fetch of
+    ``blob`` weights per layer at ``weight_s`` each and each CTA at
+    ``cta_s``, each CTA taking an SM's share of 1 / ``ctas_per_sm(...)``,
+    so a tiling whose shared memory leaves one CTA per SM where two fit
+    otherwise runs at half the rate."""
     cost = 0.0
     for k in chunks:
         pixels = sum(r * s for r, s in zip(_spans(h, tile, k),
-                                           _spans(w, tile, k, 2)))
+                                           _spans(w, tile, k, unit)))
         box = math.prod(sum(min(t0 + tile + k, n + 1) - max(t0 - k, -1)
                             for t0 in range(0, n, tile)) for n in (h, w))
-        cost += c * (pixels * BF16_PX_S + (box + h * w) * BF16_STAGE_S) / (
-            SMS * bf16_ctas_per_sm(c, tile, k, h, w))
+        ctas = math.ceil(h / tile) * math.ceil(w / tile)
+        cost += (c * (pixels * px_s + (box + h * w) * stage_s)
+                 + ctas * (k * blob * weight_s + cta_s)) / (
+            SMS * ctas_per_sm(c, tile, k, h, w))
     return cost
 
 
-def _plan_bf16(c: int, h: int, w: int, layers: int):
-    """``plan`` for the bf16 kernel: among the even tiles whose staged
-    boxes fit shared memory (``smem_bytes_bf16``), the least
-    ``bf16_cost``; ties go to more layers per launch, then to the larger
-    tile."""
-    best = None
-    for per_launch in range(layers, 0, -1):
-        chunks = split_layers(layers, per_launch)
-        for tile in range(max(h, w) + max(h, w) % 2, 0, -2):
-            if smem_bytes_bf16(c, tile, per_launch, h, w) > SMEM_LIMIT:
-                continue
-            cost = bf16_cost(c, h, w, tile, chunks)
-            if best is None or cost < best[0]:
-                best = (cost, tile, chunks)
-    if best is None:
-        raise ValueError(f"no tile of C={c} fits {SMEM_LIMIT} bytes of "
-                         f"shared memory")
-    return best[1], best[2]
+def bf16_cost(c: int, h: int, w: int, tile: int, chunks) -> float:
+    """``_cost`` of the bf16 kernel (``BF16_PX_S``, ``BF16_STAGE_S``,
+    ``bf16_ctas_per_sm``; its lanes compute pixel pairs)."""
+    return _cost(c, h, w, tile, chunks, BF16_PX_S, BF16_STAGE_S,
+                 bf16_ctas_per_sm)
+
+
+def f32_cost(c: int, h: int, w: int, tile: int, chunks) -> float:
+    """``_cost`` of the f32 kernel (``F32_*``, ``f32_ctas_per_sm``; its
+    lanes compute groups of four pixels for C <= 48, pairs above)."""
+    return _cost(c, h, w, tile, chunks, F32_PX_S, F32_STAGE_S,
+                 f32_ctas_per_sm, 4 if c <= 48 else 2, F32_WEIGHT_S,
+                 F32_CTA_S, blob_floats(c))
+
+
+def pack_f32(wd, bd, wp, bp):
+    """A run's weights as the f32 kernel reads them, one row of
+    ``blob_floats(C)`` floats per layer (f32 [L, blob_floats(C)], on the
+    weights' device): the 1x1 transposed, [C_in][C + 4] (zero padding
+    columns), then the depthwise taps [9][C], bd [C] and bp [C]."""
+    layers, c = bd.shape
+    wpt = torch.zeros(layers, c, c + 4, dtype=torch.float32,
+                      device=wp.device)
+    wpt[:, :, :c] = wp.transpose(1, 2)
+    taps = wd.float().reshape(layers, c, 9).transpose(1, 2)
+    return torch.cat([wpt.reshape(layers, -1), taps.reshape(layers, 9 * c),
+                      bd.float(), bp.float()], 1).contiguous()
 
 
 def pack_bf16(wd, bd, wp, bp):
@@ -230,12 +284,11 @@ def unpack_bf16(packed, c: int):
 
 def kernel_weights(wd, bd, wp, bp, dtype):
     """The run's weights in the form the kernel for activations of
-    ``dtype`` reads: for float32 (wd, bd, the 1x1 transposed [L, C_in,
-    C_out], bp) in f32, contiguous; for bfloat16 (``pack_bf16(...)``,)."""
+    ``dtype`` reads: (``pack_f32(...)``,) for float32, (``pack_bf16(...)``,)
+    for bfloat16."""
     if dtype == torch.bfloat16:
         return (pack_bf16(wd, bd, wp, bp),)
-    return tuple(t.float().contiguous()
-                 for t in (wd, bd, wp.transpose(1, 2), bp))
+    return (pack_f32(wd, bd, wp, bp),)
 
 
 def _check(x, wd, bd, wp, bp):
@@ -288,14 +341,48 @@ def fused_blocks_plain(x, wd, bd, wp, bp):
     return x
 
 
-def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
+def tf32_split(v):
+    """(hi, lo) f32 tensors with v ~ hi + lo, each a TF32 value (10
+    explicit significand bits) rounded to nearest, ties away from zero,
+    as the f32 kernel's cvt.rna.tf32.f32: hi = tf32(v), lo = tf32(v - hi)."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
+def fused_blocks_tf32x3(x, wd, bd, wp, bp):
+    """CPU emulation of the f32 kernel's route "tf32x3" on f32 x: the
+    plain version with each 1x1 as the kernel computes it, lo(y) hi(w) +
+    hi(y) lo(w) + hi(y) hi(w) (``tf32_split``; each product exact in f32)
+    summed in f32.  It runs on no path."""
+    _check(x, wd, bd, wp, bp)
+    c = x.shape[1]
+    for l in range(wd.shape[0]):
+        y = F.conv2d(x, wd[l, :, None], bd[l], padding=1, groups=c)
+        yh, yl = tf32_split(y)
+        wh, wl = tf32_split(wp[l].float())
+        z = F.conv2d(torch.cat([yl, yh, yh], 1),
+                     torch.cat([wh, wl, wh], 1)[:, :, None, None], bp[l])
+        x = torch.relu(z + x)
+    return x
+
+
+def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None, route=None):
     """The run on x [B, C, H, W] (f32 or bf16): the CUDA kernel of its
     type for a CUDA tensor, ``fused_blocks_plain`` for a CPU tensor.
     ``tiling`` ((tile, layers of each launch)) overrides ``plan``;
     ``weights`` is ``kernel_weights(wd, bd, wp, bp, x.dtype)`` made once
-    by the caller (made here when None)."""
+    by the caller (made here when None); ``route`` (a key of
+    ``F32_ROUTES``, for measuring) overrides the f32 kernel's
+    ``F32_ROUTE``."""
     global LAUNCHES, BF16_LAUNCHES
     _check(x, wd, bd, wp, bp)
+    if route is not None and route not in F32_ROUTES:
+        raise ValueError(f"route must be one of {sorted(F32_ROUTES)}, got "
+                         f"{route!r}")
     if x.device.type == "cpu":
         return fused_blocks_plain(x, wd, bd, wp, bp)
     if x.device.type != "cuda":
@@ -303,26 +390,25 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
     b, c, h, w = x.shape
     layers = wd.shape[0]
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and c not in BF16_CHANNELS:
-        raise ValueError(f"the bf16 kernel is built for C in "
-                         f"{BF16_CHANNELS}, got C={c}")
-    if c % GROUP:
-        raise ValueError(f"the kernel needs C % {GROUP} == 0, got C={c}")
+    if c not in CHANNELS:
+        raise ValueError(f"the kernels are built for C in {CHANNELS}, got "
+                         f"C={c}")
+    route = F32_ROUTES[route or F32_ROUTE]
     if b > 65535:
         raise ValueError(f"batch {b} > 65535")
     tile, chunks = tiling or plan(c, h, w, layers, x.element_size())
     if sum(chunks) != layers:
         raise ValueError(f"tiling {chunks} does not cover {layers} layers")
-    need = (smem_bytes_bf16(c, tile, max(chunks), h, w) if bf16
-            else smem_bytes(c, tile, max(chunks)))
+    need = (smem_bytes_bf16 if bf16 else smem_bytes)(c, tile, max(chunks),
+                                                     h, w)
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} with {max(chunks)} layers needs "
                          f"{need} bytes of shared memory")
     if weights is None:
         weights = kernel_weights(wd, bd, wp, bp, x.dtype)
-    want = ([(layers, blob_bytes(c))] if bf16 else
-            [(layers, c, 3, 3), (layers, c), (layers, c, c), (layers, c)])
-    if [tuple(t.shape) for t in weights] != want or any(
+    want = ([((layers, blob_bytes(c)), torch.uint8)] if bf16 else
+            [((layers, blob_floats(c)), torch.float32)])
+    if [(tuple(t.shape), t.dtype) for t in weights] != want or any(
             t.device != x.device or not t.is_contiguous() for t in weights):
         raise ValueError(f"weights must be kernel_weights(..., {x.dtype}) "
                          f"on {x.device}")
@@ -333,14 +419,17 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
     if b * h * w == 0:
         return torch.empty_like(x)
     first = 0
+    (packed,) = weights
     for k in chunks:
         out = torch.empty_like(x)
-        ptrs = [t[first].data_ptr() for t in weights]
-        _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
-                      *ptrs, b, c, h, w, k, tile)
         if bf16:
+            _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
+                          packed[first].data_ptr(), b, c, h, w, k, tile)
             BF16_LAUNCHES += 1
         else:
+            _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
+                          packed[first].data_ptr(), b, c, h, w, k, tile,
+                          route)
             LAUNCHES += 1
         x = out
         first += k

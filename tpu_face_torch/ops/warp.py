@@ -52,10 +52,18 @@ MAX_SEGMENTS = 4      # grids per launch of warp_bilinear.cu
 FLAT_WIDTH = 16
 
 # Shared memory of one of the staged kernel's two window buffers (all
-# three channels): two buffers of 48 KiB leave room for two CTAs per SM
-# on an H100.  A block whose window does not fit reads the rest of its
-# taps from global memory.
-STAGE_BYTES = 48 * 1024
+# three channels): two buffers of 12 KiB leave room for nine CTAs per SM
+# on an H100, whose copies in flight hide each other's latency (more CTAs
+# paid more than larger windows: PERF.md), and hold a block's bf16 window
+# at up to ~2.5x downsampling.  A block whose window does not fit reads
+# the rest of its taps from global memory.
+STAGE_BYTES = 12 * 1024
+# (rt, cw): output rows and columns of one block of the staged kernel,
+# one thread per output pixel
+STAGED_BLOCK = (8, 16)
+# The staged kernel's static shared memory beside its two buffers: a
+# window record (five ints) and three mbarriers (8 bytes) per buffer.
+STAGED_STATIC_BYTES = 2 * (5 * 4 + 3 * 8)
 
 XWIN = 128            # the TPU kernel's x-window (lanes)
 XLOAD = 2 * XWIN      # its aligned strip load width
@@ -272,11 +280,22 @@ def warp_bilinear_strips(planes, xs, ys):
     return out
 
 
-def staged_block(h: int, w: int):
-    """(rt, cw): the output rows and columns of one block of the staged
-    kernel, the JAX cascade's strip geometry (``pipeline._warp_cfg``):
-    16 x 32 up to 2560 px, 8 x 16 above."""
-    return (8, 16) if max(h, w) > 2560 else (16, 32)
+def staged_cap(itemsize: int) -> int:
+    """Elements of one channel's window in each of the staged kernel's
+    buffers: a third of ``STAGE_BYTES``, in whole 16-byte units (each
+    window row a whole number of bulk-copy units)."""
+    unit = 16 // itemsize
+    return STAGE_BYTES // (3 * itemsize) // unit * unit
+
+
+def row_copy(start: int, cols: int, itemsize: int):
+    """(shift, bytes) of the staged kernel's bulk copy of one window row:
+    ``cols`` elements from element ``start`` of 16-byte aligned planes,
+    copied from the 16-byte boundary at or before it (``shift`` elements
+    earlier) to the one at or after its end (ints or integer tensors)."""
+    unit = 16 // itemsize
+    shift = start % unit
+    return shift, -(-(shift + cols) // unit) * 16
 
 
 def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
@@ -308,15 +327,14 @@ def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
         raise ValueError(f"warp too large: B={b} P={flat_x.shape[1]} H={h} "
                          f"W={w}")
     planes = planes.contiguous()
-    if planes.data_ptr() % 4:
-        raise ValueError("the staged kernel copies 4-byte words: the planes "
-                         "must start 4-byte aligned")
-    rt, cw = staged_block(h, w)
+    if planes.data_ptr() % 16:
+        raise ValueError("the staged kernel's bulk copies need the planes "
+                         "16-byte aligned")
+    rt, cw = STAGED_BLOCK
     tiles = -(-gh // rt)
     if groups * tiles >= 2**31:
         raise ValueError(f"too many row tiles: {groups} grids x {tiles}")
-    # elements of one channel's window per buffer, even (bf16 pairs)
-    cap = STAGE_BYTES // (3 * planes.element_size()) // 2 * 2
+    cap = staged_cap(planes.element_size())
     xs, ys = flat_x.contiguous(), flat_y.contiguous()
     out = torch.empty((b, 3, xs.shape[1]), dtype=torch.float32,
                       device=planes.device)
@@ -351,6 +369,24 @@ def warp_sample_multi(planes, coords):
     else:
         out = warp_bilinear_segments(
             planes, [(sx, sy, sx.shape[-1]) for sx, sy in coords])
+    return _grid_views(out, coords)
+
+
+def warp_sample_multi_plain(planes, coords):
+    """``warp_sample_multi`` by the plain gather (``warp_bilinear_plain``)
+    on either device: the cascade's ``warp_method="gather"``, which
+    launches no kernel."""
+    b = planes.shape[0]
+    _check_planes(planes, (torch.bfloat16, torch.float32))
+    xs = torch.cat([sx.reshape(b, -1) for sx, _ in coords], dim=1)
+    ys = torch.cat([sy.reshape(b, -1) for _, sy in coords], dim=1)
+    return _grid_views(warp_bilinear_plain(planes, xs, ys), coords)
+
+
+def _grid_views(out, coords):
+    """Each grid's samples [B, ..., Ho, Wo, 3] of the warp output ``out``
+    [B, 3, P] (the grids of ``coords`` side by side)."""
+    b = out.shape[0]
     # channel-last views [B, ..., Ho, Wo, 3] of each grid's part of the
     # channel-major [B, 3, P] storage, one as_strided each (with one face
     # per frame the nets read them back as NCHW without a copy)

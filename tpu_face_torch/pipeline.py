@@ -123,6 +123,15 @@ class FaceCascade:
     plane type still follows the frame size alone, the ROI warps do not
     change, and every result is f32.  Any other dtype raises.
 
+    ``warp_method`` picks the ROI warps' sampler, as in
+    ``tpu_face.pipeline.FaceCascade``: "pallas" the warp kernels
+    (``warp.warp_sample_multi``), "gather" the plain zero-border gather
+    (``warp.warp_bilinear_plain``) on either device, "auto"
+    (``image.resolve_warp_method``) "pallas" on the card and "gather" on
+    the CPU.  "mxu" raises ``NotImplementedError`` (not ported), any other
+    value ``ValueError``.  The detection warp (two hat matmuls, no
+    kernel) is the same for every method.
+
     ``max_faces`` faces per frame come out of the weighted NMS; the
     per-face stages run over [B, max_faces].  Two arguments are accepted
     for parity with ``tpu_face.pipeline.FaceCascade`` and have no effect
@@ -141,6 +150,7 @@ class FaceCascade:
                  FaceDetectionModel.BACK_CAMERA,
                  model_path: Optional[str] = None,
                  compute_dtype=torch.float32,
+                 warp_method: str = "auto",
                  max_faces: int = 1,
                  nms_top_m: int = 128,
                  input_layout: str = "hwc",
@@ -154,6 +164,11 @@ class FaceCascade:
         if warp_profile not in ("coverage", "speed", "auto"):
             raise ValueError(f"warp_profile {warp_profile!r}")
         self.device = resolve_device(device)
+        self.warp_method = image_ops.resolve_warp_method(warp_method,
+                                                         self.device)
+        if self.warp_method not in ("pallas", "gather"):
+            raise ValueError(f"warp_method {warp_method!r}: the cascade's "
+                             f"ROIs rotate, so 'pallas' or 'gather'")
         self.compute_dtype = compute_dtype
         self.max_faces = int(max_faces)
         self.nms_top_m = nms_top_m
@@ -281,6 +296,13 @@ class FaceCascade:
                 whole, (self.det_w, self.det_h), True, False)
         return self._whole_coords[image_size]
 
+    def _warp(self, planes, coords):
+        """The ROI warps of one stage: ``warp_sample_multi`` (one kernel
+        launch) for "pallas", ``warp_sample_multi_plain`` for "gather"."""
+        if self.warp_method == "gather":
+            return warp_ops.warp_sample_multi_plain(planes, coords)
+        return warp_ops.warp_sample_multi(planes, coords)
+
     def _face_roi_from_det(self, det, image_size):
         """Face ROIs [..., 5] of detections [..., 8, 2]
         (face_landmark.rs:180-198): keypoint rows 2 (left eye) and 3
@@ -300,7 +322,7 @@ class FaceCascade:
         b, k = face_roi_abs.shape[:2]
         mx, my, mesh_pad = image_ops._source_coords(
             face_roi_abs, (self.mesh_w, self.mesh_h), False, False)
-        (mesh_raw,) = warp_ops.warp_sample_multi(planes, [(mx, my)])
+        (mesh_raw,) = self._warp(planes, [(mx, my)])
         mesh_tensor = image_ops._normalize_pixels(mesh_raw, (0.0, 1.0),
                                                   True)
         raw_mesh, raw_flag = self._mesh_net(mesh_tensor.flatten(0, 1))
@@ -332,8 +354,7 @@ class FaceCascade:
         size = (self.iris_w, self.iris_h)
         lx, ly, lp = image_ops._source_coords(left_roi, size, True, False)
         rx, ry, rp = image_ops._source_coords(right_roi, size, True, True)
-        l_raw, r_raw = warp_ops.warp_sample_multi(planes,
-                                                  [(lx, ly), (rx, ry)])
+        l_raw, r_raw = self._warp(planes, [(lx, ly), (rx, ry)])
         # stacked channel-major [B, K, 2, 3, Ho, Wo], handed to the net
         # as its NHWC view of [2BK, 3, Ho, Wo]
         pair = torch.stack([l_raw.movedim(-1, -3), r_raw.movedim(-1, -3)],
