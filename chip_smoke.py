@@ -31,13 +31,14 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               3840x2160 and 2 of 1281x723 (rows of bf16 planes start
               off the 16-byte grid), with 1 and 4 faces per frame and ROIs
               of one to three times the short side, whose blocks overflow
-              the staged kernel's window budget (counted and printed; the
-              staged outputs' bit-exactness with the gather's is printed).
+              the staged kernel's window budget (the kernel counts those
+              blocks and the bytes its windows copied, the same for both
+              variants; the staged outputs' bit-exactness with the
+              gather's is printed).
               The fused block (TF32 off): f32 and bf16 at each residual
               run of the BACK detector (128x128x24, 64x64x24, 32x32x48,
               16x16x96, seven blocks each, batch 64, the f32 and the bf16
-              detector's weights), f32 (the path's 1x1 route,
-              fused_block.F32_ROUTE) within 1e-4 * max(1, max|plain|),
+              detector's weights), f32 within 1e-4 * max(1, max|plain|),
               bf16 within one bf16 ulp of max|plain| (the kernel rounds
               where the plain version rounds), and f32 and bf16 at the
               Pallas prototypes' shape (batch 256, 128x128x24, 7 blocks,
@@ -89,7 +90,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               strip kernel and both staged variants once each (this
               path's launches), bit-exact with each other, then timed in
               turns against one bound, the bytes the staged windows copied
-              printed beside those the gather's bound counts;
+              (counted by the kernel) printed beside those the gather's
+              bound counts;
 7. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
@@ -102,7 +104,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               its plain version and, for the warps,
               torch.nn.functional.grid_sample (a yardstick only), and the
               f32 fused kernel's two designs of the 1x1 (split TF32 on the
-              tensor cores, register-blocked FMAs) at the BACK runs R1 and
+              tensor cores, the path's; register-blocked FMAs, the
+              library's probe-only entry point) at the BACK runs R1 and
               R4, each one's error and device time (k3_probe): the call
               time (CUDA events over back-to-back calls, the host's
               launch path included) and the device time (the same calls
@@ -125,7 +128,9 @@ into DIR.
 
 adds each fused kernel's device time (``queued_ms``) at each residual
 run of the BACK detector (batch 64) for every tiling that fits shared
-memory (tiles a multiple of 4, and the plan's), beside the plan's pick.
+memory (tiles a multiple of 4, and the plan's), beside the plan's pick,
+and the staged kernel's device time and counts on strip_dma's grids at
+each block geometry and window budget of ``STAGED_GEOMETRIES``.
 """
 
 import argparse
@@ -458,54 +463,24 @@ def stacked(coords):
             torch.stack([y for _, y in coords], 1))
 
 
-def staged_windows(planes, gx, gy):
-    """(blocks, blocks whose window does not fit one of the staged
-    kernel's shared buffers, so that some of their taps read global
-    memory, bytes the windows' bulk copies move): the kernel's window
-    rule (csrc/warp_strips_staged.cu; its guard at the planes' very end
-    left out) on these grids [B, ..., Ho, Wo] over 16-byte aligned
-    planes."""
-    b, _, h, w = planes.shape
+def staged_stats(planes, gx, gy, copies):
+    """One launch of the staged kernel on grids [B, ..., Ho, Wo] with its
+    counters on: (its output, its launches, the bytes its windows' bulk
+    copies moved, its blocks whose window did not hold all their taps),
+    as the kernel counted them on the card."""
+    stats = torch.zeros(2, dtype=torch.int64, device=planes.device)
+    got, n = counted(lambda: warp.warp_bilinear_strips_staged(
+        planes, gx, gy, copies, stats=stats))
+    copied, over = stats.tolist()
+    return got, n, copied, over
+
+
+def staged_blocks(gx):
+    """Blocks of the staged kernel (``warp.STAGED_BLOCK``) over grids
+    [B, ..., Ho, Wo]."""
     rt, cw = warp.STAGED_BLOCK
     gh, gw = gx.shape[-2:]
-    assert gh % rt == 0 and gw % cw == 0, (gh, gw, rt, cw)
-    x0 = torch.floor(gx).reshape(b, -1, gh // rt, rt, gw // cw, cw)
-    y0 = torch.floor(gy).reshape(x0.shape)
-    inside = (x0 >= -1) & (x0 < w) & (y0 >= -1) & (y0 < h)
-    big = float(2**30)
-
-    def ext(v, lo, hi):
-        return (torch.where(inside, v.clamp(lo, hi), big).amin((3, 5)),
-                torch.where(inside, (v + 1).clamp(lo, hi), -big).amax((3, 5)))
-
-    xl, xh = ext(x0, 0, w - 1)
-    yl, yh = ext(y0, 0, h - 1)
-    size = planes.element_size()
-    unit = 16 // size
-    cap = warp.staged_cap(size)
-    some = xl <= xh
-    cols = torch.where(some, xh - xl + 1, 0.0).long()
-    rows = torch.where(some, yh - yl + 1, 0.0).long()
-    pitch = torch.div(cols + 2 * (unit - 1), unit,
-                      rounding_mode="floor") * unit
-    over = some & (pitch * rows > cap)
-    wide = pitch > cap
-    cols = torch.where(wide, cap - (unit - 1), cols)
-    rows = torch.where(wide, 1, torch.where(
-        over, torch.div(cap, pitch.clamp(min=1), rounding_mode="floor"),
-        rows))
-    # each row's copy: from the 16-byte boundary at or before its first
-    # element to the one at or after its last
-    frame = torch.arange(b, device=gx.device).reshape(b, 1, 1, 1, 1)
-    r = torch.arange(int(rows.max()) if rows.numel() else 0,
-                     device=gx.device)
-    copied = 0
-    for c in range(3):
-        start = (((frame * 3 + c) * h + yl.clamp(min=0).long()[..., None])
-                 * w + xl.clamp(min=0).long()[..., None]) + r * w
-        _, nbytes = warp.row_copy(start, cols[..., None], size)
-        copied += int(torch.where(r < rows[..., None], nbytes, 0).sum())
-    return xl.numel(), int(over.sum()), copied
+    return gx[..., 0, 0].numel() * -(-gh // rt) * -(-gw // cw)
 
 
 def touched_bytes(planes, xs, ys):
@@ -609,7 +584,7 @@ def time_kernel(kernel, plain, planes, calls, coords=None):
             "library_device_ms": library_dev,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bound_bytes": nbytes, "bound_flops": flops}
 
 
 def hires_batch(canvas, batch, rng):
@@ -724,25 +699,28 @@ def phase_kernels(rng):
 
     def check_staged(planes, coords, gather):
         """Both staged variants against the plain version and the gather
-        kernel's output ``gather`` on the same call."""
+        kernel's output ``gather`` on the same call; both must count the
+        same windows.  Returns the blocks whose window was cut."""
         xs, ys = flat(coords)
         plain = warp.warp_bilinear_strips_plain(planes, xs, ys)
         gx, gy = stacked(coords)
-        blocks, over, _ = staged_windows(planes, gx, gy)
+        counts = []
         for copies in ("fused", "split"):
             name = f"warp_strips_staged_{copies}"
-            got, n = counted(lambda: warp.warp_bilinear_strips_staged(
-                planes, gx, gy, copies))
+            got, n, copied, over = staged_stats(planes, gx, gy, copies)
             assert n == only(**{name: 1}), (name, n)
             err = float((got - plain).abs().max())
             print(f"{name} {str(planes.dtype)[6:]} grids "
                   f"{tuple(gx.shape[1:])}: max abs err {err:.3g}, "
                   f"bit-exact with the gather "
-                  f"{bool(torch.equal(got, gather))}; {over} of {blocks} "
-                  f"blocks over the window budget")
+                  f"{bool(torch.equal(got, gather))}; {over} of "
+                  f"{staged_blocks(gx)} blocks over the window budget, "
+                  f"{copied} bytes copied (counted by the kernel)")
             assert err <= KERNEL_TOL, (name, err)
             errs[name] = max(errs[name], err)
-        return over
+            counts.append((copied, over))
+        assert counts[0] == counts[1], counts
+        return counts[0][1]
 
     def check_segments(planes, coords):
         """warp_bilinear_segments with each grid a segment, and
@@ -910,13 +888,12 @@ def phase_fused_blocks():
     return {"fused_dw_pw_block_f32": err32, "fused_dw_pw_block_bf16": err16}
 
 
-def fused_bound(runs, dtype, route):
+def fused_bound(runs, dtype):
     """The fused kernel's bound on ``runs`` [(x, weights, packed, _)]: each
     input and packed weight read once, each output written once, against
     its operations at the card's peak for their type (bf16: all at the
-    bf16 tensor-core rate; f32 route "fma": all at the f32 FMA rate; f32
-    route "tf32x3": the 1x1's three TF32 products at the TF32
-    tensor-core rate beside the rest at the f32 FMA rate, running
+    bf16 tensor-core rate; f32: the 1x1's three split-TF32 products at the
+    TF32 tensor-core rate beside the rest at the f32 FMA rate, running
     together).  Returns (bound ms, "bytes" or "operations", bound ms of
     every operation at the f32 FMA rate, flops, bytes)."""
     flops = pw = 0
@@ -931,22 +908,18 @@ def fused_bound(runs, dtype, route):
     f32_ms = flops / H100_F32_FLOPS * 1e3
     if dtype == torch.bfloat16:
         ops_ms = flops / H100_BF16_FLOPS * 1e3
-    elif route == "tf32x3":
+    else:
         ops_ms = max(3 * pw / H100_TF32_FLOPS,
                      (flops - pw) / H100_F32_FLOPS) * 1e3
-    else:
-        ops_ms = f32_ms
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", f32_ms, flops,
             nbytes)
 
 
-def time_fused(cases, dtype, route=None):
+def time_fused(cases, dtype):
     """The fused kernel over ``cases`` [(label, x, weights)], all in one
-    timed call, in ``dtype`` (f32: on ``route``, by default the path's
-    ``fused_block.F32_ROUTE``): its time, the plain version's and the
-    bound of its route (``fused_bound``)."""
-    route = route or fused_block.F32_ROUTE
+    timed call, in ``dtype``: its time, the plain version's and its bound
+    (``fused_bound``)."""
     runs = [(x.to(dtype), w, fused_block.kernel_weights(*w, dtype),
              fused_block.plan(x.shape[1], x.shape[2], x.shape[3],
                               w[0].shape[0], torch.finfo(dtype).bits // 8))
@@ -954,8 +927,7 @@ def time_fused(cases, dtype, route=None):
 
     def kernel():
         for x, w, packed, tiling in runs:
-            fused_block.fused_blocks(x, *w, tiling=tiling, weights=packed,
-                                     route=route)
+            fused_block.fused_blocks(x, *w, tiling=tiling, weights=packed)
 
     def plain():
         for x, w, _, _ in runs:
@@ -965,38 +937,57 @@ def time_fused(cases, dtype, route=None):
         kernel_ms, _ = median_ms(kernel, reps=10)
         plain_ms, _ = median_ms(plain, reps=3)
         kernel_dev = queued_ms(kernel)
-    bound_ms, bound_by, f32_ms, flops, nbytes = fused_bound(runs, dtype,
-                                                            route)
+    bound_ms, bound_by, f32_ms, flops, nbytes = fused_bound(runs, dtype)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "device_ms": kernel_dev, "library_device_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
             **({} if dtype == torch.bfloat16 else
-               {"design": route, "bound_f32_fma_ms": f32_ms}),
-            "flops": flops, "bytes": nbytes,
+               {"bound_f32_fma_ms": f32_ms}),
+            "bound_flops": flops, "bound_bytes": nbytes,
             "tilings": [tiling for _, _, _, tiling in runs]}
 
 
-def probe_f32_routes(cases):
-    """K3's two designs of the 1x1 (``fused_block.F32_ROUTES``) on the
-    same runs, each at the plan's tiling: max abs error against the plain
-    version (and whether it meets BLOCK_TOL_F32) and device time
-    (``queued_ms``)."""
+def fma_probe(x, packed, tiling):
+    """The f32 run on x at ``tiling`` with the 1x1 on the FMA units: the
+    library's probe-only entry point fused_dw_pw_block_f32_fma_probe (C
+    = 24 or 96), chunk by chunk as ``fused_block.fused_blocks`` launches
+    the path's entry point.  Counts no launch."""
+    fn = _build.entry("fused_dw_pw_block", "fused_dw_pw_block_f32_fma_probe")
+    b, c, h, w = x.shape
+    tile, chunks = tiling
+    first = 0
+    for k in chunks:
+        out = torch.empty_like(x)
+        _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
+                      packed[first].data_ptr(), b, c, h, w, k, tile)
+        x = out
+        first += k
+    return x
+
+
+def probe_f32_designs(cases):
+    """K3's two designs of the 1x1 on the same runs, each at the plan's
+    tiling: split TF32 on the tensor cores (the path's kernel,
+    ``fused_blocks``) and register-blocked FMAs (``fma_probe``); max abs
+    error against the plain version (and whether it meets BLOCK_TOL_F32)
+    and device time (``queued_ms``)."""
     out = {}
     with torch.inference_mode(), exact_f32():
         for label, x, w in cases:
             b, c, h, width = x.shape
-            packed = fused_block.kernel_weights(*w, torch.float32)
+            (packed,) = fused_block.kernel_weights(*w, torch.float32)
             tiling = fused_block.plan(c, h, width, w[0].shape[0])
             ref = fused_block.fused_blocks_plain(x, *w)
             tol = BLOCK_TOL_F32 * max(1.0, float(ref.abs().max()))
+            designs = {
+                "tf32x3": lambda: fused_block.fused_blocks(
+                    x, *w, tiling=tiling, weights=(packed,)),
+                "fma": lambda: fma_probe(x, packed, tiling)}
             row = {}
-            for route in fused_block.F32_ROUTES:
-                def run():
-                    return fused_block.fused_blocks(
-                        x, *w, tiling=tiling, weights=packed, route=route)
+            for design, run in designs.items():
                 err = float((run() - ref).abs().max())
-                row[route] = {"max_abs_err": err, "meets_tol": err <= tol,
-                              "device_ms": queued_ms(run)}
+                row[design] = {"max_abs_err": err, "meets_tol": err <= tol,
+                               "device_ms": queued_ms(run)}
             print(f"probe f32 1x1 {label} B={b} tiling {tiling}: "
                   + "; ".join(f"{k} {v['device_ms']:.4f} ms, err "
                               f"{v['max_abs_err']:.3g}" for k, v in
@@ -1339,7 +1330,44 @@ def time_in_turns(runs, reps=20):
     return times
 
 
-def phase_strip_dma(rng):
+# The staged kernel's geometries --sweep times on strip_dma's grids: (rt,
+# cw) block, bytes of one window buffer; the first is the package's
+STAGED_GEOMETRIES = (((8, 16), 12 * 1024), ((8, 16), 20 * 1024),
+                     ((8, 32), 32 * 1024), ((16, 32), 48 * 1024))
+
+
+def sweep_staged_geometry(planes, gx, gy, want):
+    """Both staged variants on grids [B, ..., Ho, Wo] at each of
+    ``STAGED_GEOMETRIES`` (``warp.STAGED_BLOCK`` and ``warp.STAGE_BYTES``
+    set for the call, then restored): bit-exact with ``want``, their
+    device time (``queued_ms``) and the kernel's counts (blocks, blocks
+    over the window budget, bytes copied)."""
+    out = {}
+    saved = warp.STAGED_BLOCK, warp.STAGE_BYTES
+    try:
+        for block, budget in STAGED_GEOMETRIES:
+            warp.STAGED_BLOCK, warp.STAGE_BYTES = block, budget
+            row = {"blocks": staged_blocks(gx)}
+            for copies in ("fused", "split"):
+                got, _, copied, over = staged_stats(planes, gx, gy, copies)
+                assert torch.equal(got, want), (block, budget, copies)
+                row[copies] = {"device_ms": queued_ms(
+                    lambda: warp.warp_bilinear_strips_staged(
+                        planes, gx, gy, copies)),
+                    "blocks_over_budget": over, "copied_bytes": copied}
+            label = f"{block[0]}x{block[1]}_{budget // 1024}KiB"
+            print(f"staged geometry {label}: " + "; ".join(
+                f"{k} {row[k]['device_ms']:.4f} ms, "
+                f"{row[k]['blocks_over_budget']} of {row['blocks']} blocks "
+                f"over budget, {row[k]['copied_bytes']} bytes copied"
+                for k in ("fused", "split")), flush=True)
+            out[label] = row
+    finally:
+        warp.STAGED_BLOCK, warp.STAGE_BYTES = saved
+    return out
+
+
+def phase_strip_dma(rng, sweep=False):
     """K5's A/B, as tools/tpu_strip_dma_probe.py runs it on the TPU:
     batch 64 of 1920x1080 bf16 planes (canvas (a), each frame rolled
     along x by up to 99 px), one 192x192 mesh grid per frame from a
@@ -1347,8 +1375,9 @@ def phase_strip_dma(rng):
     +-0.3 rad).  The gather strip kernel and the staged kernel with one
     fused copy and with three per-channel copies, once each with the
     counts set to 0 before (this path's launches), bit-exact with each
-    other, then timed in turns.  Returns (launches, {entry: kernels line
-    numbers}, numbers)."""
+    other, then timed in turns; with ``sweep``, the staged kernel at
+    each of ``STAGED_GEOMETRIES`` too.  Returns (launches, {entry:
+    kernels line numbers}, numbers)."""
     phase("strip_dma")
     b = BATCH["strip_dma"]
     canvas = canvas_1080p(load_image)
@@ -1374,7 +1403,12 @@ def phase_strip_dma(rng):
                             warp_strips_staged_split=1), launches
     for k in ("staged_fused", "staged_split"):
         assert torch.equal(outs[k], outs["gather"]), k
-    blocks, over, copied = staged_windows(planes, *stacked(grids))
+    sx, sy = stacked(grids)
+    counts = {copies: staged_stats(planes, sx, sy, copies)[2:]
+              for copies in ("fused", "split")}
+    assert counts["fused"] == counts["split"], counts
+    copied, over = counts["fused"]
+    blocks = staged_blocks(sx)
     times = time_in_turns(runs)
     xs, ys = flat(grids)
 
@@ -1388,7 +1422,7 @@ def phase_strip_dma(rng):
                        planes, [(xs, ys)])
     dev = {k: queued_ms(fn) for k, fn in runs.items()}
     timed = {f"warp_strips_{k}": dict(base, ms=statistics.mean(times[k]),
-                                      device_ms=dev[k], copied_bytes=copied)
+                                      device_ms=dev[k])
              for k in ("staged_fused", "staged_split")}
     numbers = {f"strip_dma_b{b}": {
         "grids": f"{b} x 192x192 mesh grids, 1920x1080 bf16 planes",
@@ -1396,9 +1430,12 @@ def phase_strip_dma(rng):
         "copied_bytes": copied,
         **{f"{k}_ms": v for k, v in times.items()},
         **{f"{k}_device_ms": v for k, v in dev.items()},
-        "bound_ms": base["bound_ms"], "bytes": base["bytes"],
+        "bound_ms": base["bound_ms"], "bound_bytes": base["bound_bytes"],
         "plain_ms": base["plain_ms"], "library_ms": base["library_ms"],
         "library_device_ms": base["library_device_ms"]}}
+    if sweep:
+        numbers[f"staged_geometry_b{b}"] = sweep_staged_geometry(
+            planes, sx, sy, outs["gather"])
     g, f, sp = (statistics.mean(times[k]) for k in
                 ("gather", "staged_fused", "staged_split"))
     print(f"strip_dma b{b}: gather {g:.4f} ms, staged fused copy {f:.4f} "
@@ -1406,7 +1443,8 @@ def phase_strip_dma(rng):
           f"{dev}); bound "
           f"{base['bound_ms']:.4f} ms; bit-exact; {over} of {blocks} "
           f"blocks over the window budget; the windows copied {copied} "
-          f"bytes, the gather's bound touches {base['bytes']}", flush=True)
+          f"bytes (counted by the kernel), the gather's bound touches "
+          f"{base['bound_bytes']}", flush=True)
     return launches, timed, numbers
 
 
@@ -1484,7 +1522,7 @@ def phase_numbers(rng, trace, sweep=False):
             numbers[f"fused_sweep{key}_b{BATCH['fused']}"] = sweep_tilings(
                 cases, dtype)
     # K3's two designs of the 1x1 at R1 and R4
-    numbers[f"k3_probe_b{BATCH['fused']}"] = probe_f32_routes(
+    numbers[f"k3_probe_b{BATCH['fused']}"] = probe_f32_designs(
         [cases[0], cases[3]])
     del cases
     x, w = prototype_inputs(BATCH["k3"])
@@ -1697,7 +1735,7 @@ def main(argv=None):
              "cascade_bf16": phase_cascade(torch.bfloat16),
              "cascade_gather": phase_cascade_gather()}
     models = {"f32": phase_models(), "bf16": phase_models(torch.bfloat16)}
-    paths["strip_dma"], timed, numbers = phase_strip_dma(rng)
+    paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
@@ -1726,8 +1764,8 @@ def main(argv=None):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
-            **{k: t[k] for k in ("design", "bound_f32_fma_ms", "bytes",
-                                 "copied_bytes") if k in t}})
+            **({"bound_f32_fma_ms": t["bound_f32_fma_ms"]}
+               if "bound_f32_fma_ms" in t else {})})
 
     print(smi)
     print(json.dumps(numbers))

@@ -135,15 +135,6 @@ PLAN_SHAPES = [(24, 128, 128, 7), (24, 64, 64, 7), (48, 32, 32, 7),
                (96, 16, 16, 7), (24, 64, 64, 1), (96, 8, 8, 4)]
 
 
-def test_unknown_route_raises():
-    args = _port_args(*_experiment_inputs())
-    with pytest.raises(ValueError):
-        fused_block.fused_blocks(*args, route="tf32")
-    for route in fused_block.F32_ROUTES:
-        assert torch.equal(fused_block.fused_blocks(*args, route=route),
-                           fused_block.fused_blocks_plain(*args))
-
-
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_plan_fits_shared_memory(shape):
     """Every run shape of the detectors gets a tiling that fits the
@@ -180,16 +171,21 @@ def test_f32_smem_formula_counts_the_clipped_box():
         8 * 22 * 22 * 26 + 8 * fused_block.blob_floats(24)
 
 
-@pytest.fixture(scope="module")
-def back_runs():
-    """The BACK detector's four runs: (x, wd, bd, wp, bp), x relu'd
-    normal noise at batch 1, the weights the f32 net's own."""
-    net = TFLiteNet(Graph(_DATA_DIR / "face_detection_back.npz"))
+def _detector_runs(name):
+    """A detector's residual runs: (x, wd, bd, wp, bp), x relu'd normal
+    noise at batch 1, the weights the f32 net's own."""
+    net = TFLiteNet(Graph(_DATA_DIR / f"{name}.npz"))
     rng = np.random.default_rng(5)
     return [(torch.from_numpy(rng.standard_normal(
         (1, c, h, w), dtype=np.float32)).relu_(),
         *(getattr(net, f"run{k}_{n}") for n in ("wd", "bd", "wp", "bp")))
         for k, (c, h, w, _) in enumerate(net.run_shapes)]
+
+
+@pytest.fixture(scope="module")
+def back_runs():
+    """The BACK detector's four runs (``_detector_runs``)."""
+    return _detector_runs("face_detection_back")
 
 
 @pytest.mark.parametrize("run", range(4))
@@ -198,7 +194,20 @@ def test_tf32x3_emulation_meets_the_kernel_tolerance(back_runs, run):
     chip_smoke.py's BLOCK_TOL_F32 (1e-4 x max(1, max|plain|)) of the plain
     version over each BACK run with the real weights; a one-pass TF32
     1x1 (the hi products only) does not."""
-    x, wd, bd, wp, bp = back_runs[run]
+    _check_tf32x3_emulation(*back_runs[run])
+
+
+@pytest.mark.parametrize("run", range(2))
+@pytest.mark.parametrize("name", ["face_detection_front",
+                                  "face_detection_short_range"])
+def test_tf32x3_emulation_meets_the_kernel_tolerance_front_short(name, run):
+    """The same at the FRONT and SHORT detectors' runs (C=24 at 64x64
+    with one block, C=96 at 8x8 with four), whose nets also take the f32
+    kernel."""
+    _check_tf32x3_emulation(*_detector_runs(name)[run])
+
+
+def _check_tf32x3_emulation(x, wd, bd, wp, bp):
     c = x.shape[1]
     with torch.inference_mode():
         want = fused_block.fused_blocks_plain(x, wd, bd, wp, bp)

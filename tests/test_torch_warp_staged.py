@@ -11,11 +11,11 @@ values and bf16 and f32 planes:
   within 1e-3 (0-255 units), on ROIs past the frame edge, mirrored grids
   and several grids and faces per frame;
 * the argument checks (an unknown ``copies``, flat coordinates, mismatched
-  grids, bad planes) raise, and the launch counters never move on the
-  CPU;
+  grids, bad planes, a bad ``stats`` buffer) raise, the launch counters
+  never move on the CPU, and the CPU path leaves ``stats`` alone (the
+  plain version stages no window; on the card the kernel counts);
 * the block geometry keeps a block's window within the budget at the
-  cascade's downsampling, the two buffers fit shared memory, and a window
-  row's bulk copy is 16-byte aligned in start and length.
+  cascade's downsampling, and the two buffers fit shared memory.
 """
 
 import jax.numpy as jnp
@@ -87,9 +87,33 @@ def test_default_copy_is_fused():
         rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("copies", ["fused", "split"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cpu_path_leaves_stats_alone(dtype, copies):
+    rng = np.random.default_rng(11)
+    planes = warp.make_planes(torch.from_numpy(rng.integers(
+        0, 256, (2, 40, 50, 3), dtype=np.uint8)), dtype=DTYPES[dtype])
+    gx, gy = _grids(rng, 2, 1, 50, 40, 16, (False,))
+    stats = torch.tensor([5, 7])
+    got = warp.warp_bilinear_strips_staged(planes, gx, gy, copies,
+                                           stats=stats)
+    assert stats.tolist() == [5, 7]
+    assert torch.equal(got, warp.warp_bilinear_strips_staged(planes, gx, gy,
+                                                             copies))
+
+
 def _bad(name):
     planes = torch.zeros(2, 3, 8, 8, dtype=torch.bfloat16)
     grid = torch.zeros(2, 4, 4)
+    stats = torch.zeros(2, dtype=torch.int64)
+    if name.startswith("stats_"):
+        return (planes, grid, grid, "fused"), {"stats": {
+            "stats_int32": stats.int(),
+            "stats_three": torch.zeros(3, dtype=torch.int64),
+            "stats_2d": stats[None],
+            "stats_strided": torch.zeros(4, dtype=torch.int64)[::2],
+            "stats_meta": stats.to("meta"),
+        }[name]}
     return {
         "copies": (planes, grid, grid, "dma"),
         "flat_coords": (planes, grid.reshape(2, -1), grid.reshape(2, -1),
@@ -101,15 +125,18 @@ def _bad(name):
         "two_channels": (planes[:, :2], grid, grid, "fused"),
         "meta_device": (planes.to("meta"), grid.to("meta"),
                         grid.to("meta"), "fused"),
-    }[name]
+    }[name], {}
 
 
 @pytest.mark.parametrize("name", ["copies", "flat_coords", "grids_differ",
                                   "batch", "f16_planes", "f64_coords",
-                                  "two_channels", "meta_device"])
+                                  "two_channels", "meta_device",
+                                  "stats_int32", "stats_three", "stats_2d",
+                                  "stats_strided", "stats_meta"])
 def test_bad_arguments_raise(name):
+    args, kwargs = _bad(name)
     with pytest.raises((ValueError, TypeError)):
-        warp.warp_bilinear_strips_staged(*_bad(name))
+        warp.warp_bilinear_strips_staged(*args, **kwargs)
 
 
 @pytest.mark.parametrize("size", [(1920, 1080), (2560, 1440), (2561, 1440),
@@ -135,30 +162,14 @@ def test_block_geometry_keeps_windows_within_budget(size):
 
 
 def test_stage_budget_fits_two_buffers():
-    """Two window buffers of STAGE_BYTES, with the window records and
-    mbarriers, leave room for nine CTAs on one H100 SM (228 KB of shared
-    memory, 1 KB reserved per CTA), and a window row is whole 16-byte
-    bulk-copy units for bf16 and f32 planes."""
+    """A window row is whole 16-byte bulk-copy units for bf16 and f32
+    planes, three channels' windows fit STAGE_BYTES, and the kernel's
+    shared memory (two buffers of ``staged_cap`` elements per channel,
+    plus its static window records and mbarriers, 88 bytes) fits an H100
+    SM (228 KiB, 1 KiB reserved per CTA) several times over."""
     for itemsize in (2, 4):
         cap = warp.staged_cap(itemsize)
         assert (cap * itemsize) % 16 == 0
         assert 3 * cap * itemsize <= warp.STAGE_BYTES
-        cta = 2 * 3 * cap * itemsize + warp.STAGED_STATIC_BYTES + 1024
-        assert 9 * cta <= 228 * 1024
-
-
-@pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("start", [0, 1, 2, 7, 8, 9, 1919, 1920, 1921])
-def test_row_copy_is_16_byte_aligned(itemsize, start):
-    """A window row's bulk copy starts on the 16-byte boundary at or
-    before its first element (odd and even bf16 starts), ends on the one
-    at or after its last, and fits a row of the window's pitch."""
-    unit = 16 // itemsize
-    for cols in (1, 2, 15, 16, 17, 63):
-        shift, nbytes = warp.row_copy(start, cols, itemsize)
-        assert ((start - shift) * itemsize) % 16 == 0 and 0 <= shift < unit
-        assert nbytes % 16 == 0 and nbytes > 0
-        assert (shift + cols) * itemsize <= nbytes < \
-            (shift + cols) * itemsize + 16
-        pitch = (cols + 2 * (unit - 1)) // unit * unit
-        assert nbytes <= pitch * itemsize
+        cta = 2 * 3 * cap * itemsize + 88 + 1024
+        assert 8 * cta <= 228 * 1024

@@ -20,8 +20,8 @@
 // Bound: operations (2 (9c + c^2) + 4c flops per pixel per layer against
 // 2 x 4 B x c per pixel for the whole run), 69-90% of them the 1x1's.
 // What the design does about it:
-//   * The 1x1 leaves the f32 FMA units (route 0): split-TF32 ("3xTF32") on
-//     the tensor cores.  Each f32 operand v is split into hi = tf32(v) and
+//   * The 1x1 leaves the f32 FMA units: split-TF32 ("3xTF32") on the
+//     tensor cores.  Each f32 operand v is split into hi = tf32(v) and
 //     lo = tf32(v - hi) (cvt.rna), and mma.sync.m16n8k8.tf32 accumulates
 //     lo*hi + hi*lo + hi*hi in f32: close to f32 accuracy (the dropped
 //     lo*lo term is ~2^-22 of each product), where one-pass TF32 keeps
@@ -30,16 +30,10 @@
 //     the mma fragment's layout and never stored.  The fragment's k index
 //     is permuted so that a lane's two k values are one channel pair
 //     (float2 loads); the weights' rows follow the same permutation.
-//   * Route 1 keeps the 1x1 on the FMA units, register-blocked (4 pixels x
-//     8 output channels a thread: 8 shared loads per 64 FMAs) over a
-//     depthwise output staged in shared memory.  It is the other design of
-//     chip_smoke.py's probe; fused_block.F32_ROUTE names the one the path
-//     takes.
 //   * Activations live in shared memory pixel-major, padded to c + 2 or
 //     c + 4 floats per pixel (pixel_floats), so the pixels of a warp's
-//     lanes and their channel pairs fall in distinct banks; two buffers (route 0: layer l reads one
-//     and writes the other, one barrier per layer; route 1: the
-//     activations, updated in place, and the depthwise output).
+//     lanes and their channel pairs fall in distinct banks; two buffers:
+//     layer l reads one and writes the other, one barrier per layer.
 //   * Only the current layer's weights are in shared memory, in the form
 //     the kernel reads (fused_block.pack_f32: the 1x1 as [c_in][c + 4], the
 //     taps as [9][c]); the next layer's arrive by cp.async while this one
@@ -57,6 +51,10 @@
 // The depthwise and every FMA part are explicit __fmaf_rn in a fixed
 // order (built with -fmad=false).  The wrapper (fused_block.plan) trades
 // recomputed halo against launches.
+//
+// The other design of the 1x1 that chip_smoke.py's probe times against
+// this one, register-blocked FMAs (layer_fma), is built only into the
+// probe's entry point, fused_dw_pw_block_f32_fma_probe.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,8 +322,9 @@ __device__ __forceinline__ void layer_tc(const float* src, float* dst,
   }
 }
 
-// One layer on the FMA units: the depthwise of `act`'s region into `ys`,
-// a barrier, then the 1x1 (4 pixels x 8 output channels a thread) with
+// The probe's design of a layer, on the FMA units: the depthwise of
+// `act`'s region into `ys`, a barrier, then the 1x1 register-blocked (4
+// pixels x 8 output channels a thread: 8 shared loads per 64 FMAs) with
 // bias, residual and relu in place over `act`.
 template <int C>
 __device__ __forceinline__ void layer_fma(float* act, float* ys,
@@ -412,6 +411,7 @@ __device__ __forceinline__ void layer_fma(float* act, float* ys,
   }
 }
 
+// kTc: the 1x1 on the tensor cores (layer_tc), else the probe's layer_fma
 template <int C, bool kTc>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_blocks_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -518,39 +518,48 @@ int launch(const float* x, float* out, const float* weights, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
-int launch_route(const float* x, float* out, const float* weights, int batch,
-                 int h, int w, int layers, int tile, int route,
-                 void* stream) {
-  if (route == 0) {
-    return launch<C, true>(x, out, weights, batch, h, w, layers, tile, stream);
-  }
-  return launch<C, false>(x, out, weights, batch, h, w, layers, tile, stream);
-}
-
 }  // namespace
 
 // x, out: [batch, c, h, w] f32 contiguous, distinct buffers, c*h*w < 2^31;
 // weights: `layers` packed layers (fused_block.pack_f32, blob_floats(c)
 // floats each), 16-byte aligned; c one of 24, 48, 96 (the detectors'
-// runs); batch <= 65535; route 0 (the 1x1 in split TF32 on the tensor
-// cores) or 1 (on the FMA units); the tile must fit shared memory:
-// 8 box (c + 4) + 8 blob_floats(c) bytes, box = min(tile + 2 layers,
-// h + 2) x min(tile + 2 layers, w + 2).  Launches on `stream` and returns a
-// cudaError_t (0 on success).
+// runs); batch <= 65535; the tile must fit shared memory: 8 box
+// pixel_floats(c) + 8 blob_floats(c) bytes, box = min(tile + 2 layers,
+// h + 2) x min(tile + 2 layers, w + 2).  Launches on `stream` and returns
+// a cudaError_t (0 on success).
 extern "C" int fused_dw_pw_block_f32(const float* x, float* out,
                                      const float* weights, int batch, int c,
                                      int h, int w, int layers, int tile,
-                                     int route, void* stream) {
+                                     void* stream) {
   if (batch == 0 || h == 0 || w == 0) return 0;
-  if (layers < 1 || tile < 1 || batch > 65535 || route < 0 || route > 1 ||
+  if (layers < 1 || tile < 1 || batch > 65535 ||
       static_cast<int64_t>(c) * h * w >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (c) {
-    case 24: return launch_route<24>(x, out, weights, batch, h, w, layers, tile, route, stream);
-    case 48: return launch_route<48>(x, out, weights, batch, h, w, layers, tile, route, stream);
-    case 96: return launch_route<96>(x, out, weights, batch, h, w, layers, tile, route, stream);
+    case 24: return launch<24, true>(x, out, weights, batch, h, w, layers, tile, stream);
+    case 48: return launch<48, true>(x, out, weights, batch, h, w, layers, tile, stream);
+    case 96: return launch<96, true>(x, out, weights, batch, h, w, layers, tile, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same run with the 1x1 on the FMA units (layer_fma), for
+// chip_smoke.py's probe of the two designs at the BACK runs R1 (c = 24) and
+// R4 (c = 96) only; the same arguments, c one of 24, 96.
+extern "C" int fused_dw_pw_block_f32_fma_probe(const float* x, float* out,
+                                               const float* weights,
+                                               int batch, int c, int h, int w,
+                                               int layers, int tile,
+                                               void* stream) {
+  if (batch == 0 || h == 0 || w == 0) return 0;
+  if (layers < 1 || tile < 1 || batch > 65535 ||
+      static_cast<int64_t>(c) * h * w >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (c) {
+    case 24: return launch<24, false>(x, out, weights, batch, h, w, layers, tile, stream);
+    case 96: return launch<96, false>(x, out, weights, batch, h, w, layers, tile, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -45,9 +45,11 @@
 // once, the coordinates read and the samples written once
 // (chip_smoke.py's touched_bytes).  Staging copies whole windows, more
 // than the pixels the four taps of each output touch at the cascade's
-// downsampling (chip_smoke.py prints the bytes the windows copied beside
-// touched_bytes): it is here as the measured counterpart of the TPU
-// design, not because the card needs it (Hopper gathers through L1/L2).
+// downsampling: given a `stats` buffer, warp 0 adds to it the bytes each
+// block's copies move and the blocks whose window does not hold all their
+// taps, which chip_smoke.py prints beside touched_bytes.  The kernel is
+// here as the measured counterpart of the TPU design, not because the
+// card needs it (Hopper gathers through L1/L2).
 //
 // Arithmetic: the same tap order and widening as warp_bilinear_strips.cu
 // (each tap widened to f32, top*(1-dy) + bot*dy with top = t00*(1-dx) +
@@ -119,7 +121,8 @@ template <typename T, bool kSplit>
 __global__ void warp_strips_staged_kernel(
     const T* __restrict__ planes, int h, int w, const T* planes_end,
     const float* __restrict__ xs, const float* __restrict__ ys, int gh,
-    int gw, int rt, int cw, int cap, int p, float* __restrict__ out) {
+    int gw, int rt, int cw, int cap, int p, float* __restrict__ out,
+    unsigned long long* stats) {
   constexpr int kBars = kSplit ? 3 : 1;
   constexpr int kUnit = 16 / sizeof(T);  // elements per 16 bytes
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -159,7 +162,8 @@ __global__ void warp_strips_staged_kernel(
   // Warp 0: the window of column block j (the bounding box of its pixels'
   // in-frame taps, clipped to the budget) into win[slot], and its copies
   // into buffer `slot`, each channel's rows completing on that channel's
-  // barrier (split) or all on one (fused).
+  // barrier (split) or all on one (fused); with `stats`, the bytes copied
+  // into stats[0] and, where the window was cut, one block into stats[1].
   auto plan_and_issue = [&](int slot, int j) {
     int xl = INT_MAX, xh = INT_MIN, yl = INT_MAX, yh = INT_MIN;
     for (int i = lane; i < threads; i += 32) {
@@ -185,6 +189,7 @@ __global__ void warp_strips_staged_kernel(
     yl = __reduce_min_sync(0xffffffffu, yl);
     yh = __reduce_max_sync(0xffffffffu, yh);
     Window v{0, 0, 0, 0, kUnit};
+    bool cut = false;   // some of the block's taps read global memory
     if (xl <= xh) {
       v.y0 = yl;
       v.rows = yh - yl + 1;
@@ -196,8 +201,10 @@ __global__ void warp_strips_staged_kernel(
         v.pitch = cap;
         v.cols = cap - (kUnit - 1);
         v.rows = 1;
+        cut = true;
       } else if (static_cast<int64_t>(v.pitch) * v.rows > cap) {
         v.rows = cap / v.pitch;      // the top rows; the rest read global
+        cut = true;
       }
       // a last row whose aligned copy would pass the planes' end reads
       // global memory instead
@@ -206,6 +213,7 @@ __global__ void warp_strips_staged_kernel(
       if (((end + 15) & ~uintptr_t{15}) >
           reinterpret_cast<uintptr_t>(planes_end)) {
         --v.rows;
+        cut = true;
       }
     }
     if (lane == 0) win[slot] = v;
@@ -238,6 +246,11 @@ __global__ void warp_strips_staged_kernel(
         for (int c = 0; c < 3; ++c) mbar_expect(&bars[slot][c], expect[c]);
       } else {
         mbar_expect(&bars[slot][0], expect[0] + expect[1] + expect[2]);
+      }
+      if (stats != nullptr) {
+        atomicAdd(&stats[0], static_cast<unsigned long long>(
+                                 expect[0] + expect[1] + expect[2]));
+        if (cut) atomicAdd(&stats[1], 1ull);
       }
     }
     __syncwarp();
@@ -335,7 +348,7 @@ __global__ void warp_strips_staged_kernel(
 template <typename T, bool kSplit>
 int launch(const T* planes, int batch, int h, int w, const float* xs,
            const float* ys, int groups, int gh, int gw, int rt, int cw,
-           int cap, float* out, void* stream) {
+           int cap, float* out, unsigned long long* stats, void* stream) {
   if (batch == 0 || groups == 0 || gh == 0 || gw == 0) return 0;
   const int smem = 2 * 3 * cap * static_cast<int>(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
@@ -348,7 +361,7 @@ int launch(const T* planes, int batch, int h, int w, const float* xs,
   warp_strips_staged_kernel<T, kSplit>
       <<<grid, rt * cw, smem, static_cast<cudaStream_t>(stream)>>>(
           planes, h, w, end, xs, ys, gh, gw, rt, cw, cap, groups * gh * gw,
-          out);
+          out, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,15 +372,17 @@ int launch(const T* planes, int batch, int h, int w, const float* xs,
 // by side); out: [batch, 3, groups * gh * gw] f32 contiguous.  Blocks of
 // rt x cw output pixels, rt * cw threads a CTA (a multiple of 32, at most
 // 1024); cap: elements of one channel's window in each of the two shared
-// buffers (a multiple of 16 bytes).  batch <= 65535.  Launches on `stream`
+// buffers (a multiple of 16 bytes).  batch <= 65535.  stats: null, or two
+// device counters the launch adds to (bytes the windows' copies moved,
+// blocks whose window does not hold all their taps).  Launches on `stream`
 // and returns the CUDA error of the attribute call or of the launch.
 #define STAGED_ENTRY(name, T, split)                                        \
   extern "C" int name(const T* planes, int batch, int h, int w,             \
                       const float* xs, const float* ys, int groups, int gh, \
                       int gw, int rt, int cw, int cap, float* out,          \
-                      void* stream) {                                       \
+                      unsigned long long* stats, void* stream) {            \
     return launch<T, split>(planes, batch, h, w, xs, ys, groups, gh, gw,    \
-                            rt, cw, cap, out, stream);                      \
+                            rt, cw, cap, out, stats, stream);               \
   }
 
 STAGED_ENTRY(warp_strips_staged_fused_bf16, __nv_bfloat16, false)

@@ -41,17 +41,15 @@ _WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _P, _I, _P, _P), _I)
 _SEGMENT_WARP_SIG = ((_P, _I64, _I64, _I64, _I, _I, _I, _P, _I, _I, _P, _P),
                      _I)
 
-# (x, out, packed weights, batch, c, h, w, layers, tile, route, stream)
-# -> cudaError_t, the f32 fused residual-block kernel's entry point
-_BLOCK_SIG = ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I)
-
 # (x, out, packed weights, batch, c, h, w, layers, tile, stream) ->
-# cudaError_t, the bf16 fused residual-block kernel's entry point
-_BLOCK_BF16_SIG = ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
+# cudaError_t, the entry points of the f32 and the bf16 fused
+# residual-block kernels
+_BLOCK_SIG = ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
 
-# (planes, batch, h, w, xs, ys, groups, gh, gw, rt, cw, cap, out, stream)
-# -> cudaError_t, the entry points of the staged strip warp
-_STAGED_SIG = ((_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P), _I)
+# (planes, batch, h, w, xs, ys, groups, gh, gw, rt, cw, cap, out, stats,
+#  stream) -> cudaError_t, the entry points of the staged strip warp
+_STAGED_SIG = ((_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+               _I)
 
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
@@ -59,8 +57,9 @@ SIGNATURES = {
     "warp_bilinear": {"warp_bilinear": _SEGMENT_WARP_SIG},
     "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
                              "warp_bilinear_strips_f32": _WARP_SIG},
-    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG},
-    "fused_dw_pw_block_bf16": {"fused_dw_pw_block_bf16": _BLOCK_BF16_SIG},
+    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG,
+                          "fused_dw_pw_block_f32_fma_probe": _BLOCK_SIG},
+    "fused_dw_pw_block_bf16": {"fused_dw_pw_block_bf16": _BLOCK_SIG},
     "warp_strips_staged": {f"warp_strips_staged_{copies}_{t}": _STAGED_SIG
                            for copies in ("fused", "split")
                            for t in ("bf16", "f32")},

@@ -44,11 +44,6 @@ LAUNCHES = 0        # fused_dw_pw_block.cu (f32)
 BF16_LAUNCHES = 0   # fused_dw_pw_block_bf16.cu
 
 SMEM_LIMIT = 232448      # opt-in shared memory per block on an H100
-# The f32 kernel's two designs of the 1x1 (its `route` argument):
-# split TF32 on the tensor cores, or register-blocked FMAs.
-# chip_smoke.py's probe times both; F32_ROUTE is the one the path takes.
-F32_ROUTES = {"tf32x3": 0, "fma": 1}
-F32_ROUTE = "tf32x3"
 # The f32 kernel's time model (f32_cost): one CTA's seconds per
 # pixel-channel it computes and per pixel-channel it stages or writes
 # back (as the bf16 kernel's below), per weight it fetches for a layer,
@@ -354,7 +349,7 @@ def tf32_split(v):
 
 
 def fused_blocks_tf32x3(x, wd, bd, wp, bp):
-    """CPU emulation of the f32 kernel's route "tf32x3" on f32 x: the
+    """CPU emulation of the f32 kernel's split-TF32 1x1 on f32 x: the
     plain version with each 1x1 as the kernel computes it, lo(y) hi(w) +
     hi(y) lo(w) + hi(y) hi(w) (``tf32_split``; each product exact in f32)
     summed in f32.  It runs on no path."""
@@ -370,19 +365,14 @@ def fused_blocks_tf32x3(x, wd, bd, wp, bp):
     return x
 
 
-def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None, route=None):
+def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
     """The run on x [B, C, H, W] (f32 or bf16): the CUDA kernel of its
     type for a CUDA tensor, ``fused_blocks_plain`` for a CPU tensor.
     ``tiling`` ((tile, layers of each launch)) overrides ``plan``;
     ``weights`` is ``kernel_weights(wd, bd, wp, bp, x.dtype)`` made once
-    by the caller (made here when None); ``route`` (a key of
-    ``F32_ROUTES``, for measuring) overrides the f32 kernel's
-    ``F32_ROUTE``."""
+    by the caller (made here when None)."""
     global LAUNCHES, BF16_LAUNCHES
     _check(x, wd, bd, wp, bp)
-    if route is not None and route not in F32_ROUTES:
-        raise ValueError(f"route must be one of {sorted(F32_ROUTES)}, got "
-                         f"{route!r}")
     if x.device.type == "cpu":
         return fused_blocks_plain(x, wd, bd, wp, bp)
     if x.device.type != "cuda":
@@ -393,7 +383,6 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None, route=None):
     if c not in CHANNELS:
         raise ValueError(f"the kernels are built for C in {CHANNELS}, got "
                          f"C={c}")
-    route = F32_ROUTES[route or F32_ROUTE]
     if b > 65535:
         raise ValueError(f"batch {b} > 65535")
     tile, chunks = tiling or plan(c, h, w, layers, x.element_size())
@@ -422,14 +411,11 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None, route=None):
     (packed,) = weights
     for k in chunks:
         out = torch.empty_like(x)
+        _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
+                      packed[first].data_ptr(), b, c, h, w, k, tile)
         if bf16:
-            _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
-                          packed[first].data_ptr(), b, c, h, w, k, tile)
             BF16_LAUNCHES += 1
         else:
-            _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
-                          packed[first].data_ptr(), b, c, h, w, k, tile,
-                          route)
             LAUNCHES += 1
         x = out
         first += k

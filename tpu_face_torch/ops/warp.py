@@ -52,18 +52,15 @@ MAX_SEGMENTS = 4      # grids per launch of warp_bilinear.cu
 FLAT_WIDTH = 16
 
 # Shared memory of one of the staged kernel's two window buffers (all
-# three channels): two buffers of 12 KiB leave room for nine CTAs per SM
-# on an H100, whose copies in flight hide each other's latency (more CTAs
-# paid more than larger windows: PERF.md), and hold a block's bf16 window
-# at up to ~2.5x downsampling.  A block whose window does not fit reads
-# the rest of its taps from global memory.
+# three channels): 12 KiB holds a block's bf16 window at up to ~2.5x
+# downsampling and keeps the CTA small, so that many CTAs' copies are in
+# flight on an SM (the fastest of the geometries chip_smoke.py --sweep
+# times: PERF.md).  A block whose window does not fit reads the rest of
+# its taps from global memory.
 STAGE_BYTES = 12 * 1024
 # (rt, cw): output rows and columns of one block of the staged kernel,
 # one thread per output pixel
 STAGED_BLOCK = (8, 16)
-# The staged kernel's static shared memory beside its two buffers: a
-# window record (five ints) and three mbarriers (8 bytes) per buffer.
-STAGED_STATIC_BYTES = 2 * (5 * 4 + 3 * 8)
 
 XWIN = 128            # the TPU kernel's x-window (lanes)
 XLOAD = 2 * XWIN      # its aligned strip load width
@@ -288,26 +285,27 @@ def staged_cap(itemsize: int) -> int:
     return STAGE_BYTES // (3 * itemsize) // unit * unit
 
 
-def row_copy(start: int, cols: int, itemsize: int):
-    """(shift, bytes) of the staged kernel's bulk copy of one window row:
-    ``cols`` elements from element ``start`` of 16-byte aligned planes,
-    copied from the 16-byte boundary at or before it (``shift`` elements
-    earlier) to the one at or after its end (ints or integer tensors)."""
-    unit = 16 // itemsize
-    shift = start % unit
-    return shift, -(-(shift + cols) // unit) * 16
-
-
-def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
+def warp_bilinear_strips_staged(planes, xs, ys, copies="fused",
+                                stats=None):
     """Samples [B, 3, P] of bf16 or f32 planes [B, 3, H, W] at xs/ys
     [B, ..., Ho, Wo] (the grids of each frame, all of one size; P their
     pixels in order): the staged kernel for CUDA tensors,
     ``warp_bilinear_strips_plain`` for CPU tensors.  ``copies`` is
     "fused" (one copy of the three channels' window per block) or
-    "split" (one per channel)."""
+    "split" (one per channel).  ``stats``, an int64 [2] tensor on the
+    planes' device, takes the kernel's counts: it adds the bytes its
+    windows' copies moved and the blocks whose window did not hold all
+    their taps (the plain version stages nothing and leaves it alone)."""
     if copies not in STAGED_LAUNCHES:
         raise ValueError(f"copies must be one of {sorted(STAGED_LAUNCHES)}, "
                          f"got {copies!r}")
+    if stats is not None and (stats.dtype != torch.int64
+                              or tuple(stats.shape) != (2,)
+                              or not stats.is_contiguous()
+                              or stats.device != planes.device):
+        raise ValueError(f"stats must be a contiguous int64 [2] tensor on "
+                         f"{planes.device}, got {stats.dtype} "
+                         f"{tuple(stats.shape)} on {stats.device}")
     if xs.dim() < 3:
         raise ValueError(f"xs/ys must be [B, ..., Ho, Wo] grids, got "
                          f"{tuple(xs.shape)}")
@@ -344,7 +342,8 @@ def warp_bilinear_strips_staged(planes, xs, ys, copies="fused"):
     _build.launch(_build.entry("warp_strips_staged",
                                f"warp_strips_staged_{copies}_{name}"),
                   planes.get_device(), planes.data_ptr(), b, h, w, xs.data_ptr(),
-                  ys.data_ptr(), groups, gh, gw, rt, cw, cap, out.data_ptr())
+                  ys.data_ptr(), groups, gh, gw, rt, cw, cap, out.data_ptr(),
+                  None if stats is None else stats.data_ptr())
     STAGED_LAUNCHES[copies] += 1
     return out
 
