@@ -84,7 +84,36 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               warp_bilinear_strips over f32 planes; then the chain with
               bf16 nets on the rotated frames (ground truth, and the CPU
               port within the BF16_* tolerances);
-6. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
+6. full_detectors -- the counts set to 0 before and read after:
+              FaceDetection(FULL) and FaceDetection(FULL_SPARSE) on the
+              seven rotated frames and canvas (c) (one warp_bilinear
+              launch per call but on the portraits, which take the
+              two-stage letterbox; no fused launch: the full-range nets'
+              bottleneck blocks are no run), FaceCascade(FULL) on the four
+              540p frames and FaceCascade(FULL_SPARSE, max_faces=4) on
+              canvas (c) (2 warp_bilinear launches each), every face valid,
+              against the CPU port (0.25 px / 1e-3) and, for FULL's
+              cascade, the nose and irises within 2 px of the ground
+              truth;
+7. mxu     -- warp_method="mxu" (the banded hat-weight matmuls, plain
+              torch): the standalone chain on the rotated frames but the
+              close-up (its mesh ROI overflows the band, in JAX too) and
+              the cascade on the 540p frames, against the CPU port; no
+              warp kernel launched, only the BACK detector's fused ones;
+8. tracker -- FaceTracker() with the published nets: 8 streams of a
+              five-step rotated 540p sequence (stream 2 blanked at step
+              2), then 2 streams of canvas (a) at 1920x1080 over three
+              steps, every step's launches checked (the first step the
+              full cascade; a locked step 2 warp launches, warp_bilinear
+              or at 1080p warp_bilinear_strips, and no fused launch: the
+              detector does not run; a repair step 4 warp launches and
+              the fused launches of the one-stream repair cascade), each
+              step against the port's CPU tracker entered with the card's
+              state (0.25 px / 1e-3, equal lock states); then locked
+              steps/s of 64 streams beside the cascade's frames/s on the
+              same frames and the step's stages timed without its two
+              host reads (printed, no limit);
+9. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
@@ -92,7 +121,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               turns against one bound, the bytes the staged windows copied
               (counted by the kernel) printed beside those the gather's
               bound counts;
-7. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+10. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
               and with bf16 nets; faces/s of canvas (c) at batch 32 with
@@ -158,6 +187,10 @@ BLOCK_TOL_F32 = 1e-4            # fused block, x max(1, max|plain|)
 BLOCK_TOL_BF16 = 2e-2           # bf16 BACK net, fused vs op by op, x max(1, max)
 CPU_PX_TOL = 0.25               # landmarks, GPU vs CPU port, pixels
 CPU_SCORE_TOL = 1e-3
+# FULL's cascade: nose and irises against the ground truth rows (taken
+# with the BACK detector's ROIs), the budget tests/test_rotation_e2e.py
+# gives the tracked mesh and iris
+FULL_GT_PX = 2.0
 # bf16 nets, GPU vs CPU port: cuDNN and the CPU's convolutions round their
 # bf16 outputs at other places (the detector's residual runs, on K4 on
 # the card, round where the CPU's per-op sequence rounds).  The
@@ -1301,6 +1334,259 @@ def phase_models(dtype=torch.float32):
     return launches
 
 
+def compare_detections(res, ref, size):
+    """Card detections vs the CPU port's (lists of ``Detection``): the
+    same count, points within CPU_PX_TOL, scores within CPU_SCORE_TOL;
+    returns (worst px, worst score difference)."""
+    w, h = size
+    assert len(res) == len(ref) >= 1, (len(res), len(ref))
+    px = sc = 0.0
+    for a, b in zip(res, ref):
+        px = max(px, float((np.abs(a.data - b.data)
+                            * np.array([w, h], np.float32)).max()))
+        sc = max(sc, abs(a.score - b.score))
+    assert px <= CPU_PX_TOL and sc <= CPU_SCORE_TOL, (px, sc)
+    return px, sc
+
+
+def check_gt_points(res, i, gt, budget=FULL_GT_PX):
+    """The nose and both iris centres of frame ``i`` of a cascade result
+    against a ground-truth row, within ``budget`` px; returns the worst."""
+    w, h = gt["size"]
+    mesh = res.mesh[i].cpu().numpy()
+    iris = res.iris[i].cpu().numpy()
+    pts = [((mesh[1, 0] * w, mesh[1, 1] * h), gt["nose"]),
+           ((iris[0, 0, 0] * w, iris[0, 0, 1] * h), gt["iris"]["L"]),
+           ((iris[1, 0, 0] * w, iris[1, 0, 1] * h), gt["iris"]["R"])]
+    worst = max(max(abs(p[0] - g[0]), abs(p[1] - g[1])) for p, g in pts)
+    assert worst <= budget, (pts, worst)
+    return worst
+
+
+def phase_full_detectors():
+    """The full-range detectors on the card: FaceDetection(FULL) and
+    FaceDetection(FULL_SPARSE) on the rotated frames and canvas (c), then
+    FaceCascade(FULL) on the 540p rotated batch and
+    FaceCascade(FULL_SPARSE, max_faces=4) on canvas (c), the counts set to
+    0 before and read after: the detectors run op by op (no fused launch),
+    each whole-frame detection warp and each cascade warp stage is one
+    warp_bilinear launch.  Each against the port's CPU result (f32
+    tolerances), the FULL cascade's nose and irises against the ground
+    truth within FULL_GT_PX; returns the launches."""
+    phase("full_detectors")
+    full = tmodels.FaceDetectionModel.FULL
+    sparse = tmodels.FaceDetectionModel.FULL_SPARSE
+    frames = {name: load_image(ROT / name) for name in GT}
+    frames["canvas (c)"] = canvas_grid(load_image)
+    batch = np.stack([frames[n] for n in FRAMES_540])
+    card = {m: tmodels.FaceDetection(m) for m in (full, sparse)}
+    cascades = {"FULL": (full, 1, batch),
+                "FULL_SPARSE K=4": (sparse, 4, frames["canvas (c)"][None])}
+    for m, det in card.items():
+        assert det._net.runs == [], m
+    reset_counts()
+    found = {}
+    for m, det in card.items():
+        for name, img in frames.items():
+            size = (img.shape[1], img.shape[0])
+            # the whole-frame warp is K1 unless the geometry takes the
+            # exact two-stage letterbox (the 200x225 portraits)
+            warps = int(image_ops.letterbox_two_stage_params(
+                size, (det.in_w, det.in_h)) is None)
+            found[m, name], n = counted(lambda: det.infer(img))
+            assert n == only(warp_bilinear=warps), (m, name, n)
+    cards = {label: FaceCascade(m, max_faces=k)
+             for label, (m, k, _) in cascades.items()}
+    results = {}
+    for label, (_, _, images) in cascades.items():
+        results[label] = run_cascade(cards[label], images,
+                                     only(warp_bilinear=2))
+    launches = launch_counts()
+    print(f"launches of the full-range detectors: {launches} for "
+          f"{len(card) * len(frames)} FaceDetection.infer calls and "
+          f"{len(cascades)} cascade calls (2 warp_bilinear each, no fused "
+          f"block: the nets' bottleneck blocks are no run)", flush=True)
+    for m in card:
+        cpu = tmodels.FaceDetection(m, device="cpu")
+        worst = [0.0, 0.0]
+        for name, img in frames.items():
+            px, sc = compare_detections(found[m, name], cpu.infer(img),
+                                        (img.shape[1], img.shape[0]))
+            worst = [max(worst[0], px), max(worst[1], sc)]
+        assert len(found[m, "canvas (c)"]) == 4
+        print(f"FaceDetection({m.name}) on {len(frames)} frames: GPU vs "
+              f"CPU port {worst[0]:.4f} px, scores {worst[1]:.2e}")
+    for label, (m, k, images) in cascades.items():
+        res = results[label]
+        assert bool(res.mesh_valid.all()), (label, res.mesh_valid)
+        size = (images.shape[2], images.shape[1])
+        ref = FaceCascade(m, device="cpu", max_faces=k).infer_batch(images)
+        px, sc = check_against_cpu(res, ref, size)
+        print(f"FaceCascade({label}) {size[0]}x{size[1]} "
+              f"B={images.shape[0]}: GPU vs CPU port {px:.4f} px, scores "
+              f"{sc:.2e}", flush=True)
+    worst = max(check_gt_points(results["FULL"], i, GT[name])
+                for i, name in enumerate(FRAMES_540))
+    print(f"FaceCascade(FULL) 540p: nose and irises within {worst:.3f} px "
+          f"of the ground truth (budget {FULL_GT_PX})", flush=True)
+    return launches
+
+
+def phase_mxu():
+    """warp_method="mxu" on the card: the standalone chain (BACK) on the
+    rotated frames but the close-up (whose 350-px mesh ROI at 0.55 rad
+    overflows auto_band's 56 rows: mxu_sample clamps to the band, in JAX
+    too, and the mesh's presence drops to ~2e-4) and FaceCascade on the
+    540p rotated batch, each against
+    the port's CPU result (f32 tolerances), the counts set to 0 before and
+    read after: no warp kernel (mxu_sample is plain torch), the BACK
+    detector's fused launches only; returns the launches."""
+    phase("mxu")
+    back = tmodels.FaceDetectionModel.BACK_CAMERA
+    card = (tmodels.FaceDetection(back, warp_method="mxu"),
+            tmodels.FaceLandmark(warp_method="mxu"),
+            tmodels.IrisLandmark(warp_method="mxu"))
+    cascade = FaceCascade(warp_method="mxu")
+    fused = card[0]._net.fused_launches()
+    frames = {name: load_image(ROT / name) for name in GT
+              if name != "man_closeup_rotp30.png"}
+    batch = np.stack([frames[n] for n in FRAMES_540])
+    reset_counts()
+    chains = {}
+    for name, img in frames.items():
+        chains[name], n = counted(lambda: chain(card, img, GT[name]["size"]))
+        assert n == only(fused_dw_pw_block_f32=fused), (name, n)
+    res = run_cascade(cascade, batch, only(fused_dw_pw_block_f32=fused))
+    launches = launch_counts()
+    print(f"launches of the mxu paths: {launches} for {len(frames)} "
+          f"standalone chains and one cascade call", flush=True)
+    cpu = (tmodels.FaceDetection(back, warp_method="mxu", device="cpu"),
+           tmodels.FaceLandmark(warp_method="mxu", device="cpu"),
+           tmodels.IrisLandmark(warp_method="mxu", device="cpu"))
+    worst = [0.0, 0.0]
+    for name, img in frames.items():
+        size = GT[name]["size"]
+        px, sc = compare_chains(chains[name], chain(cpu, img, size), size)
+        worst = [max(worst[0], px), max(worst[1], sc)]
+    print(f"mxu standalone chain on {len(frames)} frames: GPU vs CPU port "
+          f"{worst[0]:.4f} px, scores {worst[1]:.2e}")
+    px, sc = check_against_cpu(res, FaceCascade(
+        warp_method="mxu", device="cpu").infer_batch(batch), (540, 360))
+    print(f"mxu cascade 540x360 B=4: GPU vs CPU port {px:.4f} px, scores "
+          f"{sc:.2e}", flush=True)
+    return launches
+
+
+TRACK_SEQ = ["man_rotm30.png", "man_rotm15.png", "man_rotp15.png",
+             "man_rotp30.png", "man_rotp15.png"]
+
+
+def tracker_frames(frames, step, streams, blank=()):
+    """Step ``step`` of the tracker's 540p sequence for ``streams``
+    streams, stream s shifted 4*s px right, the streams in ``blank``
+    black."""
+    out = []
+    for s in range(streams):
+        f = np.roll(frames[TRACK_SEQ[step]], 4 * s, axis=1)
+        out.append(np.zeros_like(f) if s in blank else f)
+    return np.stack(out)
+
+
+def run_tracker(card, cpu, steps, size):
+    """Each ``(frames, launches)`` of ``steps`` through the card's tracker,
+    checked for its launches, and through the CPU port's tracker entered
+    with the card's state: the results within the f32 tolerances, the
+    lock states equal.  Returns the worst (px, score) differences."""
+    worst = [0.0, 0.0]
+    for i, (frames, want) in enumerate(steps):
+        if card._state is not None:
+            cpu._state = type(card._state)(*(t.cpu() for t in card._state))
+        res, n = counted(lambda: card.step(frames))
+        assert n == want, (i, n, want)
+        ref = cpu.step(frames)
+        assert (card.tracking == cpu.tracking).all(), i
+        px, sc = check_against_cpu(res, ref, size)
+        worst = [max(worst[0], px), max(worst[1], sc)]
+    return worst
+
+
+def phase_tracker():
+    """FaceTracker() (BACK, f32) on the card, the counts set to 0 before
+    and read after: 8 streams of the rotated 540p sequence (TRACK_SEQ),
+    stream 2 blanked at step 2; then 2 streams of canvas (a) at 1920x1080
+    over three steps.  Every step's launches are checked: the full path
+    (the first step) 2 warp launches and the detector's fused launches, a
+    locked step 2 warp launches and no fused launch (the detector does
+    not run), a repair step 4 warp launches (the tracked stages and the
+    one-stream repair cascade) and the fused launches of the sub-batch's
+    detector; at 1080p the warps are warp_bilinear_strips.  Each step
+    against the port's CPU tracker entered with the card's state.  Then
+    locked steps/s of 64 streams against FaceCascade's frames/s on the
+    same frames.  Returns (launches, numbers)."""
+    phase("tracker")
+    frames = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
+    card = tracking.FaceTracker()
+    fused = card.cascade._det_net.fused_launches()
+    full = only(warp_bilinear=2, fused_dw_pw_block_f32=fused)
+    locked = only(warp_bilinear=2)
+    repair = only(warp_bilinear=4, fused_dw_pw_block_f32=fused)
+    steps = [(tracker_frames(frames, i, 8, (2,) if i == 2 else ()), want)
+             for i, want in enumerate((full, locked, repair, repair,
+                                       locked))]
+    canvas = canvas_1080p(load_image)
+    hires = [(np.stack([np.roll(canvas, 8 * i + 4 * s, axis=1)
+                        for s in range(2)]), want)
+             for i, want in enumerate((
+                 only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused),
+                 only(warp_bilinear_strips=2),
+                 only(warp_bilinear_strips=2)))]
+    cards = (card, tracking.FaceTracker())
+    reset_counts()
+    cpu = tracking.FaceTracker(device="cpu")
+    worst = run_tracker(card, cpu, steps, (540, 360))
+    print(f"tracker 540x360 8 streams, 5 steps (full, locked, repair, "
+          f"repair, locked): GPU vs CPU port {worst[0]:.4f} px, scores "
+          f"{worst[1]:.2e}", flush=True)
+    worst = run_tracker(cards[1], tracking.FaceTracker(device="cpu"), hires,
+                        (1920, 1080))
+    print(f"tracker 1920x1080 2 streams, 3 steps (full, locked, locked; "
+          f"warp_bilinear_strips): GPU vs CPU port {worst[0]:.4f} px, "
+          f"scores {worst[1]:.2e}", flush=True)
+    launches = launch_counts()
+    print(f"launches of the tracker: {launches}", flush=True)
+
+    # locked steps of 64 streams against the cascade on the same frames
+    b = BATCH["track"]
+    batch = torch.from_numpy(np.tile(np.stack([frames[n] for n in
+                                               FRAMES_540]),
+                                     (b // 4, 1, 1, 1))).cuda()
+    timed = tracking.FaceTracker()
+    timed.step(batch)
+    _, n = counted(lambda: timed.step(batch))
+    assert n == locked and timed.tracking.all(), n
+    step_ms, windows = median_ms(lambda: timed.step(batch), reps=10)
+    assert timed.tracking.all()
+    cascade_ms, _ = median_ms(lambda: timed.cascade(batch), reps=10)
+    # the same step's stages and next ROIs without its two host reads
+    roi, valid = timed._state
+    with torch.inference_mode(), exact_f32():
+        stages_ms, _ = median_ms(lambda: tracking.roi_from_mesh(
+            timed._tracked(batch, roi, valid, (540, 360)).mesh,
+            (540, 360)), reps=10)
+    numbers = {f"tracker_locked_b{b}": {
+        "steps_per_s": 1e3 / step_ms, "frames_per_s": b * 1e3 / step_ms,
+        "ms_per_step": step_ms, "windows_ms": windows,
+        "stages_ms_without_host_reads": stages_ms,
+        "cascade_frames_per_s": b * 1e3 / cascade_ms,
+        "cascade_ms_per_batch": cascade_ms}}
+    print(f"tracker locked steps at 540x360, {b} streams: "
+          f"{1e3 / step_ms:.1f} steps/s ({b * 1e3 / step_ms:.1f} frames/s; "
+          f"the stages without the step's two host reads "
+          f"{stages_ms:.3f} ms) against the cascade's "
+          f"{b * 1e3 / cascade_ms:.1f} frames/s", flush=True)
+    return launches, numbers
+
+
 def strip_warp_calls(planes, calls):
     """The gather strip kernel and both staged variants over ``calls``
     (a list of one warp call's grids each), as {label: a function that
@@ -1666,7 +1952,7 @@ def phase_numbers(rng, trace, sweep=False):
 
 # batch sizes of the kernel, strip_dma and numbers phases
 BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
-         "fused": 64, "k3": 256, "strip_dma": 64}
+         "fused": 64, "k3": 256, "strip_dma": 64, "track": 64}
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
            "fused_dw_pw_block_bf16", "warp_strips_staged")
@@ -1692,7 +1978,7 @@ def main(argv=None):
     # repository is on sys.path (the helpers above use them)
     global _build, image_ops, warp, fused_block, FaceCascade, exact_f32
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
-    global resolve_device
+    global resolve_device, tracking
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", type=Path, metavar="DIR",
                         help="profile three cascade calls per frame size "
@@ -1707,7 +1993,7 @@ def main(argv=None):
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
-    from tpu_face_torch import resolve_device
+    from tpu_face_torch import resolve_device, tracking
     from tpu_face_torch.compiler import Graph, build_torch_fn
     from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
     from tpu_face_torch.ops import _build, fused_block
@@ -1735,7 +2021,11 @@ def main(argv=None):
              "cascade_bf16": phase_cascade(torch.bfloat16),
              "cascade_gather": phase_cascade_gather()}
     models = {"f32": phase_models(), "bf16": phase_models(torch.bfloat16)}
+    paths["full_detectors"] = phase_full_detectors()
+    paths["mxu"] = phase_mxu()
+    paths["tracker"], tracker_numbers = phase_tracker()
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
+    numbers.update(tracker_numbers)
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
@@ -1746,6 +2036,12 @@ def main(argv=None):
     for name in ("warp_bilinear", "warp_bilinear_strips",
                  "fused_dw_pw_block_f32"):
         assert models["f32"][name] > 0, (name, models["f32"])
+        assert paths["tracker"][name] > 0, (name, paths["tracker"])
+    # the full-range nets have no fused run; mxu launches no warp kernel
+    assert paths["full_detectors"] == only(
+        warp_bilinear=paths["full_detectors"]["warp_bilinear"]), paths
+    assert paths["mxu"] == only(
+        fused_dw_pw_block_f32=paths["mxu"]["fused_dw_pw_block_f32"]), paths
     numbers["path_launches"] = paths
     numbers["models_launches"] = models
     numbers["device"] = smi

@@ -7,8 +7,9 @@
   and "pallas" give its result bit for bit on the CPU, and "gather"
   matches ``tpu_face``'s ``FaceCascade(warp_method="gather")`` within
   0.25 px / 1e-3 rad / 1e-3 (tests/test_torch_cascade.py's rules).
-* "mxu" (not ported) raises ``NotImplementedError``; an unknown method,
-  and "separable" (the cascade's ROIs rotate), raise ``ValueError``.
+* An unknown method (also "MXU": the names are case-sensitive), and
+  "separable" (the cascade's ROIs rotate), raise ``ValueError``; "mxu"
+  is ported (tests/test_torch_mxu_sample.py holds it against JAX).
 """
 
 import inspect
@@ -81,7 +82,7 @@ def test_gather_matches_jax_gather(frame, gather_result):
     _compare(gather_result, ref, (540, 360))
 
 
-@pytest.mark.parametrize("method,error", [("mxu", NotImplementedError),
+@pytest.mark.parametrize("method,error", [("MXU", ValueError),
                                           ("bogus", ValueError),
                                           ("separable", ValueError)])
 def test_unported_or_unknown_methods_raise(method, error):

@@ -52,7 +52,9 @@ def test_port_covers_the_slice():
             "tpu_face_torch/models/face_landmark.py",
             "tpu_face_torch/models/iris_landmark.py",
             "tpu_face_torch/utils/image_io.py",
-            "tpu_face_torch/pipeline.py"}
+            "tpu_face_torch/pipeline.py",
+            "tpu_face_torch/tracking.py",
+            "tpu_face_torch/smoothing.py"}
     assert want <= set(FILES)
     for kernel in ("warp_bilinear", "warp_bilinear_strips",
                    "fused_dw_pw_block", "fused_dw_pw_block_bf16",

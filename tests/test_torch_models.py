@@ -233,9 +233,6 @@ def test_front_and_short_match_jax(model):
 
 
 def test_unported_options_raise():
-    for model in ("FULL", "FULL_SPARSE"):
-        with pytest.raises(NotImplementedError):
-            tm.FaceDetection(tm.FaceDetectionModel[model], device="cpu")
     # bf16 nets construct and run (held against JAX in
     # tests/test_torch_bf16.py); other dtypes raise
     img = load_image(ROT / "man_rotp15.png")
@@ -246,8 +243,10 @@ def test_unported_options_raise():
     assert presence.shape == (1,)
     with pytest.raises(NotImplementedError):
         tm.FaceLandmark(compute_dtype=torch.float16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.IrisLandmark(warp_method="mxu", device="cpu")
+    # "mxu" is ported (tests/test_torch_mxu_sample.py); an unknown method
+    # raises
+    with pytest.raises(ValueError):
+        tm.IrisLandmark(warp_method="bogus", device="cpu")
     with pytest.raises(ValueError):
         tm.FaceLandmark(warp_method="bicubic", device="cpu")
 

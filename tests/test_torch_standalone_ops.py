@@ -25,12 +25,12 @@ def test_warp_methods_resolve():
     assert timage.resolve_warp_method("auto", "cpu") == "gather"
     assert timage.resolve_warp_method("auto", "cuda") == "pallas"
     assert timage.resolve_warp_method("auto") == "pallas"
-    for m in ("gather", "pallas", "separable"):
+    for m in ("gather", "pallas", "mxu", "separable"):
         assert timage.resolve_warp_method(m, "cpu") == m
         assert timage.choose_warp_method(m, np.zeros(5), (640, 480),
                                          (192, 192), False) == m
-    with pytest.raises(NotImplementedError):
-        timage.choose_warp_method("mxu", np.zeros(5), (640, 480),
+    with pytest.raises(ValueError):
+        timage.choose_warp_method("bogus", np.zeros(5), (640, 480),
                                   (192, 192), False)
 
 

@@ -1,9 +1,14 @@
 """tpu_face_torch: the PyTorch/CUDA port of tpu_face.
 
 ``tpu_face_torch.pipeline.FaceCascade`` runs detect -> face ROI -> mesh ->
-both irises on one CUDA card; ``tpu_face_torch.models`` has the standalone
-``FaceDetection``, ``FaceLandmark`` and ``IrisLandmark``, each with f32
-or bf16 nets (``compute_dtype``).  The kernels are hand-written CUDA
+both irises on one CUDA card, with any of the five detectors;
+``tpu_face_torch.tracking`` runs it over video (``FaceTracker``,
+``MultiFaceTracker``: the detector only when a stream loses its lock),
+with optional OneEuro smoothing (``tpu_face_torch.smoothing``);
+``tpu_face_torch.models`` has the standalone ``FaceDetection``,
+``FaceLandmark`` and ``IrisLandmark``, each with f32 or bf16 nets
+(``compute_dtype``); ``tpu_face_torch.compiler`` lowers the TFLite graphs
+(``load_model_fn``, ``graph_flops``).  The kernels are hand-written CUDA
 (``csrc/``): the rotated bilinear ROI warp (``warp_bilinear.cu``,
 ``warp_bilinear_strips.cu``, and its shared-memory staged variants
 ``warp_strips_staged.cu``) and the detectors' fused residual blocks

@@ -1,9 +1,12 @@
 """Lower a converted TFLite graph (npz) to a batched PyTorch module.
 
-Counterpart of tpu_face/compiler/lowering.py for the nine ops the
-BACK, FRONT and SHORT detectors and the mesh and iris nets use: CONV_2D,
-DEPTHWISE_CONV_2D, ADD, RELU, PRELU, MAX_POOL_2D, PAD, RESHAPE and
-CONCATENATION.  Any other op raises ``NotImplementedError``.
+Counterpart of tpu_face/compiler/lowering.py for the eleven ops the
+five detectors and the mesh and iris nets use: CONV_2D,
+DEPTHWISE_CONV_2D, ADD, RELU, PRELU, MAX_POOL_2D, PAD, RESHAPE,
+CONCATENATION, and RESIZE_BILINEAR and DEPTH_TO_SPACE (the full-range
+detectors' feature pyramid).  Any other op raises
+``NotImplementedError``.  ``graph_flops``, ``load_model_fn`` and
+``Graph(collapse_separable=...)`` are the JAX module's too.
 
 The graphs are NHWC; the module's body runs NCHW (cuDNN's native
 layout) and keeps the graph's NHWC semantics at its edges: input and
@@ -35,16 +38,25 @@ from torch import nn
 from ..ops import fused_block
 
 _SUPPORTED = ("CONV_2D", "DEPTHWISE_CONV_2D", "ADD", "RELU", "PRELU",
-              "MAX_POOL_2D", "PAD", "RESHAPE", "CONCATENATION")
+              "MAX_POOL_2D", "PAD", "RESHAPE", "CONCATENATION",
+              "RESIZE_BILINEAR", "DEPTH_TO_SPACE")
 
 # NHWC axis -> NCHW axis
 _TO_NCHW_AXIS = {0: 0, 1: 2, 2: 3, 3: 1}
 
 
 class Graph:
-    """A converted TFLite graph: op list + constant pool (numpy)."""
+    """A converted TFLite graph: op list + constant pool (numpy).
 
-    def __init__(self, npz_path):
+    ``collapse_separable`` folds DEPTHWISE(linear) -> CONV(1x1) pairs
+    into one dense conv (``_collapse_separable_pairs``): False (off),
+    True (every eligible pair), or a predicate ``f(ci, co, h_out) ->
+    bool`` selecting pairs.  It runs after the PAD folding, as in JAX, and
+    before ``TFLiteNet`` looks for residual runs: a collapsed pair has no
+    depthwise left, so its block is no longer a run for the fused kernel
+    (a fully collapsed BACK graph has none and runs op by op)."""
+
+    def __init__(self, npz_path, collapse_separable=False):
         payload = np.load(npz_path, allow_pickle=False)
         meta = json.loads(str(payload["__graph__"]))
         self.inputs = meta["inputs"]
@@ -54,6 +66,12 @@ class Graph:
                        if k.startswith("t")}
         self.ops = _fold_pads_into_convs(meta["ops"], self.consts,
                                          set(self.outputs))
+        if collapse_separable:
+            pred = (collapse_separable if callable(collapse_separable)
+                    else None)
+            self.ops = _collapse_separable_pairs(
+                self.ops, self.consts, self.tensors, set(self.outputs),
+                pred)
 
     @property
     def input_shape(self):
@@ -98,6 +116,115 @@ def _fold_pads_into_convs(ops, consts, graph_outputs):
             continue
         folded.append(node)
     return folded
+
+
+def _collapse_separable_pairs(ops, consts, tensors, graph_outputs, pred):
+    """Fold linear DEPTHWISE_CONV -> 1x1 CONV pairs into one dense conv
+    (copy of the JAX module's).  The depthwise stage has no activation,
+    so the pair composes exactly:
+
+        K_dense[o, kh, kw, i] = PW[o, 0, 0, i] * DW[0, kh, kw, i]
+        b_dense = PW[:, 0, 0, :] @ b_dw + b_pw
+
+    Eligible: a depthwise with depth multiplier 1, activation NONE and
+    dilation 1 whose output feeds exactly one later 1x1 CONV_2D (stride
+    1, dilation 1) and is no graph output; ``pred(ci, co, h_out)``, if
+    given, selects among them.  The product is formed in f64 and stored
+    f32; the new constants get fresh tensor ids, appended to ``tensors``
+    and ``consts``."""
+    consumers = {}
+    for idx, node in enumerate(ops):
+        for t in node["inputs"]:
+            consumers.setdefault(t, []).append(idx)
+
+    def weights(node):
+        ins = node["inputs"]
+        b = consts[ins[2]] if len(ins) > 2 and ins[2] in consts else None
+        return consts[ins[1]], b
+
+    next_id = len(tensors)
+    out = []
+    skip = set()
+    for idx, node in enumerate(ops):
+        if idx in skip:
+            continue
+        if node["op"] != "DEPTHWISE_CONV_2D":
+            out.append(node)
+            continue
+        o = node["options"]
+        dw_out = node["outputs"][0]
+        cons = consumers.get(dw_out, [])
+        ok = (o["activation"] == "NONE"
+              and list(o.get("dilation", [1, 1])) == [1, 1]
+              and o.get("depth_multiplier", 1) == 1
+              and dw_out not in graph_outputs
+              and len(cons) == 1 and cons[0] > idx)
+        nxt = ops[cons[0]] if ok else None
+        if nxt is not None:
+            no = nxt["options"]
+            pw_w = (consts[nxt["inputs"][1]]
+                    if (nxt["op"] == "CONV_2D" and len(nxt["inputs"]) > 1
+                        and nxt["inputs"][1] in consts) else None)
+            ok = (pw_w is not None
+                  and pw_w.shape[1] == 1 and pw_w.shape[2] == 1
+                  and list(no.get("stride", [1, 1])) == [1, 1]
+                  and list(no.get("dilation", [1, 1])) == [1, 1]
+                  and nxt["inputs"][0] == dw_out)
+        if not ok:
+            out.append(node)
+            continue
+        dw_w, dw_b = weights(node)              # [1, kh, kw, C]
+        pw_w, pw_b = weights(nxt)               # [Co, 1, 1, C]
+        ci, co = dw_w.shape[3], pw_w.shape[0]
+        oshape = tensors[nxt["outputs"][0]]["shape"]
+        if pred is not None and not pred(ci, co, oshape[1]):
+            out.append(node)
+            continue
+        dw64 = dw_w.astype(np.float64)
+        pw64 = pw_w.astype(np.float64)
+        k = (pw64 * dw64[0][None]).astype(np.float32)
+        b = pw64[:, 0, 0, :] @ (dw_b.astype(np.float64)
+                                if dw_b is not None else np.zeros(ci))
+        if pw_b is not None:
+            b = b + pw_b.astype(np.float64)
+        b = b.astype(np.float32)
+        w_id, b_id = next_id, next_id + 1
+        next_id += 2
+        consts[w_id], consts[b_id] = k, b
+        tensors.append({"shape": list(k.shape), "name": "sep_w"})
+        tensors.append({"shape": list(b.shape), "name": "sep_b"})
+        out.append({
+            "op": "CONV_2D",
+            "inputs": [node["inputs"][0], w_id, b_id],
+            "outputs": list(nxt["outputs"]),
+            "options": {"stride": list(o["stride"]),
+                        "dilation": [1, 1],
+                        "padding": o["padding"],
+                        "activation": nxt["options"]["activation"]},
+        })
+        skip.add(cons[0])
+    return out
+
+
+def graph_flops(graph, batch: int = 1) -> int:
+    """MAC-based FLOP count (2*MACs) of the conv and matmul ops, as the
+    JAX module counts them."""
+    shapes = {i: t["shape"] for i, t in enumerate(graph.tensors)}
+    total = 0
+    for node in graph.ops:
+        op, ins, outs = node["op"], node["inputs"], node["outputs"]
+        if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            w = graph.consts[ins[1]].shape
+            oshape = shapes[outs[0]]
+            # CONV weight OHWI: O*kh*kw*I MACs per output pixel;
+            # DW weight [1, kh, kw, C]: kh*kw*C
+            per_pix = (w[0] * w[1] * w[2] * w[3] if op == "CONV_2D"
+                       else w[1] * w[2] * w[3])
+            total += 2 * per_pix * oshape[1] * oshape[2]
+        elif op == "FULLY_CONNECTED":
+            w = graph.consts[ins[1]].shape
+            total += 2 * w[0] * w[1]
+    return total * batch
 
 
 def _consumers(ops):
@@ -265,6 +392,51 @@ def _act(x, kind):
 def _prelu(x, alpha):
     """Per-channel PReLU in the JAX package's form, max + alpha*min."""
     return torch.clamp(x, min=0) + alpha * torch.clamp(x, max=0)
+
+
+def _resize_bilinear(x, out_hw, align_corners, half_pixel_centers):
+    """TFLite RESIZE_BILINEAR of NCHW ``x`` to ``out_hw``, in f32 with the
+    JAX module's coordinates and order of operations: row gathers first,
+    then column gathers on the two row sets, edges clamped to the last
+    row/column (not ``F.interpolate``, whose edge rule differs)."""
+    h, w = x.shape[2:]
+    oh, ow = out_hw
+    dev = x.device
+    if half_pixel_centers:
+        ys = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5) * (
+            h / oh) - 0.5
+        xs = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5) * (
+            w / ow) - 0.5
+    elif align_corners and oh > 1 and ow > 1:
+        ys = torch.arange(oh, dtype=torch.float32, device=dev) * (
+            (h - 1) / (oh - 1))
+        xs = torch.arange(ow, dtype=torch.float32, device=dev) * (
+            (w - 1) / (ow - 1))
+    else:
+        ys = torch.arange(oh, dtype=torch.float32, device=dev) * (h / oh)
+        xs = torch.arange(ow, dtype=torch.float32, device=dev) * (w / ow)
+    y0 = torch.floor(ys).clamp(0, h - 1).long()
+    x0 = torch.floor(xs).clamp(0, w - 1).long()
+    y1 = (y0 + 1).clamp(max=h - 1)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    wy = (ys - y0.float()).clamp(0.0, 1.0)[:, None]
+    wx = (xs - x0.float()).clamp(0.0, 1.0)
+    x = x.float()
+    ty0 = x[:, :, y0]
+    ty1 = x[:, :, y1]
+    top = ty0[..., x0] * (1 - wx) + ty0[..., x1] * wx
+    bot = ty1[..., x0] * (1 - wx) + ty1[..., x1] * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _depth_to_space(x, block):
+    """TFLite DEPTH_TO_SPACE of NCHW ``x``: NHWC channel
+    ``(i * block + j) * C' + k`` goes to row offset i, column offset j,
+    channel k, as the JAX module's reshape and transpose order it."""
+    n, c, h, w = x.shape
+    cc = c // (block * block)
+    x = x.reshape(n, block, block, cc, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, cc, h * block, w * block)
 
 
 def _same_pads(size, k, stride, dilation):
@@ -462,6 +634,20 @@ class TFLiteNet(nn.Module):
                 layout_nchw = y.dim() == 4
                 if layout_nchw:
                     y = y.permute(0, 3, 1, 2)
+            elif op in ("RESIZE_BILINEAR", "DEPTH_TO_SPACE"):
+                xin = (env[ins[0]] if ins[0] in nchw
+                       else env[ins[0]].permute(0, 3, 1, 2))
+                layout_nchw = True
+                if op == "DEPTH_TO_SPACE":
+                    y = _depth_to_space(xin, o["block_size"])
+                else:
+                    # f32 arithmetic over (exactly widened) activations;
+                    # JAX promotes a bf16 net's resize to f32 in the same
+                    # way and rounds it to bf16 where the next op reads it
+                    y = _resize_bilinear(
+                        xin, np.asarray(self.consts[ins[1]]).tolist(),
+                        o["align_corners"], o["half_pixel_centers"]
+                    ).to(self.compute_dtype)
             elif op == "CONCATENATION":
                 axis = o["axis"] % env[ins[0]].dim()
                 if layout_nchw:
@@ -485,3 +671,13 @@ def build_torch_fn(graph, device=None, fuse_blocks=True,
     in ``compute_dtype``."""
     return TFLiteNet(graph, fuse_blocks=fuse_blocks,
                      compute_dtype=compute_dtype).to(device).eval()
+
+
+def load_model_fn(npz_path, compute_dtype=torch.float32, device=None):
+    """Load a converted model: ``(graph, net)``, the net a ``TFLiteNet``
+    on ``device`` (None: the card, raising without one) computing in
+    ``compute_dtype``."""
+    from .. import resolve_device
+    graph = Graph(npz_path)
+    return graph, build_torch_fn(graph, resolve_device(device),
+                                 compute_dtype=compute_dtype)

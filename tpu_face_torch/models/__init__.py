@@ -1,7 +1,10 @@
 """The standalone models (counterparts of tpu_face.models): BlazeFace
-detection, the 468-point face mesh and the iris landmarks, with the ROI
-helpers that chain them.  The embeddings model and the render-data helpers
-are not ported yet."""
+detection (all five variants: FRONT, BACK, SHORT and the full-range FULL
+and FULL_SPARSE), the 468-point face mesh and the iris landmarks, with the
+ROI helpers that chain them.  Each takes ``warp_method`` "auto",
+"pallas" (the warp kernels), "gather" or "mxu" (the banded hat-weight
+matmuls, ``ops.image.mxu_sample``).  The embeddings model and the
+render-data helpers are not ported yet."""
 
 from .face_detection import FaceDetection, FaceDetectionModel, FaceIndex
 from .face_landmark import (FACE_LANDMARK_CONNECTIONS, FaceLandmark,

@@ -66,12 +66,6 @@ _SSD_OPTS = {
     FaceDetectionModel.FULL_SPARSE: anchors_lib.SSDOptions.full(),
 }
 
-# FULL needs RESIZE_BILINEAR and FULL_SPARSE DEPTH_TO_SPACE, which the
-# lowering does not have yet
-_PORTED = (FaceDetectionModel.FRONT_CAMERA, FaceDetectionModel.BACK_CAMERA,
-           FaceDetectionModel.SHORT)
-
-
 def frames_on(images, device):
     """A frame batch [B, H, W, 3] (numpy, torch or a list of arrays) as a
     contiguous tensor on ``device``."""
@@ -103,11 +97,14 @@ class FaceDetection:
     ``Detection`` objects, strongest first.
 
     Runs on the card unless ``device="cpu"`` (and raises without one).
-    BACK, FRONT and SHORT are ported; FULL and FULL_SPARSE raise
-    ``NotImplementedError``, as does any ``compute_dtype`` but f32 and
-    bf16.  In bf16 the net computes in bf16 (as JAX's
-    ``build_jax_fn(..., compute_dtype=jnp.bfloat16)``); the warp and the
-    post-processing stay f32.
+    Every ``FaceDetectionModel`` is ported (FULL and FULL_SPARSE, the
+    full-range pair at 192x192, run op by op: their bottleneck residual
+    blocks are no run for the fused kernel).  Any ``compute_dtype`` but
+    f32 and bf16 raises ``NotImplementedError``.  In bf16 the net
+    computes in bf16 (as JAX's ``build_jax_fn(...,
+    compute_dtype=jnp.bfloat16)``); the warp and the post-processing stay
+    f32.  ``warp_method`` "mxu" samples with ``auto_band``'s band, as
+    JAX's models do.
     ``nms_top_m`` is accepted for signature parity: the weighted NMS
     always merges over the full pool, as in JAX."""
 
@@ -119,10 +116,6 @@ class FaceDetection:
                  warp_method: str = "auto",
                  nms_top_m: int = 128,
                  device=None):
-        if model_type not in _PORTED:
-            raise NotImplementedError(
-                f"{model_type.name} is not ported yet (its graph needs ops "
-                f"the lowering does not have)")
         self.device = resolve_device(device)
         self.model_type = model_type
         self.graph, self._net = load_net(f"{_MODEL_FILES[model_type]}.npz",
@@ -152,7 +145,8 @@ class FaceDetection:
             tensor, padding = image_ops.warp_image_to_tensor(
                 images, roi_abs, (self.in_w, self.in_h),
                 keep_aspect_ratio=True, output_range=(-1.0, 1.0),
-                method=method)
+                method=method, band=image_ops.auto_band(max(h, w),
+                                                        self.in_h))
             padding = padding[:, None]           # per frame, every face
         raw_boxes, raw_scores = self._net(tensor)
         boxes = post.decode_boxes(raw_boxes, self.anchors, float(self.in_h))

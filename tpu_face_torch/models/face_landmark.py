@@ -119,7 +119,8 @@ class FaceLandmark:
         tensor, padding = image_ops.warp_image_to_tensor(
             images, roi_abs, (self.in_w, self.in_h),
             keep_aspect_ratio=False, output_range=(0.0, 1.0),
-            method=method)
+            method=method, band=image_ops.auto_band(max(images.shape[1:3]),
+                                                    self.in_h))
         raw_mesh, raw_flag = self._net(tensor)
         b = images.shape[0]
         score = torch.sigmoid(raw_flag.reshape(b))

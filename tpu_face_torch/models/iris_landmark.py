@@ -199,7 +199,8 @@ class IrisLandmark:
         size = (self.in_w, self.in_h)
         tensor, padding = image_ops.warp_image_to_tensor(
             images, roi_abs, size, keep_aspect_ratio=True,
-            output_range=(0.0, 1.0), flip_horizontal=flip, method=method)
+            output_range=(0.0, 1.0), flip_horizontal=flip, method=method,
+            band=image_ops.auto_band(max(images.shape[1:3]), self.in_h))
         raw_contour, raw_iris = self._net(tensor)
         b = images.shape[0]
         contour = post.project_landmarks(

@@ -15,6 +15,7 @@ The standalone models' entry into it is ``warp_image_to_tensor``, whose
 "pallas" method is the warp kernels (``ops/warp.py``).
 """
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -327,16 +328,85 @@ def _separable_planar_f32(planes, wx, wy):
     return out.movedim(-3, -1)
 
 
-# Sampling methods of ``warp_image_to_tensor``; the JAX package's "mxu"
-# (its banded hat-matmul warp in pure XLA, a portable check of its TPU
-# kernel) is not ported.
-WARP_METHODS = ("gather", "pallas", "separable")
+# Largest hat-weight tensor [grids, Ho*Wo, W] f32 that ``mxu_sample``
+# makes at once: its grids are sampled a chunk at a time (one 192x192 grid
+# over a 540-px-wide frame needs 80 MB, over a 1920-px-wide one 283 MB).
+MXU_CHUNK_BYTES = 512 * 2**20
+
+
+def mxu_sample(image, src_x, src_y, band: int = 32, row_tile: int = 8):
+    """Bilinear sample as banded hat-weight matmuls (the JAX package's
+    ``mxu_sample``, its "mxu" warp method):
+
+      out[p, c] = sum_y B(y - ys[p]) * sum_x B(x - xs[p]) * img[y, x, c]
+
+    per tile of ``row_tile`` output rows: the tile's band of ``band``
+    source rows starts at floor(min ys) of the tile, clamped into the
+    frame; one matmul contracts x over the full width, then the band
+    contracts y.  Taps outside the band read nothing: ROIs whose tile
+    spans more than ``band`` rows (extreme rotation and scale) clamp to the
+    band's edge, exactly as in JAX.  All tiles of all grids run batched,
+    in chunks of at most ``MXU_CHUNK_BYTES`` of hat weights.  Plain torch
+    ops, in full f32 (the caller disables TF32, or the hat weights would
+    round and ``rint`` flip levels).
+
+    image: [..., H, W, C] float; src_x/src_y: [..., Ho, Wo] whose leading
+    dims start with the image's (e.g. frames [B, H, W, C] and grids
+    [B, K, Ho, Wo]: K grids per frame).  Returns [..., Ho, Wo, C]."""
+    h, w, c = image.shape[-3:]
+    ho, wo = src_x.shape[-2:]
+    if ho % row_tile:
+        raise ValueError(f"{ho} output rows do not tile by {row_tile}")
+    frames = image.shape[:-3]
+    lead = src_x.shape[:-2]
+    if tuple(lead[:len(frames)]) != tuple(frames):
+        raise ValueError(f"grids {tuple(lead)} do not start with the "
+                         f"frames' dims {tuple(frames)}")
+    tiles, p = ho // row_tile, row_tile * wo
+    bh = min(band, h)
+    imgs = image.reshape(-1, h, w, c)
+    per_frame = math.prod(lead[len(frames):])
+    xs = src_x.reshape(-1, tiles, p)
+    ys = src_y.reshape(-1, tiles, p)
+    dev = image.device
+    cols = torch.arange(w, dtype=torch.float32, device=dev)
+    rows = torch.arange(band, dtype=torch.float32, device=dev)
+    step = max(1, MXU_CHUNK_BYTES // (ho * wo * w * 4))
+    outs = []
+    for g0 in range(0, xs.shape[0], step):
+        xs_c, ys_c = xs[g0:g0 + step], ys[g0:g0 + step]
+        n = xs_c.shape[0]
+        frame = torch.arange(g0, g0 + n, device=dev) // per_frame
+        # per-tile band start: floor(min ys), clamped into the frame
+        start = torch.floor(ys_c.amin(-1)).long().clamp(0, max(h - band, 0))
+        strip = imgs[frame[:, None, None],
+                     start[..., None] + torch.arange(bh, device=dev)]
+        # [n, T, bh, W, C] -> [n, T, W, bh*C]: x contracts on the matmul
+        strip = strip.permute(0, 1, 3, 2, 4).reshape(n, tiles, w, bh * c)
+        wx = _hat(cols - xs_c[..., None])                   # [n, T, P, W]
+        t1 = torch.matmul(wx, strip).reshape(n, tiles, p, bh, c)
+        ys_band = ys_c - start[..., None].float()           # [n, T, P]
+        wy = _hat(rows - ys_band[..., None])[..., :bh]
+        outs.append(torch.einsum("ntpb,ntpbc->ntpc", wy, t1))
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return out.reshape(*lead, ho, wo, c)
+
+
+def auto_band(src_extent: int, out_h: int, minimum: int = 48) -> int:
+    """``mxu_sample``'s band for the standalone models (the JAX
+    package's rule): 8 output rows of the whole-image warp span
+    8 * ``src_extent`` / ``out_h`` source rows (``src_extent`` the
+    frame's long side), plus 24 rows for the taps and modest rotation,
+    rounded up to a multiple of 8."""
+    need = int(8 * src_extent / out_h) + 24
+    return max(minimum, -(-need // 8) * 8)
+
+
+# Sampling methods of ``warp_image_to_tensor``.
+WARP_METHODS = ("gather", "pallas", "mxu", "separable")
 
 
 def _check_method(method):
-    if method == "mxu":
-        raise NotImplementedError("warp method 'mxu' is not ported; use "
-                                  "'pallas' (the warp kernels) or 'gather'")
     if method not in WARP_METHODS:
         raise ValueError(f"warp method {method!r}, expected one of "
                          f"{WARP_METHODS}")
@@ -347,7 +417,7 @@ def warp_image_to_tensor(image, roi_abs, out_size: Tuple[int, int],
                          output_range: Tuple[float, float] = (0.0, 1.0),
                          flip_horizontal=False,
                          quantize_uint8: bool = True,
-                         method: str = "gather"):
+                         method: str = "gather", band: int = 32):
     """The fused ``image_to_tensor``: one resampling pass + one fma.
 
     image: [H, W, 3] or a batch [B, H, W, 3] (uint8 or float, RGB);
@@ -360,6 +430,9 @@ def warp_image_to_tensor(image, roi_abs, out_size: Tuple[int, int],
                   (``warp.warp_bilinear``) where ``warp.planes_fit_vmem``
                   holds, else K2 (``warp.warp_bilinear_strips``) over the
                   same f32 planes; on a CPU tensor their plain versions;
+      "mxu"       the banded hat-weight matmuls (``mxu_sample``) with
+                  ``band`` source rows per 8 output rows, plain torch
+                  ops on either device;
       "separable" two hat matmuls, for rotation-free ROIs.
 
     Returns (tensor [(B,) Ho, Wo, 3] f32, padding [(B,) 4] f32)."""
@@ -379,6 +452,8 @@ def warp_image_to_tensor(image, roi_abs, out_size: Tuple[int, int],
                   else warp.warp_bilinear_strips)
         out = kernel(planes, src_x.reshape(b, -1), src_y.reshape(b, -1))
         out = out.reshape(b, 3, *src_x.shape[1:]).movedim(1, -1)
+    elif method == "mxu":
+        out = mxu_sample(images.float(), src_x, src_y, band=band)
     elif method == "separable":
         out = separable_sample(images.float(), src_x, src_y)
     else:

@@ -68,7 +68,8 @@ class CascadeResult(NamedTuple):
     eye_rois: torch.Tensor       # [B, 2, 5] left/right normalized
     iris: torch.Tensor           # [B, 2, 5, 3] left/right iris landmarks
     envelope_ok: torch.Tensor    # [B] bool, always True: the CUDA warp
-    # samples every ROI exactly (as the JAX exact-gather path does)
+    # samples every ROI exactly (as the JAX exact-gather path does), and
+    # JAX's "mxu" path reports True as well
 
 
 def _norm_rotation(angle):
@@ -126,11 +127,16 @@ class FaceCascade:
     ``warp_method`` picks the ROI warps' sampler, as in
     ``tpu_face.pipeline.FaceCascade``: "pallas" the warp kernels
     (``warp.warp_sample_multi``), "gather" the plain zero-border gather
-    (``warp.warp_bilinear_plain``) on either device, "auto"
-    (``image.resolve_warp_method``) "pallas" on the card and "gather" on
-    the CPU.  "mxu" raises ``NotImplementedError`` (not ported), any other
-    value ``ValueError``.  The detection warp (two hat matmuls, no
-    kernel) is the same for every method.
+    (``warp.warp_bilinear_plain``) on either device, "mxu" the banded
+    hat-weight matmuls (``image.mxu_sample``, plain torch ops, with the
+    bands of ``_bands``), "auto" (``image.resolve_warp_method``) "pallas"
+    on the card and "gather" on the CPU; any other value raises
+    ``ValueError``.  The detection warp (two hat matmuls, no kernel) is
+    the same for every method.
+
+    ``detection_model`` is any ``FaceDetectionModel``; the full-range
+    FULL and FULL_SPARSE detectors (192x192) run op by op, with no fused
+    kernel.
 
     ``max_faces`` faces per frame come out of the weighted NMS; the
     per-face stages run over [B, max_faces].  Two arguments are accepted
@@ -166,9 +172,9 @@ class FaceCascade:
         self.device = resolve_device(device)
         self.warp_method = image_ops.resolve_warp_method(warp_method,
                                                          self.device)
-        if self.warp_method not in ("pallas", "gather"):
+        if self.warp_method not in ("pallas", "gather", "mxu"):
             raise ValueError(f"warp_method {warp_method!r}: the cascade's "
-                             f"ROIs rotate, so 'pallas' or 'gather'")
+                             f"ROIs rotate, so 'pallas', 'gather' or 'mxu'")
         self.compute_dtype = compute_dtype
         self.max_faces = int(max_faces)
         self.nms_top_m = nms_top_m
@@ -212,20 +218,38 @@ class FaceCascade:
             return self._forward(images, (w, h))
 
     def _forward(self, images, image_size):
-        planes = self._prepare_frame(images, image_size)
-        dets, score, face_valid = self._detect_stage(planes, image_size)
-        face_roi_abs = self._face_roi_from_det(dets, image_size)
-        mesh, mesh_score, left_roi, right_roi = self._mesh_half(
-            planes, face_roi_abs, image_size)
-        refined, l_iris, r_iris = self._iris_half(
-            planes, mesh, left_roi, right_roi, image_size)
-        res = self._assemble_result(
-            dets, score, face_valid, face_roi_abs, mesh, refined,
-            mesh_score, left_roi, right_roi, l_iris, r_iris, image_size)
+        res = self._full(images, image_size)
         if self.max_faces == 1:
             # as in JAX: no face axis at max_faces=1
             res = CascadeResult(*(f[:, 0] for f in res))
         return res
+
+    def _full(self, images, image_size):
+        """The whole cascade over a batch [B, ...] of frames, every field
+        with its face axis [B, K, ...] (any K): the trackers' full path
+        and repair sub-batch."""
+        planes = self._prepare_frame(images, image_size)
+        dets, score, face_valid = self._detect_stage(planes, image_size)
+        return self._face_stages(planes, dets, score, face_valid,
+                                 image_size)
+
+    def _face_stages(self, planes, det, score, face_valid, image_size,
+                     face_roi_abs=None):
+        """Stages 2-6 over faces [B, K]: the face ROIs (from ``det``
+        [B, K, 8, 2], unless ``face_roi_abs`` [B, K, 5] gives them: the
+        trackers derive them from the previous frame's mesh), the mesh
+        half and the iris half, assembled into a ``CascadeResult`` with
+        its face axis.  ``score`` and ``face_valid`` [B, K] pass through
+        to the result (``mesh_valid`` requires ``face_valid``)."""
+        if face_roi_abs is None:
+            face_roi_abs = self._face_roi_from_det(det, image_size)
+        mesh, mesh_score, left_roi, right_roi = self._mesh_half(
+            planes, face_roi_abs, image_size)
+        refined, l_iris, r_iris = self._iris_half(
+            planes, mesh, left_roi, right_roi, image_size)
+        return self._assemble_result(
+            det, score, face_valid, face_roi_abs, mesh, refined,
+            mesh_score, left_roi, right_roi, l_iris, r_iris, image_size)
 
     # ---- stages ------------------------------------------------------
 
@@ -296,11 +320,35 @@ class FaceCascade:
                 whole, (self.det_w, self.det_h), True, False)
         return self._whole_coords[image_size]
 
-    def _warp(self, planes, coords):
+    @staticmethod
+    def _bands(image_size):
+        """(mesh band, iris band) of the "mxu" warps: the source rows per
+        8 output rows, scaled to the frame (copy of the JAX package's
+        ``_DetectorBase._bands``; faces, and so ROIs, grow with the
+        frame)."""
+        w, h = image_size
+        maxdim = max(image_size)
+
+        def clamp8(v, lo, cap):
+            return min(cap, max(lo, -(-v // 8) * 8))
+
+        if maxdim > 2560:
+            return (clamp8(maxdim // 12, 64, 192),
+                    clamp8(maxdim // 12, 32, 192))
+        if warp_ops.planes_fit_vmem(h, w):
+            return clamp8(maxdim // 8, 96, 136), 72
+        return 144, 144
+
+    def _warp(self, planes, coords, band):
         """The ROI warps of one stage: ``warp_sample_multi`` (one kernel
-        launch) for "pallas", ``warp_sample_multi_plain`` for "gather"."""
+        launch) for "pallas", ``warp_sample_multi_plain`` for "gather",
+        ``mxu_sample`` with ``band`` rows (per grid) for "mxu"."""
         if self.warp_method == "gather":
             return warp_ops.warp_sample_multi_plain(planes, coords)
+        if self.warp_method == "mxu":
+            img = planes.movedim(1, -1).float()
+            return [image_ops.mxu_sample(img, x, y, band=band)
+                    for x, y in coords]
         return warp_ops.warp_sample_multi(planes, coords)
 
     def _face_roi_from_det(self, det, image_size):
@@ -322,7 +370,8 @@ class FaceCascade:
         b, k = face_roi_abs.shape[:2]
         mx, my, mesh_pad = image_ops._source_coords(
             face_roi_abs, (self.mesh_w, self.mesh_h), False, False)
-        (mesh_raw,) = self._warp(planes, [(mx, my)])
+        (mesh_raw,) = self._warp(planes, [(mx, my)],
+                                 self._bands(image_size)[0])
         mesh_tensor = image_ops._normalize_pixels(mesh_raw, (0.0, 1.0),
                                                   True)
         raw_mesh, raw_flag = self._mesh_net(mesh_tensor.flatten(0, 1))
@@ -354,7 +403,8 @@ class FaceCascade:
         size = (self.iris_w, self.iris_h)
         lx, ly, lp = image_ops._source_coords(left_roi, size, True, False)
         rx, ry, rp = image_ops._source_coords(right_roi, size, True, True)
-        l_raw, r_raw = self._warp(planes, [(lx, ly), (rx, ry)])
+        l_raw, r_raw = self._warp(planes, [(lx, ly), (rx, ry)],
+                                  self._bands(image_size)[1])
         # stacked channel-major [B, K, 2, 3, Ho, Wo], handed to the net
         # as its NHWC view of [2BK, 3, Ho, Wo]
         pair = torch.stack([l_raw.movedim(-1, -3), r_raw.movedim(-1, -3)],
