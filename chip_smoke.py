@@ -113,7 +113,27 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               steps/s of 64 streams beside the cascade's frames/s on the
               same frames and the step's stages timed without its two
               host reads (printed, no limit);
-9. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
+9. embed   -- the identification path, the counts set to 0 before and
+              read after: EmbedCascade(BACK, the demo embedding graph
+              tpu_face/data/demo) with f32 and with bf16 nets on the
+              rotated frames (the 540p four x16 = batch 64, the close-up,
+              the portraits) and on canvas (c) with max_faces=4, each call
+              13 fused launches (f32) or 8 (bf16) and no warp kernel (the
+              crop is the separable hat matmuls); FaceEmbeddings
+              .infer_batch (f32, bf16) and .embed_boxes of a FaceCascade
+              result's meshes (no kernel).  f32 against the port's CPU
+              result (crop_bbox equal, 0.25 px / 1e-3, embeddings within
+              1e-4), bf16 against the card's f32 result (crops within 1 px,
+              cosine >= 0.99 against the f32 net on the same crop, 0.98
+              for crops under 112 px; the cosine against the f32 path
+              printed); then EmbedCascade's
+              frames/s at 540p b64 in f32 and bf16 beside FaceCascade's
+              (printed, no limit), ``python -m tpu_face_torch identify``
+              and ``cascade`` in subprocesses on the card against the
+              same commands with ``--device cpu``, and
+              native_loader.available() (where the loader builds: a JPEG
+              of a rotated frame decoded against Pillow);
+10. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
@@ -121,7 +141,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               turns against one bound, the bytes the staged windows copied
               (counted by the kernel) printed beside those the gather's
               bound counts;
-10. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+11. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
               and with bf16 nets; faces/s of canvas (c) at batch 32 with
@@ -148,10 +168,10 @@ of JAX or of the tpu_face package.
     python3 chip_smoke.py --trace DIR
 
 adds torch.profiler windows over three cascade calls each at 540x360
-batch 64, 1080p batch 64 (f32 and bf16 nets) and 4K batch 8 to the
-numbers (device busy share, kernel launches per call, the kernels that
-take the most device time) and writes each full table and Chrome trace
-into DIR.
+batch 64 (FaceCascade and EmbedCascade), 1080p batch 64 (f32 and bf16
+nets) and 4K batch 8 to the numbers (device busy share, kernel launches
+per call, the kernels that take the most device time) and writes each
+full table and Chrome trace into DIR.
 
     python3 chip_smoke.py --sweep
 
@@ -1477,6 +1497,416 @@ def phase_mxu():
     return launches
 
 
+
+# identification (EmbedCascade, FaceEmbeddings): f32 embeddings on the
+# card against the port's CPU result, max abs on the unit vectors (see
+# TIE).  bf16 against the card's f32 result on the same frames: every
+# crop edge within one pixel (the int-truncated crop moves where the bf16
+# detections differ), and the cosine against the f32 net's embedding of
+# the bf16 path's own crop (the bf16 nets' rounding alone) >= 0.99, or
+# >= 0.98 for a crop smaller than the net's 112-px input (the 200x225
+# portraits' ~93-px faces): there the port's op-by-op bf16 net, which
+# rounds after every op as un-jitted JAX does, reaches 0.99002 on the
+# CPU on russ2_rotp20's crop, where un-jitted JAX's own bf16 net reaches
+# 0.98982 (jitted JAX, which keeps fused elementwise chains in f32,
+# 0.99725), and 0.98820 on the portraits on an H100 80GB HBM3 (700 W).
+# The cosine against the f32 path's embedding, whose crop may sit a
+# pixel away, is printed: a 1-px move of a portrait crop turns the demo
+# graph's (synthetic) embedding to cosine 0.984.
+EMBED_TOL = 1e-4
+BF16_CROP_PX = 1.0
+BF16_COSINE = 0.99
+BF16_COSINE_UPSCALED = 0.98
+
+
+# Card against CPU in f32, the crops' uint8 levels differ by one where
+# the value before the rint is a tie: an axis-aligned crop of an integer
+# box samples at fractions k/112 of integer pixels, so many values sit
+# exactly on a half level, and each device's f32 sums (cuBLAS and the
+# CPU's BLAS add a hat matmul's two taps in other orders) land a few ulps
+# to either side (on an H100 80GB HBM3 at 700 W: 2,048 of 2.4 million
+# values at 540p b64; the JAX package's jitted crop differs from its own
+# eager one in the same way).  The sampling coordinates differ by an
+# ulp here and there too (ATen's CUDA division by a scalar multiplies by
+# its reciprocal), which at coordinates of hundreds of pixels moves a value
+# by up to a few hundredths of a level.  One level moves the demo graph's
+# embedding by about 1e-4.  So the f32 embeddings are held in parts: each
+# side's crop against the same crop computed in f64 from that side's own
+# sampling coordinates (equal levels away from a tie, within one at a
+# tie: within TIE of a half level), the nets on the card's own crops
+# (EMBED_TOL), and the recomputed crops reproduce the path's embeddings.
+TIE = 1e-3                      # 0-255 units
+
+
+def exact_crops(frames, boxes, device, size=112):
+    """The crops' values before the rint (0-255 units), flat
+    [N, size, size, 3], of host frames [B, H, W, 3] at crop boxes
+    [B(, K), 4]: the f32 sampling coordinates the port computes on
+    ``device``, then the hat weights and both products in f64 on the
+    CPU."""
+    box = torch.as_tensor(np.asarray(boxes), dtype=torch.float32,
+                          device=device)
+    roi = torch.stack([(box[..., 0] + box[..., 2]) / 2.0,
+                       (box[..., 1] + box[..., 3]) / 2.0,
+                       box[..., 2] - box[..., 0], box[..., 3] - box[..., 1],
+                       torch.zeros_like(box[..., 0])], dim=-1)
+    sx, sy, _ = (t.cpu() for t in image_ops._source_coords(
+        roi, (size, size), False, False))
+    img = torch.from_numpy(np.ascontiguousarray(frames)).double()
+    if box.dim() == 3:
+        img = img[:, None]
+    h, w = img.shape[-3:-1]
+
+    def hat(src, n):
+        taps = torch.arange(n, dtype=torch.float64)
+        return (1.0 - (taps - src.double()[..., None]).abs()).clamp(min=0)
+
+    t1 = hat(sy[..., :, 0], h) @ img.reshape(*img.shape[:-3], h, w * 3)
+    out = hat(sx[..., 0, :], w).unsqueeze(-3) @ t1.reshape(
+        *t1.shape[:-1], w, 3)
+    return out.reshape(-1, size, size, 3)
+
+
+def face_crops(model, frames, boxes):
+    """The 112x112 crops (range (0, 1)), flat [N, 112, 112, 3] on the CPU,
+    that ``model`` takes of host frames [B, H, W, 3] at absolute crop boxes
+    (x0, y0, x1, y1) [B, 4] or [B, K, 4], recomputed on its device with
+    its path's own shapes and sampler: an EmbedCascade over its frame
+    planes (``_crop``), a FaceEmbeddings as its ``_pipeline`` crops."""
+    dev = model.device
+    box = torch.as_tensor(np.asarray(boxes), dtype=torch.float32).to(dev)
+    roi = torch.stack([(box[..., 0] + box[..., 2]) / 2.0,
+                       (box[..., 1] + box[..., 3]) / 2.0,
+                       box[..., 2] - box[..., 0], box[..., 3] - box[..., 1],
+                       torch.zeros_like(box[..., 0])], dim=-1)
+    images = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+    with torch.inference_mode(), exact_f32():
+        if isinstance(model, EmbedCascade):
+            size = (images.shape[2], images.shape[1])
+            crops = model._crop(model._prepare_frame(images, size),
+                                roi if roi.dim() == 3 else roi[:, None])
+        else:
+            crops, _ = image_ops.warp_image_to_tensor(
+                images, roi, (model.in_w, model.in_h), False, (0.0, 1.0),
+                method=("separable" if model._warp == "pallas"
+                        else model._warp))
+    return crops.reshape(-1, *crops.shape[-3:]).cpu()
+
+
+def crop_embeddings(model, crops):
+    """``model``'s embedding net and L2 norm on crops [N, 112, 112, 3], on
+    its device; [N, D] on the CPU."""
+    net = model._embed_net if isinstance(model, EmbedCascade) else model._net
+    with torch.inference_mode(), exact_f32():
+        (raw,) = net(crops.to(model.device))
+        return l2_normalize(raw.reshape(raw.shape[0], -1)).cpu()
+
+
+def hold_f32_embeddings(card, cpu, card_emb, cpu_emb, frames, boxes,
+                        valid, label):
+    """The f32 embeddings [N, D] one path gave on the card (``card``, a
+    model on the card) and on the CPU (``cpu``), for the N faces of host
+    frames [B, H, W, 3] cropped at ``boxes`` [B(, K), 4] (the same on
+    both: ``check_embed`` holds the crop boxes equal), of which ``valid``
+    [N] count: the crops recomputed on the card give ``card_emb``; each
+    side's crop levels equal the rint of its ``exact_crops`` away from a
+    tie and lie within one of it at a tie; the CPU's net on the card's crops
+    gives ``card_emb`` within EMBED_TOL.  Returns (worst embedding
+    difference, levels one apart between the two sides, worst net
+    difference)."""
+    card_emb, cpu_emb = card_emb.cpu(), torch.as_tensor(cpu_emb).cpu()
+    valid = torch.as_tensor(valid).cpu()
+    crops = face_crops(card, frames, boxes)
+    again = float((crop_embeddings(card, crops) - card_emb).abs().max())
+    assert again <= 1e-6, (label, "the recomputed crops", again)
+    sides = []
+    for model, side in ((card, crops), (cpu, face_crops(cpu, frames,
+                                                         boxes))):
+        exact = exact_crops(frames, boxes, model.device)[valid]
+        tie = ((exact - torch.floor(exact)) - 0.5).abs() <= TIE
+        want = torch.round(exact)
+        levels = torch.round(side[valid] * 255)
+        off = (levels - want).abs()
+        assert float(off.max()) <= 1 and not bool((off > 0)[~tie].any()), (
+            label, float(off.max()), int((off > 0)[~tie].sum()))
+        sides.append(levels)
+    flips = int((sides[0] != sides[1]).sum())
+    net = float((crop_embeddings(cpu, crops) - card_emb)[valid].abs().max())
+    assert net <= EMBED_TOL, (label, net)
+    return float((card_emb - cpu_emb)[valid].abs().max()), flips, net
+
+
+def check_embed(res, ref, size, label):
+    """An f32 EmbedResult on the card against the CPU port's: equal
+    ``face_valid`` and, for valid faces, equal ``crop_bbox``, detection
+    within CPU_PX_TOL px and scores within CPU_SCORE_TOL (the embeddings:
+    ``hold_f32_embeddings``); returns (px, score) differences."""
+    res = type(res)(*(f.cpu() for f in res))
+    assert torch.equal(res.face_valid, ref.face_valid), label
+    ok = ref.face_valid
+    assert bool(ok.any()), label
+    assert torch.equal(res.crop_bbox[ok], ref.crop_bbox[ok]), (
+        label, res.crop_bbox[ok], ref.crop_bbox[ok])
+    w, h = size
+    px = float(((res.detection[ok] - ref.detection[ok]).abs()
+                * torch.tensor([w, h])).max())
+    sc = float((res.score[ok] - ref.score[ok]).abs().max())
+    assert px <= CPU_PX_TOL and sc <= CPU_SCORE_TOL, (label, px, sc)
+    return px, sc
+
+
+def hold_cascade_embeddings(card, cpu, res, ref, frames, label):
+    """``hold_f32_embeddings`` for an EmbedCascade's results on the card
+    (``res``) and the CPU (``ref``) over host frames [B, H, W, 3]."""
+    d = res.embedding.shape[-1]
+    return hold_f32_embeddings(
+        card, cpu, res.embedding.reshape(-1, d),
+        ref.embedding.reshape(-1, d), frames, res.crop_bbox.cpu(),
+        ref.face_valid.reshape(-1), label)
+
+
+def check_embed_bf16(res, f32, model, frames, label):
+    """A bf16 EmbedResult against the card's f32 one on the same frames
+    (host [B, H, W, 3]): as many valid faces per frame; each valid f32
+    face matched to the valid bf16 face of its frame whose crop centre is
+    nearest (bf16 scores may order near-tied faces the other way), its
+    crop edges within BF16_CROP_PX; and each bf16 embedding within cosine
+    BF16_COSINE (BF16_COSINE_UPSCALED for a crop smaller than 112 px) of
+    ``model``'s (f32 FaceEmbeddings) embedding of the same crop.  Returns
+    (worst crop px, lowest cosine against the f32 path's embedding,
+    lowest cosine against the f32 net on the same crop)."""
+    res, f32 = (type(r)(*(f.cpu() for f in r)) for r in (res, f32))
+    if f32.face_valid.dim() == 1:           # no face axis at max_faces=1
+        res, f32 = (type(r)(*(f[:, None] for f in r)) for r in (res, f32))
+    assert torch.equal(res.face_valid.sum(1), f32.face_valid.sum(1)), label
+    centre = (lambda c: (c[:2] + c[2:]) / 2)           # noqa: E731
+    worst, lowest = 0.0, 1.0
+    for i, j in torch.nonzero(f32.face_valid).tolist():
+        want = f32.crop_bbox[i, j]
+        k = min(torch.nonzero(res.face_valid[i]).flatten().tolist(),
+                key=lambda k: float((centre(res.crop_bbox[i, k])
+                                     - centre(want)).norm()))
+        worst = max(worst, float((res.crop_bbox[i, k] - want).abs().max()))
+        lowest = min(lowest, float((res.embedding[i, k]
+                                    * f32.embedding[i, j]).sum()))
+    faces = torch.nonzero(res.face_valid).tolist()
+    same = torch.from_numpy(model.infer_batch(
+        frames[[i for i, _ in faces]],
+        [tuple(res.crop_bbox[i, k].tolist()) for i, k in faces]))
+    net = 1.0
+    for n, (i, k) in enumerate(faces):
+        box = res.crop_bbox[i, k]
+        cos = float((res.embedding[i, k] * same[n]).sum())
+        side = float(min(box[2] - box[0], box[3] - box[1]))
+        assert cos >= (BF16_COSINE if side >= 112 else
+                       BF16_COSINE_UPSCALED), (label, i, k, side, cos)
+        net = min(net, cos)
+    assert worst <= BF16_CROP_PX, (label, worst)
+    return worst, lowest, net
+
+
+def cli_json(argv, device=None):
+    """``python -m tpu_face_torch <argv>`` in a subprocess from the
+    repository root (``--device`` only if given: the card by default),
+    started and returned as a Popen."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpu_face_torch", *argv]
+        + (["--device", device] if device else []), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_lines(proc):
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, (proc.args, err[-3000:])
+    return [json.loads(line) for line in out.strip().splitlines()]
+
+
+def cli_close(got, want, key=""):
+    """The card CLI's JSON against the CPU run's: the same keys, equal
+    flags, strings and crop boxes, scores within CPU_SCORE_TOL,
+    coordinates within CPU_PX_TOL px and cosines within 1e-3 (four
+    decimals of embeddings within EMBED_TOL)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (key, got, want)
+        for k in want:
+            cli_close(got[k], want[k], k)
+    elif isinstance(want, list):
+        assert len(got) == len(want), (key, got, want)
+        for g, w in zip(got, want):
+            cli_close(g, w, key)
+    elif isinstance(want, (bool, str)) or key in ("crop_bbox", "dim"):
+        assert got == want, (key, got, want)
+    else:
+        tol = {"score": CPU_SCORE_TOL,
+               "cosine_similarity": 1e-3}.get(key, CPU_PX_TOL)
+        assert abs(got - want) <= tol, (key, got, want)
+
+
+def phase_embed(trace):
+    """The identification path on the card, the counts set to 0 before
+    and read after: EmbedCascade(BACK, the demo embedding graph) with f32
+    and with bf16 nets on the rotated frames (the 540p four x16 = batch
+    64, the close-up, the portraits) and on canvas (c) with max_faces=4,
+    then FaceEmbeddings.infer_batch (f32, bf16) and embed_boxes of a
+    FaceCascade result's meshes (f32).  Each call's launches: the BACK
+    detector's fused launches (13 on the f32 kernel, 8 on the bf16 one)
+    and no warp kernel (the crop is the separable hat matmuls); the
+    standalone model none.  f32 against the port's CPU result
+    (``check_embed``), bf16 against the card's f32 result
+    (``check_embed_bf16``).  Then EmbedCascade's frames/s at 540p b64
+    beside FaceCascade's, the CLI's ``identify`` and ``cascade`` on the
+    card against the CPU (subprocesses), and the native JPEG loader
+    against Pillow where it builds.  Returns (launches, numbers)."""
+    phase("embed")
+    f32, bf16 = torch.float32, torch.bfloat16
+    demo = str(DATA_DIR / "demo")
+    groups, batches = rotated_batches()
+    b = BATCH["540p"]
+    four = batches[(540, 360)]
+    batches[(540, 360)] = np.tile(four, (b // 4, 1, 1, 1))
+    canvas = canvas_grid(load_image)[None]
+    cas = {dt: EmbedCascade(embed_model_path=demo, compute_dtype=dt)
+           for dt in (f32, bf16)}
+    cas4 = {dt: EmbedCascade(embed_model_path=demo, compute_dtype=dt,
+                             max_faces=4) for dt in (f32, bf16)}
+    fused = {dt: cas[dt]._det_net.fused_launches() for dt in (f32, bf16)}
+    assert fused == {f32: 13, bf16: 8}, fused
+    assert cas[f32]._embed_net.runs == [], "the embedding net has a run"
+    emb = {dt: tmodels.FaceEmbeddings(demo, compute_dtype=dt)
+           for dt in (f32, bf16)}
+    boxes = [(207.3, 72.5, 346.9, 211.2), (184.2, 80.3, 317.9, 213.7),
+             (178.4, 88.7, 301.1, 211.4), (231.6, 82.1, 353.8, 204.9)]
+    # set-up, not this path: the meshes embed_boxes takes
+    meshes = FaceCascade().infer_batch(four).mesh
+
+    reset_counts()
+    res = {}
+    for dt in (f32, bf16):
+        want = only(**{fused_entry(dt): fused[dt]})
+        for size, batch in batches.items():
+            res[dt, size], n = counted(
+                lambda: cas[dt].infer_batch(batch))
+            assert n == want, (str(dt), size, n, want)
+        res[dt, "c"], n = counted(lambda: cas4[dt].infer_batch(canvas))
+        assert n == want, (str(dt), "canvas (c)", n, want)
+        res[dt, "infer_batch"], n = counted(
+            lambda: emb[dt].infer_batch(four, boxes))
+        assert n == only(), (str(dt), "infer_batch", n)
+    res["embed_boxes"], n = counted(
+        lambda: emb[f32].embed_boxes(four, meshes, as_numpy=False))
+    assert n == only(), ("embed_boxes", n)
+    launches = launch_counts()
+    print(f"launches of the identification path: {launches} for "
+          f"{len(batches) + 1} EmbedCascade calls per dtype ({fused[f32]} "
+          f"f32 and {fused[bf16]} bf16 fused launches per call, no warp "
+          f"kernel) and 3 FaceEmbeddings calls (none)", flush=True)
+
+    cpu = EmbedCascade(embed_model_path=demo, device="cpu")
+    cpu4 = EmbedCascade(embed_model_path=demo, device="cpu", max_faces=4)
+    for size, names in groups.items():
+        frames = four if size == (540, 360) else batches[size]
+        ref = cpu.infer_batch(frames)
+        rows = torch.arange(batches[size].shape[0]) % len(names)
+        ref = type(ref)(*(f[rows] for f in ref))
+        px, sc = check_embed(res[f32, size], ref, size, size)
+        e, flips, net = hold_cascade_embeddings(
+            cas[f32], cpu, res[f32, size], ref, batches[size], size)
+        crop, cos, same = check_embed_bf16(res[bf16, size], res[f32, size],
+                                           emb[f32], batches[size], size)
+        print(f"EmbedCascade {size[0]}x{size[1]} B={len(rows)}: f32 GPU vs "
+              f"CPU port {px:.4f} px, scores {sc:.2e}, embeddings {e:.2e} "
+              f"({flips} crop levels one apart; the nets on the card's "
+              f"crops {net:.2e}); bf16 vs f32 crops within {crop:.0f} px, "
+              f"cosine >= {cos:.5f} (the f32 net on the bf16 crops: >= "
+              f"{same:.5f})", flush=True)
+    ref = cpu4.infer_batch(canvas)
+    px, sc = check_embed(res[f32, "c"], ref, (1080, 720), "canvas (c)")
+    assert int(res[f32, "c"].face_valid.sum()) == 4
+    e, flips, net = hold_cascade_embeddings(cas4[f32], cpu4, res[f32, "c"],
+                                            ref, canvas, "canvas (c)")
+    crop, cos, same = check_embed_bf16(res[bf16, "c"], res[f32, "c"],
+                                       emb[f32], canvas, "canvas (c)")
+    print(f"EmbedCascade canvas (c) 1080x720 K=4: f32 GPU vs CPU port "
+          f"{px:.4f} px, scores {sc:.2e}, embeddings {e:.2e} ({flips} crop "
+          f"levels one apart; the nets on the card's crops {net:.2e}); "
+          f"bf16 vs f32 crops within {crop:.0f} px, cosine >= {cos:.5f} "
+          f"(the f32 net on the bf16 crops: >= {same:.5f})", flush=True)
+    cpu_emb = tmodels.FaceEmbeddings(demo, device="cpu")
+    cut = [(int(x0), int(y0), int(x0) + int(x1 - x0), int(y0) + int(y1 - y0))
+           for x0, y0, x1, y1 in boxes]
+    e1, f1, n1 = hold_f32_embeddings(
+        emb[f32], cpu_emb, torch.from_numpy(res[f32, "infer_batch"]),
+        cpu_emb.infer_batch(four, boxes), four, cut,
+        torch.ones(4, dtype=torch.bool), "infer_batch")
+    xy = meshes[..., :2].cpu()
+    _, mesh_boxes = geometry.crop_roi_from_detection(
+        torch.stack([xy.amin(-2), xy.amax(-2)], dim=-2), (540, 360),
+        xp=torch)
+    e2, f2, n2 = hold_f32_embeddings(
+        emb[f32], cpu_emb, res["embed_boxes"],
+        cpu_emb.embed_boxes(four, meshes.cpu()), four, mesh_boxes,
+        torch.ones(4, dtype=torch.bool), "embed_boxes")
+    cos = float((res[bf16, "infer_batch"] * res[f32, "infer_batch"])
+                .sum(-1).min())
+    assert cos >= BF16_COSINE, cos
+    print(f"FaceEmbeddings: infer_batch GPU vs CPU port {e1:.2e} ({f1} "
+          f"crop levels one apart; nets {n1:.2e}), embed_boxes of the "
+          f"cascade's meshes {e2:.2e} ({f2}; {n2:.2e}); bf16 vs f32 cosine "
+          f">= {cos:.5f}", flush=True)
+
+    # the CLI on the card against the CPU, in subprocesses started
+    # together
+    two = [str(ROT / n) for n in FRAMES_540[:2]]
+    commands = {"identify": ["identify", *two],
+                "cascade": ["cascade", *two, "--pixels"]}
+    procs = {(name, dev): cli_json(argv, dev)
+             for name, argv in commands.items() for dev in (None, "cpu")}
+    for name in commands:
+        card_lines = cli_lines(procs[name, None])
+        cli_close(card_lines, cli_lines(procs[name, "cpu"]))
+        print(f"python -m tpu_face_torch {name} on the card: "
+              f"{json.dumps(card_lines[-1])[:160]} (matches the CPU run)",
+              flush=True)
+
+    # the native JPEG loader against Pillow
+    import io
+
+    from PIL import Image
+    available = native_loader.available()
+    print(f"native_loader.available(): {available}", flush=True)
+    if available:
+        buf = io.BytesIO()
+        Image.fromarray(four[0]).save(buf, format="JPEG", quality=90)
+        ours = native_loader.decode_jpeg(buf.getvalue())
+        pil = np.asarray(Image.open(io.BytesIO(buf.getvalue()))
+                         .convert("RGB"))
+        diff = np.abs(ours.astype(np.int16) - pil.astype(np.int16))
+        assert diff.mean() < 1.0 and diff.max() <= 16, (diff.mean(),
+                                                        diff.max())
+        print(f"native decode vs Pillow: mean {diff.mean():.4f}, max "
+              f"{diff.max()} levels", flush=True)
+
+    # frames/s at 540p b64 beside FaceCascade's, the batch on the card
+    batch = torch.from_numpy(batches[(540, 360)]).cuda()
+    numbers = {}
+    for key, dt in (("", f32), ("_bf16", bf16)):
+        want = {fused_entry(dt): fused[dt]}
+        numbers[f"embed_cascade{key}_b{b}"] = {
+            **throughput(cas[dt], batch, only(**want), reps=10),
+            "face_cascade": throughput(FaceCascade(compute_dtype=dt), batch,
+                                       only(warp_bilinear=2, **want),
+                                       reps=10)}
+    for key in ("", "_bf16"):
+        row = numbers[f"embed_cascade{key}_b{b}"]
+        print(f"EmbedCascade{key} 540x360 b{b}: "
+              f"{row['frames_per_s']:.1f} frames/s beside FaceCascade's "
+              f"{row['face_cascade']['frames_per_s']:.1f}", flush=True)
+    if trace is not None:
+        numbers[f"trace_embed_b{b}"] = trace_cascade(
+            cas[f32], batch, trace, f"embed_cascade_b{b}")
+    return launches, numbers
+
+
 TRACK_SEQ = ["man_rotm30.png", "man_rotm15.png", "man_rotp15.png",
              "man_rotp30.png", "man_rotp15.png"]
 
@@ -1766,11 +2196,12 @@ def net_turns(cascade, batch, size, per_op, tol):
 
 
 def throughput(cascade, batch, launches, reps):
-    """Frames/s of ``cascade`` on ``batch`` (first checked for its
-    launches and for a valid face in every frame)."""
+    """Frames/s of ``cascade`` (a FaceCascade or an EmbedCascade) on
+    ``batch`` (first checked for its launches and for a valid face, with
+    a valid mesh where there is one, in every frame)."""
     res, n = counted(lambda: cascade(batch))
     assert n == launches, (n, launches)
-    valid = int(res.mesh_valid.sum())
+    valid = int(getattr(res, "mesh_valid", res.face_valid).sum())
     assert valid == batch.shape[0], f"{valid} of {batch.shape[0]} faces"
     ms, windows = median_ms(lambda: cascade(batch), reps=reps)
     return {"frames_per_s": batch.shape[0] * 1e3 / ms, "ms_per_batch": ms,
@@ -1978,7 +2409,8 @@ def main(argv=None):
     # repository is on sys.path (the helpers above use them)
     global _build, image_ops, warp, fused_block, FaceCascade, exact_f32
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
-    global resolve_device, tracking
+    global resolve_device, tracking, EmbedCascade, native_loader
+    global geometry, l2_normalize
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", type=Path, metavar="DIR",
                         help="profile three cascade calls per frame size "
@@ -1996,10 +2428,13 @@ def main(argv=None):
     from tpu_face_torch import resolve_device, tracking
     from tpu_face_torch.compiler import Graph, build_torch_fn
     from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
-    from tpu_face_torch.ops import _build, fused_block
+    from tpu_face_torch.models.face_embeddings import l2_normalize
+    from tpu_face_torch.ops import _build, fused_block, geometry
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
-    from tpu_face_torch.pipeline import FaceCascade, exact_f32
+    from tpu_face_torch.pipeline import (EmbedCascade, FaceCascade,
+                                         exact_f32)
+    from tpu_face_torch.utils import native_loader
     from tpu_face_torch.utils.image_io import load_image
 
     t_start = time.perf_counter()
@@ -2024,8 +2459,10 @@ def main(argv=None):
     paths["full_detectors"] = phase_full_detectors()
     paths["mxu"] = phase_mxu()
     paths["tracker"], tracker_numbers = phase_tracker()
+    paths["embed"], embed_numbers = phase_embed(args.trace)
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
     numbers.update(tracker_numbers)
+    numbers.update(embed_numbers)
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
@@ -2042,6 +2479,11 @@ def main(argv=None):
         warp_bilinear=paths["full_detectors"]["warp_bilinear"]), paths
     assert paths["mxu"] == only(
         fused_dw_pw_block_f32=paths["mxu"]["fused_dw_pw_block_f32"]), paths
+    # identification: the detector's fused kernels only, no warp kernel
+    assert paths["embed"] == only(
+        fused_dw_pw_block_f32=paths["embed"]["fused_dw_pw_block_f32"],
+        fused_dw_pw_block_bf16=paths["embed"]["fused_dw_pw_block_bf16"]), \
+        paths
     numbers["path_launches"] = paths
     numbers["models_launches"] = models
     numbers["device"] = smi

@@ -54,7 +54,12 @@ def test_port_covers_the_slice():
             "tpu_face_torch/utils/image_io.py",
             "tpu_face_torch/pipeline.py",
             "tpu_face_torch/tracking.py",
-            "tpu_face_torch/smoothing.py"}
+            "tpu_face_torch/smoothing.py",
+            "tpu_face_torch/models/face_embeddings.py",
+            "tpu_face_torch/render.py",
+            "tpu_face_torch/utils/profiling.py",
+            "tpu_face_torch/utils/native_loader.py",
+            "tpu_face_torch/__main__.py"}
     assert want <= set(FILES)
     for kernel in ("warp_bilinear", "warp_bilinear_strips",
                    "fused_dw_pw_block", "fused_dw_pw_block_bf16",

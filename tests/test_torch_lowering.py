@@ -106,9 +106,10 @@ def test_unsupported_op_raises(graphs):
     _, tg = graphs["iris_landmark"]
 
     class Fake:
-        ops = tg.ops + [{"op": "SOFTMAX", "inputs": [tg.outputs[0]],
+        ops = tg.ops + [{"op": "SQUARED_DIFFERENCE",
+                         "inputs": [tg.outputs[0], tg.outputs[0]],
                          "outputs": [9999], "options": {}}]
         consts, inputs, outputs = tg.consts, tg.inputs, tg.outputs
 
-    with pytest.raises(NotImplementedError, match="SOFTMAX"):
+    with pytest.raises(NotImplementedError, match="SQUARED_DIFFERENCE"):
         TFLiteNet(Fake())

@@ -5,19 +5,25 @@ both irises on one CUDA card, with any of the five detectors;
 ``tpu_face_torch.tracking`` runs it over video (``FaceTracker``,
 ``MultiFaceTracker``: the detector only when a stream loses its lock),
 with optional OneEuro smoothing (``tpu_face_torch.smoothing``);
+``tpu_face_torch.pipeline.EmbedCascade`` runs detect -> crop -> embed
+(identification);
 ``tpu_face_torch.models`` has the standalone ``FaceDetection``,
-``FaceLandmark`` and ``IrisLandmark``, each with f32 or bf16 nets
-(``compute_dtype``); ``tpu_face_torch.compiler`` lowers the TFLite graphs
-(``load_model_fn``, ``graph_flops``).  The kernels are hand-written CUDA
-(``csrc/``): the rotated bilinear ROI warp (``warp_bilinear.cu``,
-``warp_bilinear_strips.cu``, and its shared-memory staged variants
-``warp_strips_staged.cu``) and the detectors' fused residual blocks
-(``fused_dw_pw_block.cu`` in f32, ``fused_dw_pw_block_bf16.cu`` in bf16
-on the tensor cores).  Module names follow the JAX package so each
-counterpart is easy to find.
+``FaceLandmark``, ``IrisLandmark`` and ``FaceEmbeddings``, each with f32
+or bf16 nets (``compute_dtype``); ``tpu_face_torch.compiler`` lowers the
+TFLite graphs (``load_model_fn``, ``graph_flops``); ``render`` draws
+results, ``utils.profiling`` labels stages for torch.profiler and NVTX,
+``utils.native_loader`` decodes JPEG batches on the host, and
+``python -m tpu_face_torch`` is the command line.  The kernels are
+hand-written CUDA (``csrc/``): the rotated bilinear ROI warp
+(``warp_bilinear.cu``, ``warp_bilinear_strips.cu``, and its
+shared-memory staged variants ``warp_strips_staged.cu``) and the
+detectors' fused residual blocks (``fused_dw_pw_block.cu`` in f32,
+``fused_dw_pw_block_bf16.cu`` in bf16 on the tensor cores).  Module
+names follow the JAX package so each counterpart is easy to find.
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
-without a card they raise instead of falling back.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(the command line: ``--device cpu``); without a card they raise instead
+of falling back.
 """
 
 import contextlib
@@ -48,3 +54,14 @@ def exact_f32():
             yield
     finally:
         matmul.allow_tf32 = saved
+
+
+__version__ = "0.3.4"
+
+# the subpackages read resolve_device and exact_f32 from here, so they
+# come after them
+from . import models, render  # noqa: E402
+from .types import BBox, Detection, ImageTensor, Landmark, Rect  # noqa: E402
+
+__all__ = ["BBox", "Detection", "ImageTensor", "Landmark", "Rect",
+           "exact_f32", "models", "render", "resolve_device"]

@@ -1,17 +1,26 @@
 """Lower a converted TFLite graph (npz) to a batched PyTorch module.
 
-Counterpart of tpu_face/compiler/lowering.py for the eleven ops the
-five detectors and the mesh and iris nets use: CONV_2D,
+Counterpart of tpu_face/compiler/lowering.py with its whole op set: the
+ops of the five detectors and the mesh and iris nets (CONV_2D,
 DEPTHWISE_CONV_2D, ADD, RELU, PRELU, MAX_POOL_2D, PAD, RESHAPE,
-CONCATENATION, and RESIZE_BILINEAR and DEPTH_TO_SPACE (the full-range
-detectors' feature pyramid).  Any other op raises
-``NotImplementedError``.  ``graph_flops``, ``load_model_fn`` and
-``Graph(collapse_separable=...)`` are the JAX module's too.
+CONCATENATION, RESIZE_BILINEAR, DEPTH_TO_SPACE) and those of the
+embedding nets (FULLY_CONNECTED, BATCH_MATMUL, AVERAGE_POOL_2D, SUB, MUL,
+DIV, MINIMUM, MAXIMUM, MEAN, SOFTMAX, L2_NORMALIZATION, SQRT, RSQRT,
+NEG, EXP, TANH, HARD_SWISH, LOGISTIC, TRANSPOSE).  Any other op raises
+``NotImplementedError``, as does a SAME-padded AVERAGE_POOL_2D that is
+no whole-window reshape (the JAX module asserts there).
+``graph_flops``, ``load_model_fn`` and ``Graph(collapse_separable=...)``
+are the JAX module's too.
 
-The graphs are NHWC; the module's body runs NCHW (cuDNN's native
-layout) and keeps the graph's NHWC semantics at its edges: input and
-outputs are NHWC, PAD specs are reordered, and RESHAPE/CONCATENATION,
-whose shapes and axes refer to NHWC, see NHWC tensors.  TFLite "SAME"
+The graphs are NHWC; the module's body holds 4-D activations NCHW
+(cuDNN's native layout) and keeps the graph's NHWC semantics at its
+edges: input and outputs are NHWC, PAD specs are reordered, axes are
+mapped, and the ops whose shapes or axes refer to the graph's own layout
+(RESHAPE, CONCATENATION across layouts, MEAN without ``keep_dims``,
+FULLY_CONNECTED, BATCH_MATMUL, TRANSPOSE) see NHWC tensors; a 4-D
+result of those goes back to NCHW.  Float constants that feed an
+elementwise op are module buffers in their NHWC shape, read through an
+NCHW view where the other operand is NCHW.  TFLite "SAME"
 padding is asymmetric for even windows (the extra row/column goes
 bottom/right), so it is computed per layer and applied with ``F.pad``
 where the two sides differ.
@@ -37,9 +46,24 @@ from torch import nn
 
 from ..ops import fused_block
 
-_SUPPORTED = ("CONV_2D", "DEPTHWISE_CONV_2D", "ADD", "RELU", "PRELU",
-              "MAX_POOL_2D", "PAD", "RESHAPE", "CONCATENATION",
-              "RESIZE_BILINEAR", "DEPTH_TO_SPACE")
+# elementwise ops of two operands: {op: fn}
+_BINARY = {"ADD": torch.add, "SUB": torch.sub, "MUL": torch.mul,
+           "DIV": torch.div, "MINIMUM": torch.minimum,
+           "MAXIMUM": torch.maximum}
+# elementwise ops of one operand: {op: fn}
+_UNARY = {
+    "RELU": torch.relu, "SQRT": torch.sqrt, "RSQRT": torch.rsqrt,
+    "NEG": torch.neg, "EXP": torch.exp, "TANH": torch.tanh,
+    "LOGISTIC": torch.sigmoid,
+    # JAX's order: x * clip(x + 3, 0, 6) / 6, each step rounded in a
+    # bf16 net
+    "HARD_SWISH": lambda x: x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0,
+}
+_SUPPORTED = (("CONV_2D", "DEPTHWISE_CONV_2D", "PRELU", "MAX_POOL_2D",
+               "AVERAGE_POOL_2D", "PAD", "RESHAPE", "CONCATENATION",
+               "RESIZE_BILINEAR", "DEPTH_TO_SPACE", "FULLY_CONNECTED",
+               "BATCH_MATMUL", "MEAN", "SOFTMAX", "L2_NORMALIZATION",
+               "TRANSPOSE") + tuple(_BINARY) + tuple(_UNARY))
 
 # NHWC axis -> NCHW axis
 _TO_NCHW_AXIS = {0: 0, 1: 2, 2: 3, 3: 1}
@@ -324,12 +348,16 @@ def _chains(prev, block, users, graph_outputs):
 
 
 def params_from_consts(ops, consts):
-    """The graph's float constants as the module's tensors, keyed
-    ``"t<id>"``: conv weights OHWI -> OIHW, depthwise ``[1, kh, kw, C]``
-    -> ``[C, 1, kh, kw]`` (``groups=C``), PReLU alpha -> ``[1, C, 1, 1]``,
-    biases as they are.  f16 constants are upcast to f32, as
+    """The graph's float constants as the module's tensors: conv weights
+    OHWI -> OIHW, depthwise ``[1, kh, kw, C]`` -> ``[C, 1, kh, kw]``
+    (``groups=C``), PReLU alpha -> ``[1, C, 1, 1]``, conv biases and
+    FULLY_CONNECTED weights ``[out, in]`` and biases as they are, all
+    keyed ``"t<id>"``; every other float constant an op reads (an operand
+    of an elementwise op, of BATCH_MATMUL or CONCATENATION) in its own
+    NHWC shape, keyed ``"c<id>"``.  f16 constants are upcast to f32, as
     ``tpu_face.compiler.build_jax_fn`` does.  Integer constants (PAD
-    specs, shapes) stay numpy: the module reads them as static values."""
+    specs, shapes, axes) stay numpy: the module reads them as static
+    values."""
 
     def f32(i):
         return torch.from_numpy(np.ascontiguousarray(
@@ -338,17 +366,22 @@ def params_from_consts(ops, consts):
     params = {}
     for node in ops:
         op, ins = node["op"], node["inputs"]
-        if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+        if op in ("CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED"):
             w = f32(ins[1])
-            params[f"t{ins[1]}"] = (w.permute(0, 3, 1, 2) if op == "CONV_2D"
-                                    else w.permute(3, 0, 1, 2)).contiguous()
+            if op == "CONV_2D":
+                w = w.permute(0, 3, 1, 2).contiguous()
+            elif op == "DEPTHWISE_CONV_2D":
+                w = w.permute(3, 0, 1, 2).contiguous()
+            params[f"t{ins[1]}"] = w
             if len(ins) > 2 and ins[2] >= 0:
                 params[f"t{ins[2]}"] = f32(ins[2])
         elif op == "PRELU":
             params[f"t{ins[1]}"] = f32(ins[1]).reshape(1, -1, 1, 1)
-        elif op in ("ADD", "CONCATENATION") and any(i in consts
-                                                    for i in ins):
-            raise NotImplementedError(f"{op} with a constant operand")
+        else:
+            for i in ins:
+                if i in consts and np.issubdtype(np.asarray(consts[i]).dtype,
+                                                 np.floating):
+                    params[f"c{i}"] = f32(i)
     return params
 
 
@@ -387,6 +420,13 @@ def _act(x, kind):
     if kind == "TANH":
         return torch.tanh(x)
     raise NotImplementedError(f"activation {kind}")
+
+
+def _mean(x, dims, keepdim):
+    """Mean over ``dims``, summed in f32 and rounded once to ``x``'s type
+    (JAX upcasts a bf16 mean the same way)."""
+    return x.mean(dim=tuple(dims), keepdim=keepdim,
+                  dtype=torch.float32).to(x.dtype)
 
 
 def _prelu(x, alpha):
@@ -582,6 +622,31 @@ class TFLiteNet(nn.Module):
             x = F.pad(x, (pl, pr, pt, pb), value=-math.inf)
         return _act(F.max_pool2d(x, (fh, fw), stride), o["activation"])
 
+    def _const(self, i, as_nchw):
+        """Float constant ``i`` (buffer ``c<i>``, NHWC-shaped): as it is,
+        or where the op computes NCHW as a view that broadcasts the same
+        way (padded with leading 1s to 4-D, then NHWC -> NCHW)."""
+        c = getattr(self, f"c{i}")
+        if not as_nchw:
+            return c
+        return c.reshape((1,) * (4 - c.dim()) + tuple(c.shape)).permute(
+            0, 3, 1, 2)
+
+    @staticmethod
+    def _avg_pool(x, o):
+        fh, fw = o["filter"]
+        sh, sw = o["stride"]
+        n, c, h, w = x.shape
+        if (fh, fw) == (sh, sw) and h % fh == 0 and w % fw == 0:
+            y = _mean(x.reshape(n, c, h // fh, fh, w // fw, fw), (3, 5),
+                      False)
+        elif o["padding"] != "VALID":
+            raise NotImplementedError(
+                "SAME avg-pool edge renorm not implemented")
+        else:
+            y = F.avg_pool2d(x, (fh, fw), (sh, sw))
+        return _act(y, o["activation"])
+
     def forward(self, x):
         batch = x.shape[0]
         # env holds 4-D activations NCHW (ids in `nchw`), anything else
@@ -593,6 +658,13 @@ class TFLiteNet(nn.Module):
         def nhwc(i):
             v = env[i]
             return v.permute(0, 2, 3, 1) if i in nchw else v
+
+        def arg(i, as_nchw):
+            """Operand ``i`` for an op computing NCHW (``as_nchw``) or in
+            the graph's own layout: an activation or a constant."""
+            if i in env:
+                return env[i] if as_nchw else nhwc(i)
+            return self._const(i, as_nchw)
 
         for node in self.ops:
             if id(node) in self._in_run:
@@ -610,12 +682,14 @@ class TFLiteNet(nn.Module):
                                op == "DEPTHWISE_CONV_2D")
             elif op == "MAX_POOL_2D":
                 y = self._max_pool(env[ins[0]], o)
-            elif op == "ADD":
-                a, b = ((env[ins[0]], env[ins[1]]) if layout_nchw
-                        else (nhwc(ins[0]), nhwc(ins[1])))
-                y = _act(a + b, o["activation"])
-            elif op == "RELU":
-                y = torch.relu(env[ins[0]])
+            elif op == "AVERAGE_POOL_2D":
+                y = self._avg_pool(env[ins[0]], o)
+            elif op in _BINARY:
+                y = _act(_BINARY[op](arg(ins[0], layout_nchw),
+                                     arg(ins[1], layout_nchw)),
+                         o.get("activation", "NONE"))
+            elif op in _UNARY:
+                y = _UNARY[op](env[ins[0]])
             elif op == "PRELU":
                 y = _prelu(env[ins[0]], getattr(self, f"t{ins[1]}"))
             elif op == "PAD":
@@ -631,13 +705,9 @@ class TFLiteNet(nn.Module):
                 if tgt and tgt[0] == 1:
                     tgt[0] = batch
                 y = nhwc(ins[0]).reshape(tgt)
-                layout_nchw = y.dim() == 4
-                if layout_nchw:
-                    y = y.permute(0, 3, 1, 2)
+                layout_nchw = False
             elif op in ("RESIZE_BILINEAR", "DEPTH_TO_SPACE"):
-                xin = (env[ins[0]] if ins[0] in nchw
-                       else env[ins[0]].permute(0, 3, 1, 2))
-                layout_nchw = True
+                xin = env[ins[0]]
                 if op == "DEPTH_TO_SPACE":
                     y = _depth_to_space(xin, o["block_size"])
                 else:
@@ -649,15 +719,64 @@ class TFLiteNet(nn.Module):
                         o["align_corners"], o["half_pixel_centers"]
                     ).to(self.compute_dtype)
             elif op == "CONCATENATION":
-                axis = o["axis"] % env[ins[0]].dim()
-                if layout_nchw:
-                    y = torch.cat([env[i] for i in ins],
-                                  dim=_TO_NCHW_AXIS[axis])
+                parts = [arg(i, layout_nchw) for i in ins]
+                axis = o["axis"] % parts[0].dim()
+                y = _act(torch.cat(parts, dim=_TO_NCHW_AXIS[axis]
+                                   if layout_nchw else axis),
+                         o["activation"])
+            elif op == "MEAN":
+                xin = env[ins[0]]
+                axes = [a % xin.dim() for a in np.asarray(
+                    self.consts[ins[1]]).reshape(-1).tolist()]
+                if layout_nchw and o["keep_dims"]:
+                    y = _mean(xin, [_TO_NCHW_AXIS[a] for a in axes], True)
                 else:
-                    y = torch.cat([nhwc(i) for i in ins], dim=axis)
+                    y = _mean(nhwc(ins[0]), axes, o["keep_dims"])
+                    layout_nchw = False
+            elif op in ("SOFTMAX", "L2_NORMALIZATION"):
+                # over the graph's last axis: the channels of an NCHW body
+                dim = 1 if layout_nchw else -1
+                xin = env[ins[0]]
+                if op == "SOFTMAX":
+                    xin = xin * o.get("beta", 1.0)
+                    e = torch.exp(xin - xin.amax(dim, keepdim=True))
+                    y = e / e.sum(dim, keepdim=True)
+                else:
+                    sq = torch.sum(xin * xin, dim, keepdim=True)
+                    y = xin * torch.rsqrt(torch.clamp(sq, min=1e-12))
+            elif op == "FULLY_CONNECTED":
+                w = getattr(self, f"t{ins[1]}")        # [out, in]
+                xin = nhwc(ins[0])
+                if not o.get("keep_num_dims"):
+                    # TFLite flattens all but the contraction dim, in the
+                    # graph's NHWC order
+                    xin = xin.reshape(-1, w.shape[1])
+                y = torch.matmul(xin, w.t())
+                if len(ins) > 2 and ins[2] >= 0:
+                    y = y + getattr(self, f"t{ins[2]}")
                 y = _act(y, o["activation"])
+                layout_nchw = False
+            elif op == "BATCH_MATMUL":
+                a, b = arg(ins[0], False), arg(ins[1], False)
+                if o.get("adj_x"):
+                    a = a.transpose(-1, -2)
+                if o.get("adj_y"):
+                    b = b.transpose(-1, -2)
+                y = torch.matmul(a, b)
+                layout_nchw = False
+            elif op == "TRANSPOSE":
+                perm = np.asarray(self.consts[ins[1]]).reshape(-1).tolist()
+                if perm[0] != 0:
+                    raise ValueError(f"TRANSPOSE must preserve the batch "
+                                     f"axis, got {perm}")
+                y = nhwc(ins[0]).permute(perm)
+                layout_nchw = False
             else:
                 raise NotImplementedError(f"op {op}")
+            if not layout_nchw and y.dim() == 4:
+                # the body holds every 4-D activation NCHW
+                y = y.permute(0, 3, 1, 2)
+                layout_nchw = True
             env[node["outputs"][0]] = y
             if layout_nchw:
                 nchw.add(node["outputs"][0])

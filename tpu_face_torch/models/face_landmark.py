@@ -82,6 +82,18 @@ def face_detection_to_roi(face_detection: Detection,
                 normalized=True)
 
 
+
+def face_landmarks_to_render_data(face_landmarks, landmark_color,
+                                  connection_color, thickness: float = 2.0,
+                                  output=None):
+    """Face mesh -> render annotations (reference
+    face_landmark.rs:324-338): 124 connection lines + 468 points."""
+    from ..render import landmarks_to_render_data
+    return landmarks_to_render_data(
+        face_landmarks, FACE_LANDMARK_CONNECTIONS,
+        landmark_color=landmark_color, connection_color=connection_color,
+        thickness=thickness, normalized_positions=True, output=output)
+
 def _rect_to_abs(roi: Optional[Rect], w: int, h: int) -> np.ndarray:
     if roi is None:
         return np.array([0.5 * w, 0.5 * h, w, h, 0.0], np.float32)

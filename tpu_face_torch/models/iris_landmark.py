@@ -170,6 +170,50 @@ def get_iris_depth(iris_landmarks: List[Landmark], focal_length_mm: float,
     return IRIS_SIZE_IN_MM * x / iris_size_px
 
 
+def eye_landmarks_to_render_data(eye_contour, landmark_color,
+                                 connection_color, thickness: float = 2.0,
+                                 output=None):
+    """Eyeball contour -> render annotations (reference
+    iris_landmark.rs:312-328): the first 15 contour points with the 15
+    eye connections."""
+    from ..render import landmarks_to_render_data
+    return landmarks_to_render_data(
+        eye_contour[:MAX_EYE_LANDMARK], EYE_LANDMARK_CONNECTIONS,
+        landmark_color=landmark_color, connection_color=connection_color,
+        thickness=thickness, normalized_positions=True, output=output)
+
+
+def iris_landmarks_to_render_data(iris_landmarks, landmark_color=None,
+                                  oval_color=None, thickness: float = 1.0,
+                                  image_size=None, output=None):
+    """Iris keypoints -> render annotations (reference
+    iris_landmark.rs:330-375): optional iris circle (drawn as the
+    reference's rect-not-oval) + the 5 keypoints."""
+    from ..render import Annotation, Point, RectOrOval
+
+    annotations = []
+    if oval_color is not None:
+        if image_size is None:
+            image_size = (-1, -1)
+        w, h = image_size
+        if w < 2 or h < 2:
+            raise ValueError("oval_color requires a valid image_size arg")
+        radius = get_iris_diameter(iris_landmarks, image_size) / 2.0
+        center = iris_landmarks[IrisIndex.CENTER]
+        oval = RectOrOval(center.x - radius / w, center.y - radius / h,
+                          center.x + radius / w, center.y + radius / h,
+                          oval=True)
+        annotations.append(Annotation([oval], True, thickness, oval_color))
+    if landmark_color is not None:
+        points = [Point(lmk.x, lmk.y) for lmk in iris_landmarks]
+        annotations.append(Annotation(points, True, thickness,
+                                      landmark_color))
+    if output is not None:
+        output.extend(annotations)
+        return output
+    return annotations
+
+
 def _landmarks(rows) -> List[Landmark]:
     return [Landmark(float(x), float(y), float(z)) for x, y, z in rows]
 

@@ -88,24 +88,34 @@ def crop_roi_from_detection(box, image_size: Tuple[int, int], xp=np):
     """Detection corner rows -> the reference's int-truncated
     axis-aligned crop rect, intersected with the frame.
 
-    ``box`` is [2, 2] normalized ((xmin, ymin), (xmax, ymax)) — the
+    ``box`` is [..., 2, 2] normalized ((xmin, ymin), (xmax, ymax)) — the
     first two rows of a Detection.  Reference semantics
     face_embeddings.rs:101-109: int() of xmin/ymin and of the float
     width/height; the frame intersection is ours (Mat::roi would
     error out of bounds).  Degenerate boxes clamp to a 1-px crop
-    instead of failing.  Returns float32 (roi_abs (5,), crop_bbox (4,)
-    = (x0, y0, x1, y1) absolute), f32 like every other ROI producer."""
+    instead of failing.  Returns float32 (roi_abs [..., 5], crop_bbox
+    [..., 4] = (x0, y0, x1, y1) absolute), f32 like every other ROI
+    producer.  ``xp`` is numpy or torch (a batch of boxes on the
+    device, as ``pipeline.EmbedCascade`` and
+    ``models.FaceEmbeddings.embed_boxes`` give it)."""
     w, h = image_size
-    box = xp.asarray(box, xp.float32)
-    x = xp.trunc(box[0, 0] * w)
-    y = xp.trunc(box[0, 1] * h)
-    cw = xp.trunc((box[1, 0] - box[0, 0]) * w)
-    ch = xp.trunc((box[1, 1] - box[0, 1]) * h)
+    if xp is np:
+        box = np.asarray(box, np.float32)
+        stack = lambda vs: np.stack(vs, axis=-1).astype(np.float32)
+        lower = np.maximum
+    else:
+        box = box.to(xp.float32)
+        stack = lambda vs: xp.stack(vs, dim=-1)
+        lower = xp.maximum
+    x = xp.trunc(box[..., 0, 0] * w)
+    y = xp.trunc(box[..., 0, 1] * h)
+    cw = xp.trunc((box[..., 1, 0] - box[..., 0, 0]) * w)
+    ch = xp.trunc((box[..., 1, 1] - box[..., 0, 1]) * h)
     x0 = xp.clip(x, 0.0, w - 1.0)
     y0 = xp.clip(y, 0.0, h - 1.0)
-    x1 = xp.clip(x + cw, x0 + 1.0, float(w))
-    y1 = xp.clip(y + ch, y0 + 1.0, float(h))
-    roi_abs = xp.stack([(x0 + x1) / 2.0, (y0 + y1) / 2.0,
-                        x1 - x0, y1 - y0,
-                        xp.zeros((), xp.float32)]).astype(xp.float32)
-    return roi_abs, xp.stack([x0, y0, x1, y1]).astype(xp.float32)
+    # clip(v, lo, hi) with a per-box lo: min(max(v, lo), hi)
+    x1 = xp.clip(lower(x + cw, x0 + 1.0), None, float(w))
+    y1 = xp.clip(lower(y + ch, y0 + 1.0), None, float(h))
+    roi_abs = stack([(x0 + x1) / 2.0, (y0 + y1) / 2.0, x1 - x0, y1 - y0,
+                     xp.zeros_like(x0)])
+    return roi_abs, stack([x0, y0, x1, y1])

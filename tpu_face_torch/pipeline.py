@@ -1,5 +1,7 @@
-"""FaceCascade: detect -> face ROI -> mesh -> both irises on one device
-(counterpart of tpu_face/pipeline.py).
+"""FaceCascade: detect -> face ROI -> mesh -> both irises on one device,
+and EmbedCascade: detect -> crop -> embed (counterparts of
+tpu_face/pipeline.py).  Both share ``_DetectorBase``: the detector, the
+frame planes and the detect stage, and the batched host API.
 
 Per batch of same-size frames: build the channel planes once (f32 up to
 ~720p, bf16 beyond, as ``_plane_cfg`` decides); warp the whole frame for
@@ -19,12 +21,16 @@ Stage semantics match the standalone models of the reference:
   iris x2      iris_landmark.rs:158-248 (right eye mirrored)
   refinement   iris_landmark.rs:380-398
 
+``EmbedCascade`` crops each detected face axis-aligned (the reference's
+int-truncated rect, intersected with the frame) to 112x112 and runs the
+embedding net and the L2 norm on the flat [B*K] batch of crops.
+
 With ``compute_dtype=torch.float32`` everything runs in full f32: TF32
 is switched off for the convolutions and the matmuls while the cascade
 runs (``exact_f32``).  With ``torch.bfloat16`` (the JAX package's bench
-configuration) the three nets compute in bf16 and, above 720 px, the
+configuration) the nets compute in bf16 and, above 720 px, the
 detection warp's hat matmuls run in bf16 with f32 accumulation; the ROI
-warps, the post-processing and the results stay f32.
+warps and crops, the post-processing and the results stay f32.
 """
 
 import math
@@ -38,6 +44,7 @@ from . import exact_f32, resolve_device
 from .compiler import Graph, build_torch_fn
 from .models.face_detection import (_DATA_DIR, _MODEL_FILES, _SSD_OPTS,
                                     FaceDetectionModel)
+from .models.face_embeddings import l2_normalize, load_embed_net
 from .models.face_landmark import ROI_SCALE as MESH_ROI_SCALE
 from .models.iris_landmark import (LEFT_EYE_END, LEFT_EYE_START,
                                    LEFT_EYE_TO_FACE_LANDMARK_INDEX,
@@ -45,9 +52,11 @@ from .models.iris_landmark import (LEFT_EYE_END, LEFT_EYE_START,
                                    RIGHT_EYE_TO_FACE_LANDMARK_INDEX)
 from .models.iris_landmark import ROI_SCALE as IRIS_ROI_SCALE
 from .ops import anchors as anchors_lib
+from .ops import geometry
 from .ops import image as image_ops
 from .ops import postprocess as post
 from .ops import warp as warp_ops
+from .utils import profiling
 
 
 class CascadeResult(NamedTuple):
@@ -106,7 +115,145 @@ def _roi_to_norm(roi_abs, w, h):
                         roi_abs[..., 4]], dim=-1)
 
 
-class FaceCascade:
+class _DetectorBase:
+    """The detection front end the cascades share (``tpu_face.pipeline.
+    _DetectorBase``): the detector, the frame planes, the whole-frame
+    detect stage, and the batched host API (``infer_batch`` /
+    ``__call__``).  ``FaceCascade`` adds the mesh and iris stages,
+    ``EmbedCascade`` the crop and embed stage; each defines ``_forward``
+    and a ``_profile_label``."""
+
+    _profile_label = "cascade.infer_batch"
+
+    def _init_detection(self, detection_model, model_path, compute_dtype,
+                        warp_method, max_faces, nms_top_m, input_layout,
+                        warp_profile, device, methods):
+        """Validate the shared arguments, resolve the device and the warp
+        method (one of ``methods``), and build the detector."""
+        if int(max_faces) != max_faces or max_faces < 1:
+            raise ValueError(f"max_faces must be a positive int, got "
+                             f"{max_faces!r}")
+        if input_layout not in ("hwc", "planar"):
+            raise ValueError(f"input_layout {input_layout!r}")
+        if warp_profile not in ("coverage", "speed", "auto"):
+            raise ValueError(f"warp_profile {warp_profile!r}")
+        self.device = resolve_device(device)
+        self.warp_method = image_ops.resolve_warp_method(warp_method,
+                                                         self.device)
+        if self.warp_method not in methods:
+            raise ValueError(f"warp_method {warp_method!r}: the cascade's "
+                             f"ROIs rotate, so 'pallas', 'gather' or 'mxu'")
+        self.compute_dtype = compute_dtype
+        self.max_faces = int(max_faces)
+        self.nms_top_m = nms_top_m
+        self._layout = input_layout
+        self._base = Path(model_path) if model_path else _DATA_DIR
+        det_graph = Graph(self._base
+                          / f"{_MODEL_FILES[detection_model]}.npz")
+        self._det_net = build_torch_fn(det_graph, self.device,
+                                       compute_dtype=compute_dtype)
+        self.anchors = torch.from_numpy(anchors_lib.ssd_generate_anchors(
+            _SSD_OPTS[detection_model])).to(self.device)
+        _, self.det_h, self.det_w, _ = det_graph.input_shape
+        self._whole_coords = {}
+
+    # ---- batched host API ------------------------------------------
+
+    def infer_batch(self, images):
+        """Run the cascade on a batch (a single frame gains a batch
+        axis)."""
+        with profiling.stage(self._profile_label):
+            if isinstance(images, np.ndarray):
+                images = torch.from_numpy(np.require(images,
+                                                     requirements="CW"))
+            images = images.to(self.device)
+            if images.dim() == 3:
+                images = images[None]
+            return self(images)
+
+    def __call__(self, images):
+        if self._layout == "planar":
+            _, _, h, w = images.shape
+        else:
+            _, h, w, _ = images.shape
+        with torch.inference_mode(), exact_f32():
+            return self._forward(images, (w, h))
+
+    # ---- the shared stages -------------------------------------------
+
+    @staticmethod
+    def _plane_cfg(image_size):
+        """Warp-plane type for this frame size (``pipeline._plane_cfg``
+        of the JAX package): f32 while ``planes_fit_vmem`` holds (the
+        TPU's resident kernel, up to ~720p), bf16 beyond it (its strip
+        kernel).  On the card the rule only chooses the plane type and
+        so the kernel (``warp.warp_sample_multi`` dispatches on it): every
+        frame size takes the counterpart of the TPU kernel the JAX
+        package takes there."""
+        w, h = image_size
+        return (torch.float32 if warp_ops.planes_fit_vmem(h, w)
+                else torch.bfloat16)
+
+    def _prepare_frame(self, images, image_size):
+        """[B, 3, H, W] channel planes of the type ``_plane_cfg`` picks,
+        built once per batch and read by the detection warp and every
+        later warp or crop."""
+        return warp_ops.make_planes(images, self._layout,
+                                    self._plane_cfg(image_size))
+
+    def _detect_stage(self, planes, image_size):
+        """Whole-image detection + weighted NMS (reference
+        face_detection.rs:205-267).  Returns (dets [B, K, 8, 2]
+        normalized, scores [B, K], valid [B, K]) with K = max_faces."""
+        w, h = image_size
+        det_size = (self.det_w, self.det_h)
+        with profiling.stage("detect"):
+            # whole-image ROI has rotation 0: the warp is separable (two
+            # hat matmuls).  Geometries whose int-truncated letterbox
+            # pads make the reference's first resize non-identity (e.g.
+            # 200x225 portraits) take the exact double resize.
+            two = image_ops.letterbox_two_stage_params((w, h), det_size)
+            if two is not None:
+                tensor, padding = image_ops.letterbox_two_stage(
+                    planes, (w, h), det_size, two, (-1.0, 1.0),
+                    planar=True)
+            else:
+                # bf16 hat matmuls for large frames in a bf16 cascade, as
+                # JAX's (at most one uint8 level; the f32 cascade stays
+                # exact)
+                dot_dtype = (torch.bfloat16
+                             if (self.compute_dtype == torch.bfloat16
+                                 and max(w, h) > 720) else None)
+                dx, dy, padding = self._whole_frame_coords(image_size)
+                tensor = image_ops._normalize_pixels(
+                    image_ops.separable_sample_planar(
+                        planes, dx, dy, dot_dtype=dot_dtype),
+                    (-1.0, 1.0), True)
+            raw_boxes, raw_scores = self._det_net(tensor)
+        with profiling.stage("nms"):
+            boxes = post.decode_boxes(raw_boxes, self.anchors,
+                                      float(self.det_h))
+            scores = post.clamped_sigmoid(
+                raw_scores.reshape(raw_scores.shape[0], -1))
+            valid = post.detection_validity(boxes, scores)
+            out_d, out_s, out_v = post.weighted_nms(
+                boxes, scores, valid, max_outputs=self.max_faces)
+            return post.letterbox_removal(out_d, padding), out_s, out_v
+
+    def _whole_frame_coords(self, image_size):
+        """Detection-warp coordinates and letterbox padding of the
+        whole-frame ROI, made once per frame geometry (device tensors
+        made from host values would sync the stream on every call)."""
+        if image_size not in self._whole_coords:
+            w, h = image_size
+            whole = torch.tensor([0.5 * w, 0.5 * h, w, h, 0.0],
+                                 dtype=torch.float32, device=self.device)
+            self._whole_coords[image_size] = image_ops._source_coords(
+                whole, (self.det_w, self.det_h), True, False)
+        return self._whole_coords[image_size]
+
+
+class FaceCascade(_DetectorBase):
     """The fused cascade.
 
     ``infer_batch(images)`` takes a uint8/float batch [B, H, W, 3] (or
@@ -162,60 +309,24 @@ class FaceCascade:
                  input_layout: str = "hwc",
                  warp_profile: str = "auto",
                  device=None):
-        if int(max_faces) != max_faces or max_faces < 1:
-            raise ValueError(f"max_faces must be a positive int, got "
-                             f"{max_faces!r}")
-        if input_layout not in ("hwc", "planar"):
-            raise ValueError(f"input_layout {input_layout!r}")
-        if warp_profile not in ("coverage", "speed", "auto"):
-            raise ValueError(f"warp_profile {warp_profile!r}")
-        self.device = resolve_device(device)
-        self.warp_method = image_ops.resolve_warp_method(warp_method,
-                                                         self.device)
-        if self.warp_method not in ("pallas", "gather", "mxu"):
-            raise ValueError(f"warp_method {warp_method!r}: the cascade's "
-                             f"ROIs rotate, so 'pallas', 'gather' or 'mxu'")
-        self.compute_dtype = compute_dtype
-        self.max_faces = int(max_faces)
-        self.nms_top_m = nms_top_m
-        self._layout = input_layout
-        base = Path(model_path) if model_path else _DATA_DIR
-        det_graph = Graph(base / f"{_MODEL_FILES[detection_model]}.npz")
-        mesh_graph = Graph(base / "face_landmark.npz")
-        iris_graph = Graph(base / "iris_landmark.npz")
-        self._det_net, self._mesh_net, self._iris_net = (
+        self._init_detection(detection_model, model_path, compute_dtype,
+                             warp_method, max_faces, nms_top_m,
+                             input_layout, warp_profile, device,
+                             ("pallas", "gather", "mxu"))
+        mesh_graph = Graph(self._base / "face_landmark.npz")
+        iris_graph = Graph(self._base / "iris_landmark.npz")
+        self._mesh_net, self._iris_net = (
             build_torch_fn(g, self.device, compute_dtype=compute_dtype)
-            for g in (det_graph, mesh_graph, iris_graph))
-        self.anchors = torch.from_numpy(anchors_lib.ssd_generate_anchors(
-            _SSD_OPTS[detection_model])).to(self.device)
-        _, self.det_h, self.det_w, _ = det_graph.input_shape
+            for g in (mesh_graph, iris_graph))
         _, self.mesh_h, self.mesh_w, _ = mesh_graph.input_shape
         _, self.iris_h, self.iris_w, _ = iris_graph.input_shape
         self._left_idx = torch.tensor(LEFT_EYE_TO_FACE_LANDMARK_INDEX,
                                       device=self.device)
         self._right_idx = torch.tensor(RIGHT_EYE_TO_FACE_LANDMARK_INDEX,
                                        device=self.device)
-        self._whole_coords = {}
 
-    # ---- batched host API ------------------------------------------
-
-    def infer_batch(self, images):
-        """Run the cascade on a batch (a single frame gains a batch
-        axis)."""
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(np.require(images, requirements="CW"))
-        images = images.to(self.device)
-        if images.dim() == 3:
-            images = images[None]
-        return self(images)
-
-    def __call__(self, images):
-        if self._layout == "planar":
-            _, _, h, w = images.shape
-        else:
-            _, h, w, _ = images.shape
-        with torch.inference_mode(), exact_f32():
-            return self._forward(images, (w, h))
+    # batched API (infer_batch / __call__): _DetectorBase's; returns a
+    # CascadeResult
 
     def _forward(self, images, image_size):
         res = self._full(images, image_size)
@@ -252,73 +363,6 @@ class FaceCascade:
             mesh_score, left_roi, right_roi, l_iris, r_iris, image_size)
 
     # ---- stages ------------------------------------------------------
-
-    @staticmethod
-    def _plane_cfg(image_size):
-        """Warp-plane type for this frame size (``pipeline._plane_cfg``
-        of the JAX package): f32 while ``planes_fit_vmem`` holds (the
-        TPU's resident kernel, up to ~720p), bf16 beyond it (its strip
-        kernel).  On the card the rule only chooses the plane type and
-        so the kernel (``warp.warp_sample_multi`` dispatches on it): every
-        frame size takes the counterpart of the TPU kernel the JAX
-        package takes there."""
-        w, h = image_size
-        return (torch.float32 if warp_ops.planes_fit_vmem(h, w)
-                else torch.bfloat16)
-
-    def _prepare_frame(self, images, image_size):
-        """[B, 3, H, W] channel planes of the type ``_plane_cfg`` picks,
-        built once per batch and read by the detection warp and every ROI
-        warp."""
-        return warp_ops.make_planes(images, self._layout,
-                                    self._plane_cfg(image_size))
-
-    def _detect_stage(self, planes, image_size):
-        """Whole-image detection + weighted NMS (reference
-        face_detection.rs:205-267).  Returns (dets [B, K, 8, 2]
-        normalized, scores [B, K], valid [B, K]) with K = max_faces."""
-        w, h = image_size
-        det_size = (self.det_w, self.det_h)
-        # whole-image ROI has rotation 0: the warp is separable (two hat
-        # matmuls).  Geometries whose int-truncated letterbox pads make
-        # the reference's first resize non-identity (e.g. 200x225
-        # portraits) take the exact double resize.
-        two = image_ops.letterbox_two_stage_params((w, h), det_size)
-        if two is not None:
-            tensor, padding = image_ops.letterbox_two_stage(
-                planes, (w, h), det_size, two, (-1.0, 1.0), planar=True)
-        else:
-            # bf16 hat matmuls for large frames in a bf16 cascade, as
-            # JAX's (at most one uint8 level; the f32 cascade stays exact)
-            dot_dtype = (torch.bfloat16
-                         if (self.compute_dtype == torch.bfloat16
-                             and max(w, h) > 720) else None)
-            dx, dy, padding = self._whole_frame_coords(image_size)
-            tensor = image_ops._normalize_pixels(
-                image_ops.separable_sample_planar(planes, dx, dy,
-                                                  dot_dtype=dot_dtype),
-                (-1.0, 1.0), True)
-        raw_boxes, raw_scores = self._det_net(tensor)
-        boxes = post.decode_boxes(raw_boxes, self.anchors,
-                                  float(self.det_h))
-        scores = post.clamped_sigmoid(
-            raw_scores.reshape(raw_scores.shape[0], -1))
-        valid = post.detection_validity(boxes, scores)
-        out_d, out_s, out_v = post.weighted_nms(boxes, scores, valid,
-                                                max_outputs=self.max_faces)
-        return post.letterbox_removal(out_d, padding), out_s, out_v
-
-    def _whole_frame_coords(self, image_size):
-        """Detection-warp coordinates and letterbox padding of the
-        whole-frame ROI, made once per frame geometry (device tensors
-        made from host values would sync the stream on every call)."""
-        if image_size not in self._whole_coords:
-            w, h = image_size
-            whole = torch.tensor([0.5 * w, 0.5 * h, w, h, 0.0],
-                                 dtype=torch.float32, device=self.device)
-            self._whole_coords[image_size] = image_ops._source_coords(
-                whole, (self.det_w, self.det_h), True, False)
-        return self._whole_coords[image_size]
 
     @staticmethod
     def _bands(image_size):
@@ -368,17 +412,19 @@ class FaceCascade:
         [B, K], left_roi [B, K, 5], right_roi [B, K, 5])."""
         w, h = image_size
         b, k = face_roi_abs.shape[:2]
-        mx, my, mesh_pad = image_ops._source_coords(
-            face_roi_abs, (self.mesh_w, self.mesh_h), False, False)
-        (mesh_raw,) = self._warp(planes, [(mx, my)],
-                                 self._bands(image_size)[0])
-        mesh_tensor = image_ops._normalize_pixels(mesh_raw, (0.0, 1.0),
-                                                  True)
-        raw_mesh, raw_flag = self._mesh_net(mesh_tensor.flatten(0, 1))
-        mesh_score = torch.sigmoid(raw_flag.reshape(b, k))
-        mesh = post.project_landmarks(
-            raw_mesh.reshape(b, k, -1), (self.mesh_w, self.mesh_h),
-            image_size, mesh_pad, face_roi_abs)
+        with profiling.stage("mesh_warp"):
+            mx, my, mesh_pad = image_ops._source_coords(
+                face_roi_abs, (self.mesh_w, self.mesh_h), False, False)
+            (mesh_raw,) = self._warp(planes, [(mx, my)],
+                                     self._bands(image_size)[0])
+            mesh_tensor = image_ops._normalize_pixels(mesh_raw, (0.0, 1.0),
+                                                      True)
+        with profiling.stage("mesh"):
+            raw_mesh, raw_flag = self._mesh_net(mesh_tensor.flatten(0, 1))
+            mesh_score = torch.sigmoid(raw_flag.reshape(b, k))
+            mesh = post.project_landmarks(
+                raw_mesh.reshape(b, k, -1), (self.mesh_w, self.mesh_h),
+                image_size, mesh_pad, face_roi_abs)
 
         # eye ROIs (iris_landmark.rs:268-292); rotation from NORMALIZED
         # landmark coordinates, as the reference computes it
@@ -401,18 +447,22 @@ class FaceCascade:
         (refined mesh [B, K, 468, 3], l_iris [B, K, 5, 3], r_iris
         [B, K, 5, 3])."""
         size = (self.iris_w, self.iris_h)
-        lx, ly, lp = image_ops._source_coords(left_roi, size, True, False)
-        rx, ry, rp = image_ops._source_coords(right_roi, size, True, True)
-        l_raw, r_raw = self._warp(planes, [(lx, ly), (rx, ry)],
-                                  self._bands(image_size)[1])
-        # stacked channel-major [B, K, 2, 3, Ho, Wo], handed to the net
-        # as its NHWC view of [2BK, 3, Ho, Wo]
-        pair = torch.stack([l_raw.movedim(-1, -3), r_raw.movedim(-1, -3)],
-                           dim=2)
-        pair = image_ops._normalize_pixels(pair, (0.0, 1.0), True)
+        with profiling.stage("iris_warp"):
+            lx, ly, lp = image_ops._source_coords(left_roi, size, True,
+                                                  False)
+            rx, ry, rp = image_ops._source_coords(right_roi, size, True,
+                                                  True)
+            l_raw, r_raw = self._warp(planes, [(lx, ly), (rx, ry)],
+                                      self._bands(image_size)[1])
+            # stacked channel-major [B, K, 2, 3, Ho, Wo], handed to the
+            # net as its NHWC view of [2BK, 3, Ho, Wo]
+            pair = torch.stack([l_raw.movedim(-1, -3),
+                                r_raw.movedim(-1, -3)], dim=2)
+            pair = image_ops._normalize_pixels(pair, (0.0, 1.0), True)
         b, k = pair.shape[:2]
-        raw_contour, raw_iris = self._iris_net(
-            pair.flatten(0, 2).permute(0, 2, 3, 1))
+        with profiling.stage("iris"):
+            raw_contour, raw_iris = self._iris_net(
+                pair.flatten(0, 2).permute(0, 2, 3, 1))
         raw_contour = raw_contour.reshape(b, k, 2, -1)
         raw_iris = raw_iris.reshape(b, k, 2, -1)
 
@@ -447,3 +497,100 @@ class FaceCascade:
             iris=torch.stack([l_iris, r_iris], dim=-3),
             envelope_ok=torch.ones_like(face_valid),
         )
+
+
+class EmbedResult(NamedTuple):
+    """Per-image results of the identification pipeline (leading batch
+    axis; with ``max_faces > 1`` a face axis follows it), in the shapes
+    of ``tpu_face.pipeline.EmbedResult``."""
+
+    detection: torch.Tensor   # [B, 8, 2] corners + 6 keypoints (norm)
+    score: torch.Tensor       # [B] detection score
+    face_valid: torch.Tensor  # [B] bool
+    crop_bbox: torch.Tensor   # [B, 4] ABSOLUTE (x0, y0, x1, y1) crop used
+    embedding: torch.Tensor   # [B, D] L2-normalized feature vector
+
+
+class EmbedCascade(_DetectorBase):
+    """Detect -> crop -> embed identification pipeline
+    (``tpu_face.pipeline.EmbedCascade``).
+
+    Per batch: the detector and its weighted NMS (``_DetectorBase``),
+    each face's axis-aligned crop (the reference's int-truncated rect,
+    intersected with the frame: ``ops.geometry.crop_roi_from_detection``)
+    resized to the embedding net's 112x112 in range (0, 1), the net on the
+    flat [B*K] batch of crops and the L2 norm.  Crops of invalid faces are
+    finite garbage that ``face_valid`` masks.
+
+    The crop by ``warp_method``, as in JAX: "pallas" ("auto" on the card)
+    the two separable hat matmuls over the frame planes the detector
+    read (``separable_sample_planar``; no warp kernel), "gather" the
+    plain zero-border gather, "mxu" and "separable" the separable hat
+    matmuls over the frames (JAX passes "separable" for "mxu").  The
+    embedding net has no run for the fused kernel and runs op by op; the
+    BACK detector's residual runs take the fused kernel.
+
+    ``warp_profile`` is validated and ignored, as in ``FaceCascade``.
+    The embeddings model is not bundled: ``embed_model_path`` (else
+    ``model_path``, else the JAX package's data directory) must hold a
+    converted ``face_embeddings.npz``; ``tpu_face/data/demo`` has one with
+    synthetic weights.  ``device=None`` means the CUDA card and raises
+    without one."""
+
+    _profile_label = "embed_cascade.infer_batch"
+
+    def __init__(self,
+                 detection_model: FaceDetectionModel =
+                 FaceDetectionModel.BACK_CAMERA,
+                 model_path: Optional[str] = None,
+                 embed_model_path: Optional[str] = None,
+                 compute_dtype=torch.float32,
+                 warp_method: str = "auto",
+                 max_faces: int = 1,
+                 nms_top_m: int = 128,
+                 input_layout: str = "hwc",
+                 warp_profile: str = "auto",
+                 device=None):
+        self._init_detection(detection_model, model_path, compute_dtype,
+                             warp_method, max_faces, nms_top_m,
+                             input_layout, warp_profile, device,
+                             image_ops.WARP_METHODS)
+        egraph, self._embed_net = load_embed_net(
+            embed_model_path or model_path, compute_dtype, self.device)
+        _, self.embed_h, self.embed_w, _ = egraph.input_shape
+
+    # batched API (infer_batch / __call__): _DetectorBase's; returns an
+    # EmbedResult
+
+    def _forward(self, images, image_size):
+        planes = self._prepare_frame(images, image_size)
+        dets, score, face_valid = self._detect_stage(planes, image_size)
+        roi_abs, crop_bbox = geometry.crop_roi_from_detection(
+            dets[..., :2, :], image_size, xp=torch)
+        with profiling.stage("embed_crop"):
+            tensor = self._crop(planes, roi_abs)
+        with profiling.stage("embed"):
+            (raw,) = self._embed_net(tensor.flatten(0, 1))
+            b, k = dets.shape[:2]
+            emb = l2_normalize(raw.reshape(b, k, -1))
+        res = EmbedResult(detection=dets, score=score, face_valid=face_valid,
+                          crop_bbox=crop_bbox, embedding=emb)
+        if self.max_faces == 1:
+            # as in JAX: no face axis at max_faces=1
+            res = EmbedResult(*(f[:, 0] for f in res))
+        return res
+
+    def _crop(self, planes, roi_abs):
+        """The faces' 112x112 crops [B, K, Ho, Wo, 3] in range (0, 1) of
+        axis-aligned ABS ROIs [B, K, 5] over the planes [B, 3, H, W]."""
+        ex, ey, _ = image_ops._source_coords(
+            roi_abs, (self.embed_w, self.embed_h), False, False)
+        if self.warp_method == "pallas":
+            # every face against its frame's planes: [B, 1, 3, H, W]
+            out = image_ops.separable_sample_planar(planes[:, None], ex, ey)
+        elif self.warp_method == "gather":
+            (out,) = warp_ops.warp_sample_multi_plain(planes, [(ex, ey)])
+        else:
+            frames = planes.movedim(1, -1).float()[:, None]
+            out = image_ops.separable_sample(frames, ex, ey)
+        return image_ops._normalize_pixels(out, (0.0, 1.0), True)

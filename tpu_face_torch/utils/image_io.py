@@ -1,7 +1,9 @@
-"""Host-side image decoding (counterpart of tpu_face/utils/image_io.py).
+"""Host-side image decoding and small vector helpers (counterpart of
+tpu_face/utils/image_io.py).
 
 Frames are decoded once on the host with Pillow (already RGB); everything
-after the decode runs on the device.
+after the decode runs on the device.  ``l2_norm`` and
+``similarity_score`` are host numpy, the JAX module's arithmetic.
 """
 
 import io
@@ -45,3 +47,16 @@ def load_image(src) -> np.ndarray:
     else:
         img = src  # assume PIL image
     return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
+def l2_norm(arr: np.ndarray) -> np.ndarray:
+    """L2-normalize a vector/matrix by its global norm
+    (reference utils.rs:30-33)."""
+    return arr / np.sqrt(np.sum(np.square(arr)))
+
+
+def similarity_score(a, b) -> float:
+    """Cosine similarity (reference utils.rs:44-50)."""
+    a = np.asarray(a, dtype=np.float32).ravel()
+    b = np.asarray(b, dtype=np.float32).ravel()
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
