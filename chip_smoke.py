@@ -133,7 +133,34 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               same commands with ``--device cpu``, and
               native_loader.available() (where the loader builds: a JPEG
               of a rotated frame decoded against Pillow);
-10. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
+10. aot     -- the serving programs (tpu_face_torch.aot), the counts set
+              to 0 before and read after: FaceCascade with f32 and with
+              bf16 nets at 540x360 batch 8, f32 at 1920x1080 planar batch
+              4 (the strip kernel) and EmbedCascade f32 (demo graph) at
+              540x360 batch 8, each saved, loaded and attached to a fresh
+              object: the attached call within 1e-6 of the live one with
+              the flags equal (printed: bit-identical or not), the same
+              counted launches per call, and the loaded graph's kernel
+              operators giving those launches (2 warp nodes, 4 fused run
+              nodes whose chunks add up to 13 f32 or 8 bf16 launches);
+              then FaceTracker's artifact (the full cascade at 8 streams
+              and at the repair batch 1, the tracked stages) over a full,
+              a locked and a repair step against a live tracker, step by
+              step; each artifact's save, load and attach seconds and
+              size, and the cold start of a FaceCascade (construction and
+              first call against construction, attach and first call,
+              and aot.load and first call);
+11. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
+              read after: infer_sharded of FaceCascade() at 540x360 batch
+              64 over data_parallel_mesh() (every visible card; its size
+              printed) and over [cuda:0, cuda:0] against the unsharded
+              call (within 2e-3, flags equal; each shard's launches), and
+              track_sharded of FaceTracker() over both meshes, 8 streams
+              over a full, a locked and a repair step, against the
+              unsharded tracker; then each sharded call's frames/s beside
+              the unsharded call's (host clock, every card synchronized;
+              printed, no limit);
+12. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
@@ -141,7 +168,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               turns against one bound, the bytes the staged windows copied
               (counted by the kernel) printed beside those the gather's
               bound counts;
-11. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+13. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
               and with bf16 nets; faces/s of canvas (c) at batch 32 with
@@ -158,8 +185,11 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               R4, each one's error and device time (k3_probe): the call
               time (CUDA events over back-to-back calls, the host's
               launch path included) and the device time (the same calls
-              queued behind a ``torch.cuda._sleep``, ``queued_ms``).  The
-              f32 and the bf16 fused kernel are timed on the same runs.
+              queued behind a ``torch.cuda._sleep``, ``queued_ms``); K1's
+              call time is through its registered operator, and its
+              ``direct_ms`` the same launches by the operator's CUDA
+              implementation called directly.  The f32 and the bf16 fused
+              kernel are timed on the same runs.
 
 Its last lines are the nvidia-smi line, a JSON line of numbers, the
 kernels' JSON line and {"ok": true, "device": {...}}.  Imports nothing
@@ -2017,6 +2047,280 @@ def phase_tracker():
     return launches, numbers
 
 
+# ---- serving: AOT programs and batch data parallelism ------------------
+
+AOT_DIR = ROOT / "build" / "tpu_face_torch" / "aot"
+SHARD_TOL = 2e-3    # sharded vs unsharded, as tests/test_sharding.py
+
+
+def close(got, want, tol, label):
+    """Every field of ``got`` within ``tol`` of ``want``'s, bools equal;
+    returns the largest difference."""
+    worst = 0.0
+    for f, a, b in zip(want._fields, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, (label, f)
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), (label, f)
+        else:
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+    assert worst <= tol, (label, worst)
+    return worst
+
+
+# the kernels line's entry of each warp operator
+GRAPH_OPS = {"warp_bilinear_segments": "warp_bilinear",
+             "warp_bilinear_strips": "warp_bilinear_strips"}
+
+
+def graph_launches(prog):
+    """The kernel launches one call of a loaded program makes, read from
+    its graph: one per warp operator node, one per chunk of each fused
+    run operator node (by its activations' type); and the fused nodes."""
+    counts = dict.fromkeys(SOURCES, 0)
+    runs = 0
+    for program in prog.programs.values():
+        for node in program.module.graph.nodes:
+            name = str(node.target)
+            if node.op != "call_function" or not name.startswith(
+                    "tpu_face_torch."):
+                continue
+            op = name.split(".")[1]
+            if op == "fused_blocks":
+                runs += 1
+                counts[fused_entry(node.args[0].meta["val"].dtype)] += len(
+                    node.args[3])
+            else:
+                counts[GRAPH_OPS[op]] += 1
+    return counts, runs
+
+
+def synced_ms(fn, reps, warmup=2):
+    """Mean host time of ``reps`` calls of ``fn`` ending in a synchronize
+    of every card (the work of a call may span cards)."""
+    def sync():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def aot_cascade(label, make, frames, want, runs):
+    """Save ``make()``'s program at ``frames``' geometry, load it, attach
+    it to a fresh ``make()`` and hold one call against the live one: within
+    1e-6 with the flags equal, the same counted launches (``want``) per
+    call, and its graph's operators: ``want`` launches in ``runs`` fused
+    run nodes.  Returns the numbers (seconds, bytes, difference)."""
+    live_obj = make()
+    live, n = counted(lambda: live_obj(frames))
+    assert n == want, (label, "live", n, want)
+    b = frames.shape[0]
+    planar = live_obj._layout == "planar"
+    h, w = frames.shape[2:] if planar else frames.shape[1:3]
+    t0 = time.perf_counter()
+    path = aot.save(live_obj, AOT_DIR / f"{label}.aot", batch=b, height=h,
+                    width=w)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = aot.load(path)
+    load_s = time.perf_counter() - t0
+    assert graph_launches(prog) == (want, runs), (label, graph_launches(prog))
+    fresh = make()
+    t0 = time.perf_counter()
+    aot.attach(fresh, path)
+    attach_s = time.perf_counter() - t0
+    out, n = counted(lambda: fresh(frames))
+    assert n == want, (label, "attached", n, want)
+    diff = close(out, live, 1e-6, label)
+    row = {"save_s": save_s, "load_s": load_s, "attach_s": attach_s,
+           "bytes": path.stat().st_size, "max_abs_diff": diff,
+           "bit_identical": diff == 0.0, "launches_per_call": {
+               k: v for k, v in want.items() if v}}
+    print(f"aot {label}: save {save_s:.2f} s, load {load_s:.2f} s, attach "
+          f"{attach_s:.2f} s, {row['bytes'] / 1e6:.2f} MB; attached vs live "
+          f"max |diff| {diff:.3g}, launches per call "
+          f"{row['launches_per_call']} (graph: {runs} fused run nodes)",
+          flush=True)
+    return row, path
+
+
+def phase_aot():
+    """The serving programs on the card, the counts set to 0 before and
+    read after: FaceCascade f32 and bf16 at 540x360 batch 8, f32 at
+    1920x1080 planar batch 4 (the strip kernel), EmbedCascade f32 (demo
+    graph) at 540x360 batch 8, each saved (``aot.save``), loaded and
+    attached to a fresh object and held against the live one
+    (``aot_cascade``); then FaceTracker at 8 streams of 540x360 over three
+    steps (full, locked, repair: stream 2 blanked) through an attached
+    artifact against a live tracker, step by step (within 1e-6, flags,
+    lock states and launches equal).  Then cold start: a fresh cascade's
+    construction and first call against its construction, ``attach`` and
+    first call, and ``aot.load`` alone and a first call.  Returns
+    (launches, numbers)."""
+    phase("aot")
+    AOT_DIR.mkdir(parents=True, exist_ok=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    four = np.stack([load_image(ROT / n) for n in FRAMES_540])
+    frames = torch.from_numpy(np.tile(four, (2, 1, 1, 1))).cuda()
+    hires = hires_batch(canvas_1080p(load_image), 4, np.random.default_rng(1))
+    demo = str(DATA_DIR / "demo")
+    fused = {dt: FaceCascade(compute_dtype=dt)._det_net.fused_launches()
+             for dt in (f32, bf16)}
+    runs = 4                    # the BACK detector's residual runs
+    reset_counts()
+    numbers = {}
+    for label, make, x, want in (
+            ("cascade_f32_540p_b8", FaceCascade, frames,
+             only(warp_bilinear=2, fused_dw_pw_block_f32=fused[f32])),
+            ("cascade_bf16_540p_b8", lambda: FaceCascade(compute_dtype=bf16),
+             frames,
+             only(warp_bilinear=2, fused_dw_pw_block_bf16=fused[bf16])),
+            ("cascade_f32_1080p_planar_b4",
+             lambda: FaceCascade(input_layout="planar"), hires,
+             only(warp_bilinear_strips=2,
+                  fused_dw_pw_block_f32=fused[f32])),
+            ("embed_cascade_f32_540p_b8",
+             lambda: EmbedCascade(embed_model_path=demo), frames,
+             only(fused_dw_pw_block_f32=fused[f32]))):
+        numbers[f"aot_{label}"], path = aot_cascade(label, make, x, want,
+                                                    runs)
+    assert (fused[f32], fused[bf16]) == (13, 8), fused
+
+    # the tracker: full, locked and repair steps through the artifact
+    track = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
+    steps = [(tracker_frames(track, i, 8, (2,) if i == 2 else ()), want)
+             for i, want in enumerate((
+                 only(warp_bilinear=2, fused_dw_pw_block_f32=fused[f32]),
+                 only(warp_bilinear=2),
+                 only(warp_bilinear=4, fused_dw_pw_block_f32=fused[f32])))]
+    live_tracker = tracking.FaceTracker()
+    t0 = time.perf_counter()
+    path = aot.save(tracking.FaceTracker(), AOT_DIR / "tracker.aot",
+                    batch=8, height=360, width=540)
+    save_s = time.perf_counter() - t0
+    attached = tracking.FaceTracker()
+    t0 = time.perf_counter()
+    prog = aot.attach(attached, path)
+    attach_s = time.perf_counter() - t0
+    # the full cascade at 8 and at the repair batch 1, the tracked stages
+    assert graph_launches(prog) == (only(
+        warp_bilinear=6, fused_dw_pw_block_f32=2 * fused[f32]), 2 * runs), \
+        graph_launches(prog)
+    worst = 0.0
+    for i, (x, want) in enumerate(steps):
+        live, n = counted(lambda: live_tracker.step(x))
+        assert n == want, (i, "live", n, want)
+        out, n = counted(lambda: attached.step(x))
+        assert n == want, (i, "attached", n, want)
+        worst = max(worst, close(out, live, 1e-6, f"tracker step {i}"))
+        assert (attached.tracking == live_tracker.tracking).all(), i
+    assert list(attached.tracking) == [True, True, False] + [True] * 5
+    numbers["aot_tracker_540p_b8"] = {
+        "save_s": save_s, "attach_s": attach_s,
+        "bytes": path.stat().st_size, "max_abs_diff": worst,
+        "programs": [q["name"] for q in prog.meta["programs"]]}
+    print(f"aot tracker 540x360 8 streams: save {save_s:.2f} s, attach "
+          f"{attach_s:.2f} s, {path.stat().st_size / 1e6:.2f} MB, programs "
+          f"{numbers['aot_tracker_540p_b8']['programs']}; full, locked, "
+          f"repair steps vs live max |diff| {worst:.3g}", flush=True)
+    launches = launch_counts()
+    print(f"launches of the aot path: {launches}", flush=True)
+
+    # cold start of the f32 cascade at 540p b8 (in a warm process: the
+    # kernels built, cuDNN initialised)
+    path = AOT_DIR / "cascade_f32_540p_b8.aot"
+
+    def attached():
+        cascade = FaceCascade()
+        aot.attach(cascade, path)
+        return cascade
+
+    cold = {}
+    for key, start in (("construct_and_call", FaceCascade),
+                       ("construct_attach_and_call", attached),
+                       ("load_and_call", lambda: aot.load(path))):
+        t0 = time.perf_counter()
+        fn = start()
+        with torch.inference_mode():
+            fn(frames)
+        torch.cuda.synchronize()
+        cold[key + "_s"] = time.perf_counter() - t0
+    numbers["aot_cold_start_540p_b8"] = cold
+    print(f"cold start, FaceCascade f32 540x360 b8 (warm process): "
+          f"{ {k: round(v, 3) for k, v in cold.items()} }", flush=True)
+    for p in AOT_DIR.glob("*.aot"):
+        p.unlink()
+    return launches, numbers
+
+
+def phase_sharded():
+    """Batch data parallelism on the card, the counts set to 0 before and
+    read after: infer_sharded of FaceCascade() over data_parallel_mesh()
+    (every visible card) and over [cuda:0, cuda:0] (two shards on one
+    card) on the 540x360 batch of 64, against the unsharded call (within
+    2e-3, flags equal; 2 warp and the detector's fused launches per
+    shard); then track_sharded of FaceTracker() over both meshes, 8
+    streams over three steps (full, locked, repair: stream 2 blanked, on
+    the second shard of two), against the unsharded tracker step by step.
+    Then frames/s of each sharded call beside the unsharded one (host
+    clock, every card synchronized).  Returns (launches, numbers)."""
+    phase("sharded")
+    meshes = {"visible": data_parallel_mesh(),
+              "cuda0_x2": data_parallel_mesh(["cuda:0", "cuda:0"])}
+    print(f"data_parallel_mesh(): {len(meshes['visible'])} device(s) "
+          f"{[str(d) for d in meshes['visible']]}", flush=True)
+    four = np.stack([load_image(ROT / n) for n in FRAMES_540])
+    b = BATCH["540p"]
+    batch = torch.from_numpy(np.tile(four, (b // 4, 1, 1, 1))).cuda()
+    cascade = FaceCascade()
+    fused = cascade._det_net.fused_launches()
+    track = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
+    steps = [tracker_frames(track, i, 8, (2,) if i == 2 else ())
+             for i in range(3)]
+    reset_counts()
+    ref = cascade(batch)
+    numbers = {}
+    for label, mesh in meshes.items():
+        out, n = counted(lambda: infer_sharded(cascade, batch, mesh))
+        assert n == only(warp_bilinear=2 * len(mesh),
+                         fused_dw_pw_block_f32=fused * len(mesh)), (label, n)
+        diff = close(out, ref, SHARD_TOL, f"infer_sharded {label}")
+        single, sharded = tracking.FaceTracker(), tracking.FaceTracker()
+        worst = 0.0
+        for i, x in enumerate(steps):
+            ru = single.step(x)
+            rs = track_sharded(sharded, x, mesh)
+            worst = max(worst, close(rs, ru, SHARD_TOL,
+                                     f"track_sharded {label} step {i}"))
+            assert (sharded.tracking == single.tracking).all(), (label, i)
+        assert list(sharded.tracking) == [True, True, False] + [True] * 5
+        numbers[f"sharded_{label}"] = {
+            "devices": [str(d) for d in mesh], "max_abs_diff": diff,
+            "tracker_max_abs_diff": worst}
+        print(f"infer_sharded over {[str(d) for d in mesh]}: vs unsharded "
+              f"max |diff| {diff:.3g}; track_sharded 3 steps (full, "
+              f"locked, repair) max |diff| {worst:.3g}", flush=True)
+    launches = launch_counts()
+    print(f"launches of the sharded path: {launches}", flush=True)
+
+    unsharded_ms = synced_ms(lambda: cascade(batch), reps=10)
+    for label, mesh in meshes.items():
+        ms = synced_ms(lambda: infer_sharded(cascade, batch, mesh), reps=10)
+        numbers[f"sharded_{label}"].update(
+            frames_per_s=b * 1e3 / ms, ms_per_batch=ms,
+            unsharded_frames_per_s=b * 1e3 / unsharded_ms)
+        print(f"infer_sharded {label} 540x360 b{b}: {b * 1e3 / ms:.1f} "
+              f"frames/s beside the unsharded call's "
+              f"{b * 1e3 / unsharded_ms:.1f}", flush=True)
+    return launches, numbers
+
+
 def strip_warp_calls(planes, calls):
     """The gather strip kernel and both staged variants over ``calls``
     (a list of one warp call's grids each), as {label: a function that
@@ -2254,10 +2558,17 @@ def phase_numbers(rng, trace, sweep=False):
     planes, grids = stage_coords(
         cascade,
         torch.from_numpy(np.tile(frames, (b // 4, 1, 1, 1))).cuda(), size)
+    calls = [([(x, y, x.shape[-1]) for x, y in g],) for g in grids]
     timed["warp_bilinear"] = time_kernel(
         warp.warp_bilinear_segments, warp.warp_bilinear_segments_plain,
-        planes, [([(x, y, x.shape[-1]) for x, y in g],) for g in grids],
-        [flat(g) for g in grids])
+        planes, calls, [flat(g) for g in grids])
+    # the same launches without the operator's dispatch: the CUDA
+    # implementation called directly (the wrapper's checks skipped too)
+    direct = [([x for x, _, _ in segs], [y for _, y, _ in segs],
+               [w for _, _, w in segs]) for (segs,) in calls]
+    timed["warp_bilinear"]["direct_ms"], _ = median_ms(
+        lambda: [warp._segments_cuda(planes, *args) for args in direct],
+        reps=50)
     numbers[f"warp_b{b}"] = {
         "calls": ["mesh 192x192 (1 segment)", "iris 2x64x64 (2 segments)"],
         **timed["warp_bilinear"]}
@@ -2410,7 +2721,8 @@ def main(argv=None):
     global _build, image_ops, warp, fused_block, FaceCascade, exact_f32
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
-    global geometry, l2_normalize
+    global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
+    global track_sharded
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", type=Path, metavar="DIR",
                         help="profile three cascade calls per frame size "
@@ -2425,13 +2737,15 @@ def main(argv=None):
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
-    from tpu_face_torch import resolve_device, tracking
+    from tpu_face_torch import aot, resolve_device, tracking
     from tpu_face_torch.compiler import Graph, build_torch_fn
     from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
     from tpu_face_torch.models.face_embeddings import l2_normalize
     from tpu_face_torch.ops import _build, fused_block, geometry
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
+    from tpu_face_torch.parallel import (data_parallel_mesh, infer_sharded,
+                                         track_sharded)
     from tpu_face_torch.pipeline import (EmbedCascade, FaceCascade,
                                          exact_f32)
     from tpu_face_torch.utils import native_loader
@@ -2460,9 +2774,13 @@ def main(argv=None):
     paths["mxu"] = phase_mxu()
     paths["tracker"], tracker_numbers = phase_tracker()
     paths["embed"], embed_numbers = phase_embed(args.trace)
+    paths["aot"], aot_numbers = phase_aot()
+    paths["sharded"], sharded_numbers = phase_sharded()
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
     numbers.update(tracker_numbers)
     numbers.update(embed_numbers)
+    numbers.update(aot_numbers)
+    numbers.update(sharded_numbers)
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
@@ -2474,6 +2792,10 @@ def main(argv=None):
                  "fused_dw_pw_block_f32"):
         assert models["f32"][name] > 0, (name, models["f32"])
         assert paths["tracker"][name] > 0, (name, paths["tracker"])
+    # the exported programs launch the four kernels of the package's path
+    for name in ("warp_bilinear", "warp_bilinear_strips",
+                 "fused_dw_pw_block_f32", "fused_dw_pw_block_bf16"):
+        assert paths["aot"][name] > 0, (name, paths["aot"])
     # the full-range nets have no fused run; mxu launches no warp kernel
     assert paths["full_detectors"] == only(
         warp_bilinear=paths["full_detectors"]["warp_bilinear"]), paths
@@ -2502,8 +2824,8 @@ def main(argv=None):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
-            **({"bound_f32_fma_ms": t["bound_f32_fma_ms"]}
-               if "bound_f32_fma_ms" in t else {})})
+            **{k: t[k] for k in ("bound_f32_fma_ms", "direct_ms")
+               if k in t}})
 
     print(smi)
     print(json.dumps(numbers))

@@ -59,7 +59,10 @@ def test_port_covers_the_slice():
             "tpu_face_torch/render.py",
             "tpu_face_torch/utils/profiling.py",
             "tpu_face_torch/utils/native_loader.py",
-            "tpu_face_torch/__main__.py"}
+            "tpu_face_torch/__main__.py",
+            "tpu_face_torch/aot.py",
+            "tpu_face_torch/parallel/__init__.py",
+            "tpu_face_torch/parallel/sharding.py"}
     assert want <= set(FILES)
     for kernel in ("warp_bilinear", "warp_bilinear_strips",
                    "fused_dw_pw_block", "fused_dw_pw_block_bf16",

@@ -13,13 +13,20 @@ or bf16 nets (``compute_dtype``); ``tpu_face_torch.compiler`` lowers the
 TFLite graphs (``load_model_fn``, ``graph_flops``); ``render`` draws
 results, ``utils.profiling`` labels stages for torch.profiler and NVTX,
 ``utils.native_loader`` decodes JPEG batches on the host, and
-``python -m tpu_face_torch`` is the command line.  The kernels are
+``python -m tpu_face_torch`` is the command line.  For serving,
+``tpu_face_torch.aot`` saves a cascade's or a tracker's batched program
+as a ``torch.export`` artifact and attaches it to a live object, and
+``tpu_face_torch.parallel`` splits a batch across CUDA devices
+(``infer_sharded``, ``track_sharded``).  The kernels are
 hand-written CUDA (``csrc/``): the rotated bilinear ROI warp
 (``warp_bilinear.cu``, ``warp_bilinear_strips.cu``, and its
 shared-memory staged variants ``warp_strips_staged.cu``) and the
 detectors' fused residual blocks (``fused_dw_pw_block.cu`` in f32,
-``fused_dw_pw_block_bf16.cu`` in bf16 on the tensor cores).  Module
-names follow the JAX package so each counterpart is easy to find.
+``fused_dw_pw_block_bf16.cu`` in bf16 on the tensor cores); those on the
+package's path are registered PyTorch operators
+(``torch.ops.tpu_face_torch.*``), so an exported program launches them.
+Module names follow the JAX package so each counterpart is easy to
+find.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the command line: ``--device cpu``); without a card they raise instead

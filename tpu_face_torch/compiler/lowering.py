@@ -547,12 +547,15 @@ class TFLiteNet(nn.Module):
         self.runs = (_residual_runs(graph.ops, graph.consts,
                                     set(graph.outputs))
                      if fuse_blocks else [])
-        # id(op) -> run index for each run's first op; ids of the others
-        self._run_start = {id(run[0]["ops"][0]): k
+        # op index -> run index for each run's first op; indices of the
+        # others (positions, not object ids: torch.export swaps the
+        # module's containers for copies while it traces)
+        pos = {id(node): i for i, node in enumerate(graph.ops)}
+        self._run_start = {pos[id(run[0]["ops"][0])]: k
                            for k, run in enumerate(self.runs)}
-        self._in_run = {id(node) for run in self.runs for b in run
+        self._in_run = {pos[id(node)] for run in self.runs for b in run
                         for node in b["ops"][1:]} | {
-            id(b["ops"][0]) for run in self.runs for b in run[1:]}
+            pos[id(b["ops"][0])] for run in self.runs for b in run[1:]}
         # (C, H, W, layers) of each run, from the graph's tensor shapes
         self.run_shapes = [
             (run[0]["c"], *graph.tensors[run[0]["input"]]["shape"][1:3],
@@ -666,13 +669,13 @@ class TFLiteNet(nn.Module):
                 return env[i] if as_nchw else nhwc(i)
             return self._const(i, as_nchw)
 
-        for node in self.ops:
-            if id(node) in self._in_run:
+        for i, node in enumerate(self.ops):
+            if i in self._in_run:
                 continue
-            if id(node) in self._run_start:
-                run = self.runs[self._run_start[id(node)]]
-                env[run[-1]["output"]] = self._run(
-                    self._run_start[id(node)], env[run[0]["input"]])
+            if i in self._run_start:
+                run = self.runs[self._run_start[i]]
+                env[run[-1]["output"]] = self._run(self._run_start[i],
+                                                   env[run[0]["input"]])
                 nchw.add(run[-1]["output"])
                 continue
             op, ins, o = node["op"], node["inputs"], node["options"]

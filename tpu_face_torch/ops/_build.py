@@ -7,7 +7,8 @@ the flags, so a stale library is never loaded; the library is opened
 with ``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once.
 Nothing here runs when the module is imported: the CPU-only test
 environment has no ``nvcc``.  ``entry`` and ``launch`` are the lean
-launch path every kernel wrapper shares.
+launch path every kernel wrapper shares; ``register`` makes a kernel a
+PyTorch operator in the ``tpu_face_torch`` namespace.
 """
 
 import ctypes
@@ -64,6 +65,9 @@ SIGNATURES = {
                            for copies in ("fused", "split")
                            for t in ("bf16", "f32")},
 }
+
+# the operators' namespace, tpu_face_torch::<name> (``register``)
+_OPS = torch.library.Library("tpu_face_torch", "FRAGMENT")
 
 _LIBS = {}
 _ENTRIES = {}    # entry point name -> ctypes function
@@ -165,3 +169,17 @@ def launch(fn, device: int, *args):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
+def register(name, schema, cpu, cuda, fake):
+    """Define the operator ``tpu_face_torch::<name><schema>`` with its CPU
+    implementation (a kernel's plain version), its CUDA implementation
+    (the launch) and its fake implementation (the output's shape and
+    type, for ``torch.export``); returns its overload.  The low-level
+    ``torch.library.Library`` route: a call costs less host time than one
+    through ``torch.library.custom_op``."""
+    _OPS.define(f"{name}{schema}")
+    _OPS.impl(name, cpu, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"tpu_face_torch::{name}", fake, lib=_OPS)
+    return getattr(torch.ops.tpu_face_torch, name).default

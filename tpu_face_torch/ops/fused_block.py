@@ -21,6 +21,14 @@ form (``kernel_weights``: one packed blob per layer, ``pack_f32`` and
 ``LAUNCHES`` counts launches of the f32 kernel and ``BF16_LAUNCHES``
 those of the bf16 one; the plain path never adds to them.
 
+A run is the registered operator ``torch.ops.tpu_face_torch.fused_blocks``
+(``fused_op``: x, the packed weights, the tile and the layers of each
+launch): its CUDA implementation launches the kernel of x's type once
+per chunk of layers, its CPU implementation unpacks the weights and runs
+the plain version, and its fake implementation gives ``torch.export`` the
+output's shape, so an exported net holds one node per run.
+``fused_blocks`` validates, plans and packs, then calls it.
+
 Both kernels stage a tile plus a halo of as many pixels as they run
 layers in shared memory, so the wrapper chooses, per run shape, the tile
 side and the layers per launch (``plan``, each kernel with its own
@@ -264,6 +272,18 @@ def pack_bf16(wd, bd, wp, bp):
                       f32.contiguous().view(torch.uint8)], 1).contiguous()
 
 
+def unpack_f32(packed, c: int):
+    """(wd [L, C, 3, 3], bd [L, C], wp [L, C, C], bp [L, C]) f32 from
+    ``pack_f32``'s rows: the inverse of the packing, exact."""
+    layers = packed.shape[0]
+    n = c * (c + 4)
+    wp = packed[:, :n].reshape(layers, c, c + 4)[:, :, :c].transpose(1, 2)
+    wd = packed[:, n:n + 9 * c].reshape(layers, 9, c).transpose(1, 2)
+    return (wd.reshape(layers, c, 3, 3).contiguous(),
+            packed[:, n + 9 * c:n + 10 * c].contiguous(), wp.contiguous(),
+            packed[:, n + 10 * c:].contiguous())
+
+
 def unpack_bf16(packed, c: int):
     """(wd [L, C, 3, 3], bd [L, C], wp [L, C, C], bp [L, C]) f32 from
     ``pack_bf16``'s rows: the inverse of the packing."""
@@ -365,40 +385,41 @@ def fused_blocks_tf32x3(x, wd, bd, wp, bp):
     return x
 
 
-def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
-    """The run on x [B, C, H, W] (f32 or bf16): the CUDA kernel of its
-    type for a CUDA tensor, ``fused_blocks_plain`` for a CPU tensor.
-    ``tiling`` ((tile, layers of each launch)) overrides ``plan``;
-    ``weights`` is ``kernel_weights(wd, bd, wp, bp, x.dtype)`` made once
-    by the caller (made here when None)."""
+def _weights_form(x, layers):
+    """[(shape, dtype)] of ``kernel_weights(..., x.dtype)`` for a run of
+    ``layers`` on x."""
+    c = x.shape[1]
+    if x.dtype == torch.bfloat16:
+        return [((layers, blob_bytes(c)), torch.uint8)]
+    return [((layers, blob_floats(c)), torch.float32)]
+
+
+def _fused_cpu(x, packed, tile, chunks):
+    """The run operator's CPU implementation: the plain version on the
+    unpacked weights (the packing is exact, so bit for bit that on the
+    raw weights)."""
+    unpack = unpack_bf16 if x.dtype == torch.bfloat16 else unpack_f32
+    return fused_blocks_plain(x, *unpack(packed, x.shape[1]))
+
+
+def _fused_cuda(x, packed, tile, chunks):
+    """One launch of the kernel of x's type per chunk of layers."""
     global LAUNCHES, BF16_LAUNCHES
-    _check(x, wd, bd, wp, bp)
-    if x.device.type == "cpu":
-        return fused_blocks_plain(x, wd, bd, wp, bp)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused block kernel for device {x.device}")
     b, c, h, w = x.shape
-    layers = wd.shape[0]
     bf16 = x.dtype == torch.bfloat16
     if c not in CHANNELS:
         raise ValueError(f"the kernels are built for C in {CHANNELS}, got "
                          f"C={c}")
     if b > 65535:
         raise ValueError(f"batch {b} > 65535")
-    tile, chunks = tiling or plan(c, h, w, layers, x.element_size())
-    if sum(chunks) != layers:
-        raise ValueError(f"tiling {chunks} does not cover {layers} layers")
     need = (smem_bytes_bf16 if bf16 else smem_bytes)(c, tile, max(chunks),
                                                      h, w)
     if need > SMEM_LIMIT:
         raise ValueError(f"tile {tile} with {max(chunks)} layers needs "
                          f"{need} bytes of shared memory")
-    if weights is None:
-        weights = kernel_weights(wd, bd, wp, bp, x.dtype)
-    want = ([((layers, blob_bytes(c)), torch.uint8)] if bf16 else
-            [((layers, blob_floats(c)), torch.float32)])
-    if [(tuple(t.shape), t.dtype) for t in weights] != want or any(
-            t.device != x.device or not t.is_contiguous() for t in weights):
+    if [(tuple(packed.shape), packed.dtype)] != _weights_form(
+            x, sum(chunks)) or packed.device != x.device or \
+            not packed.is_contiguous():
         raise ValueError(f"weights must be kernel_weights(..., {x.dtype}) "
                          f"on {x.device}")
     fn = (_build.entry("fused_dw_pw_block_bf16", "fused_dw_pw_block_bf16")
@@ -408,7 +429,6 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
     if b * h * w == 0:
         return torch.empty_like(x)
     first = 0
-    (packed,) = weights
     for k in chunks:
         out = torch.empty_like(x)
         _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
@@ -420,3 +440,38 @@ def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
         x = out
         first += k
     return x
+
+
+def _fused_fake(x, packed, tile, chunks):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+# the run on x [B, C, H, W] with the weights of ``kernel_weights``
+# (``packed``), the tile and the layers of each launch (``chunks``)
+fused_op = _build.register(
+    "fused_blocks", "(Tensor x, Tensor packed, int tile, int[] chunks) -> "
+    "Tensor", _fused_cpu, _fused_cuda, _fused_fake)
+
+
+def fused_blocks(x, wd, bd, wp, bp, tiling=None, weights=None):
+    """The run on x [B, C, H, W] (f32 or bf16): the CUDA kernel of its
+    type for a CUDA tensor, ``fused_blocks_plain`` for a CPU tensor, both
+    through the operator ``fused_op``.  ``tiling`` ((tile, layers of each
+    launch)) overrides ``plan``; ``weights`` is ``kernel_weights(wd, bd,
+    wp, bp, x.dtype)`` made once by the caller (made here when None)."""
+    _check(x, wd, bd, wp, bp)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused block kernel for device {x.device}")
+    b, c, h, w = x.shape
+    layers = wd.shape[0]
+    tile, chunks = tiling or plan(c, h, w, layers, x.element_size())
+    if sum(chunks) != layers:
+        raise ValueError(f"tiling {chunks} does not cover {layers} layers")
+    if weights is None:
+        weights = kernel_weights(wd, bd, wp, bp, x.dtype)
+    if [(tuple(t.shape), t.dtype) for t in weights] != _weights_form(
+            x, layers) or any(t.device != x.device for t in weights):
+        raise ValueError(f"weights must be kernel_weights(..., {x.dtype}) "
+                         f"on {x.device}")
+    (packed,) = weights
+    return fused_op(x, packed, int(tile), [int(k) for k in chunks])

@@ -29,6 +29,16 @@ one copy of all three channels per block (``copies="fused"``, as
 A/B baseline of ``tools/tpu_strip_dma_probe.py``).  The cascade does not
 call it: it is the measured counterpart of the gather kernel.
 
+The two kernels on the package's path are registered PyTorch operators,
+``torch.ops.tpu_face_torch.warp_bilinear_segments`` and
+``torch.ops.tpu_face_torch.warp_bilinear_strips``: their CPU
+implementation is the plain version, their CUDA implementation the
+kernel's launch, and a fake implementation gives ``torch.export`` the
+output's shape, so an exported program (``tpu_face_torch.aot``) holds one
+operator node per launch.  The public wrappers validate their arguments
+and call the operator: the eager path and an exported program launch the
+same code.
+
 ``LAUNCHES``, ``STRIP_LAUNCHES`` and ``STAGED_LAUNCHES`` count kernel
 launches (the plain paths never add to them), so a run can show that the
 main path went through the kernels.
@@ -177,24 +187,6 @@ def _cuda_planes(planes, p):
         raise ValueError(f"warp too large: B={b} P={p} H={h} W={w}")
 
 
-def _launch(lib_name, fn_name, planes, xs, ys):
-    """Launch the strip warp ``fn_name`` of library ``lib_name`` (C
-    signature ``_build._WARP_SIG``) on CUDA tensors; returns [B, 3, P]
-    f32."""
-    p = xs.shape[1]
-    _cuda_planes(planes, p)
-    b, _, h, w = planes.shape
-    xs = xs.contiguous()
-    ys = ys.contiguous()
-    out = planes.new_empty((b, 3, p), dtype=torch.float32)
-    if b * p == 0:
-        return out
-    _build.launch(_build.entry(lib_name, fn_name), planes.get_device(),
-                  planes.data_ptr(), *planes.stride()[:3], b, h, w,
-                  xs.data_ptr(), ys.data_ptr(), p, out.data_ptr())
-    return out
-
-
 def warp_bilinear_segments_plain(planes, segments):
     """Plain PyTorch version of ``warp_bilinear_segments``: each
     segment's samples by ``warp_bilinear_plain``, side by side."""
@@ -202,6 +194,62 @@ def warp_bilinear_segments_plain(planes, segments):
     return torch.cat([warp_bilinear_plain(planes, xs.reshape(b, -1),
                                           ys.reshape(b, -1))
                       for xs, ys, _ in segments], dim=2)
+
+
+def _segment_sizes(b, xs):
+    """Output pixels per frame of each segment's coordinates [B, ...]."""
+    return [x.numel() // b if b else 0 for x in xs]
+
+
+def _segments_cpu(planes, xs, ys, widths):
+    """The segment operator's CPU implementation: its plain version."""
+    return warp_bilinear_segments_plain(planes, list(zip(xs, ys, widths)))
+
+
+def _segments_cuda(planes, xs, ys, widths):
+    """One launch of ``csrc/warp_bilinear.cu``: the coordinates are read
+    where they lie, through a table of (xs, ys, pixels, width) rows."""
+    global LAUNCHES
+    b, _, h, w = planes.shape
+    sizes = _segment_sizes(b, xs)
+    p = sum(sizes)
+    _cuda_planes(planes, p)
+    sb, sc, sh = planes.stride()[:3]
+    if 2 * sc + (h - 1) * sh + w >= 2**31:
+        raise ValueError(f"a frame's planes span {2 * sc + (h - 1) * sh + w}"
+                         f" elements; the kernel's offsets are 32-bit")
+    out = planes.new_empty((b, 3, p))
+    if b * p == 0:
+        return out
+    # the contiguous coordinates stay referenced until the launch
+    coords = [(x.contiguous(), y.contiguous()) for x, y in zip(xs, ys)]
+    table = []
+    for (x, y), width, n in zip(coords, widths, sizes):
+        table += (x.data_ptr(), y.data_ptr(), n, width)
+    _build.launch(_build.entry("warp_bilinear", "warp_bilinear"),
+                  planes.get_device(), planes.data_ptr(), sb, sc, sh, b, h,
+                  w, struct.pack(f"{len(table)}q", *table), len(xs), p,
+                  out.data_ptr())
+    LAUNCHES += 1
+    return out
+
+
+def _segments_fake(planes, xs, ys, widths):
+    b = planes.shape[0]
+    return planes.new_empty((b, 3, sum(_segment_sizes(b, xs))))
+
+
+segments_op = _build.register(
+    "warp_bilinear_segments",
+    "(Tensor planes, Tensor[] xs, Tensor[] ys, int[] widths) -> Tensor",
+    _segments_cpu, _segments_cuda, _segments_fake)
+
+
+def _on_kernel_device(planes):
+    """The wrappers take CPU tensors (the plain version) and CUDA tensors
+    (the kernel); anything else raises."""
+    if not (planes.is_cpu or planes.is_cuda):
+        raise ValueError(f"no warp kernel for device {planes.device}")
 
 
 def warp_bilinear_segments(planes, segments):
@@ -213,8 +261,7 @@ def warp_bilinear_segments(planes, segments):
     ``csrc/warp_bilinear.cu`` for CUDA tensors, which reads each
     segment's coordinates where they are (no concatenation, no reshape)
     and tiles each grid in 2-D by its width; the plain version for CPU
-    tensors."""
-    global LAUNCHES
+    tensors.  Both through the operator ``segments_op``."""
     if not 1 <= len(segments) <= MAX_SEGMENTS:
         raise ValueError(f"1 to {MAX_SEGMENTS} segments, got "
                          f"{len(segments)}")
@@ -223,30 +270,10 @@ def warp_bilinear_segments(planes, segments):
         _check_coords(planes, xs, ys, grid=True)
         if width < 1:
             raise ValueError(f"grid width must be >= 1, got {width}")
-    if planes.is_cpu:
-        return warp_bilinear_segments_plain(planes, segments)
-    b, _, h, w = planes.shape
-    sizes = [xs.numel() // b if b else 0 for xs, _, _ in segments]
-    p = sum(sizes)
-    _cuda_planes(planes, p)
-    sb, sc, sh = planes.stride()[:3]
-    if 2 * sc + (h - 1) * sh + w >= 2**31:
-        raise ValueError(f"a frame's planes span {2 * sc + (h - 1) * sh + w}"
-                         f" elements; the kernel's offsets are 32-bit")
-    out = planes.new_empty((b, 3, p))
-    if b * p == 0:
-        return out
-    # the contiguous coordinates stay referenced until the launch
-    coords = [(xs.contiguous(), ys.contiguous()) for xs, ys, _ in segments]
-    table = []
-    for (xs, ys), (_, _, width), n in zip(coords, segments, sizes):
-        table += (xs.data_ptr(), ys.data_ptr(), n, width)
-    _build.launch(_build.entry("warp_bilinear", "warp_bilinear"),
-                  planes.get_device(), planes.data_ptr(), sb, sc, sh, b, h,
-                  w, struct.pack(f"{len(table)}q", *table), len(segments),
-                  p, out.data_ptr())
-    LAUNCHES += 1
-    return out
+    _on_kernel_device(planes)
+    return segments_op(planes, [xs for xs, _, _ in segments],
+                       [ys for _, ys, _ in segments],
+                       [int(width) for _, _, width in segments])
 
 
 def warp_bilinear(planes, xs, ys):
@@ -256,25 +283,50 @@ def warp_bilinear(planes, xs, ys):
     return warp_bilinear_segments(planes, [(xs, ys, FLAT_WIDTH)])
 
 
+def _strips_cuda(planes, xs, ys):
+    """One launch of ``csrc/warp_bilinear_strips.cu`` (its bf16 or f32
+    entry point, by the planes' type)."""
+    global STRIP_LAUNCHES
+    p = xs.shape[1]
+    _cuda_planes(planes, p)
+    b, _, h, w = planes.shape
+    xs = xs.contiguous()
+    ys = ys.contiguous()
+    out = planes.new_empty((b, 3, p), dtype=torch.float32)
+    if b * p == 0:
+        return out
+    name = ("warp_bilinear_strips_bf16" if planes.dtype == torch.bfloat16
+            else "warp_bilinear_strips_f32")
+    _build.launch(_build.entry("warp_bilinear_strips", name),
+                  planes.get_device(), planes.data_ptr(),
+                  *planes.stride()[:3], b, h, w, xs.data_ptr(),
+                  ys.data_ptr(), p, out.data_ptr())
+    STRIP_LAUNCHES += 1
+    return out
+
+
+def _strips_fake(planes, xs, ys):
+    return planes.new_empty((planes.shape[0], 3, xs.shape[1]),
+                            dtype=torch.float32)
+
+
+strips_op = _build.register(
+    "warp_bilinear_strips", "(Tensor planes, Tensor xs, Tensor ys) -> Tensor",
+    warp_bilinear_strips_plain, _strips_cuda, _strips_fake)
+
+
 def warp_bilinear_strips(planes, xs, ys):
     """Samples [B, 3, P] of bf16 or f32 planes [B, 3, H, W] at xs/ys
     [B, P]: the strip kernel for CUDA tensors, its plain version for CPU
-    tensors.
+    tensors (both through the operator ``strips_op``).
 
     Each row of xs/ys holds every grid of every face of that frame side
     by side ([B, K*P]), so the frame index of a row stands in for the
     TPU kernel's plane map g // plane_ratio: K faces share their frame's
     planes without a copy."""
-    global STRIP_LAUNCHES
     _check(planes, xs, ys, (torch.bfloat16, torch.float32))
-    if planes.is_cpu:
-        return warp_bilinear_strips_plain(planes, xs, ys)
-    out = _launch("warp_bilinear_strips",
-                  "warp_bilinear_strips_bf16"
-                  if planes.dtype == torch.bfloat16
-                  else "warp_bilinear_strips_f32", planes, xs, ys)
-    STRIP_LAUNCHES += 1
-    return out
+    _on_kernel_device(planes)
+    return strips_op(planes, xs, ys)
 
 
 def staged_cap(itemsize: int) -> int:

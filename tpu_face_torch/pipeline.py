@@ -21,6 +21,11 @@ Stage semantics match the standalone models of the reference:
   iris x2      iris_landmark.rs:158-248 (right eye mirrored)
   refinement   iris_landmark.rs:380-398
 
+``__call__`` runs an installed program instead of ``_forward`` where
+``tpu_face_torch.aot.attach`` put one for the frame size (the JAX
+package's per-geometry jit cache), and ``replica`` builds the same
+cascade on another device for ``tpu_face_torch.parallel``.
+
 ``EmbedCascade`` crops each detected face axis-aligned (the reference's
 int-truncated rect, intersected with the frame) to 112x112 and runs the
 embedding net and the L2 norm on the flat [B*K] batch of crops.
@@ -107,6 +112,29 @@ def _scale_xy(pts, w, h):
     return torch.stack([pts[..., 0] * w, pts[..., 1] * h], dim=-1)
 
 
+def _device_key(device) -> torch.device:
+    """``device`` with its index: "cuda" means the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class _Traced(torch.nn.Module):
+    """What ``torch.export`` traces (``tpu_face_torch.aot``): ``fn`` on
+    tensors at one frame size, its result as a flat tuple, with the nets
+    it runs as submodules, so that their weights become the program's
+    state."""
+
+    def __init__(self, fn, nets):
+        super().__init__()
+        self.fn = fn
+        self.nets = torch.nn.ModuleList(nets)
+
+    def forward(self, *args):
+        return tuple(self.fn(*args))
+
+
 def _roi_to_norm(roi_abs, w, h):
     """ABS ROIs [..., 5] -> normalized (rotation unchanged)."""
     inv_w, inv_h = 1.0 / w, 1.0 / h
@@ -124,12 +152,15 @@ class _DetectorBase:
     and a ``_profile_label``."""
 
     _profile_label = "cascade.infer_batch"
+    _net_names = ("_det_net",)
 
     def _init_detection(self, detection_model, model_path, compute_dtype,
                         warp_method, max_faces, nms_top_m, input_layout,
-                        warp_profile, device, methods):
+                        warp_profile, device, methods, config):
         """Validate the shared arguments, resolve the device and the warp
-        method (one of ``methods``), and build the detector."""
+        method (one of ``methods``), and build the detector.  ``config``
+        holds the constructor's arguments but ``device``: ``replica``
+        builds the same cascade on another device from them."""
         if int(max_faces) != max_faces or max_faces < 1:
             raise ValueError(f"max_faces must be a positive int, got "
                              f"{max_faces!r}")
@@ -156,6 +187,11 @@ class _DetectorBase:
             _SSD_OPTS[detection_model])).to(self.device)
         _, self.det_h, self.det_w, _ = det_graph.input_shape
         self._whole_coords = {}
+        self._config = config
+        # (h, w) -> the installed program for frames of that size
+        # (tpu_face_torch.aot.attach): __call__ runs it instead of _forward
+        self._programs = {}
+        self._replicas = {}    # device -> this cascade on it (replica)
 
     # ---- batched host API ------------------------------------------
 
@@ -176,8 +212,37 @@ class _DetectorBase:
             _, _, h, w = images.shape
         else:
             _, h, w, _ = images.shape
+        program = self._programs.get((h, w))
         with torch.inference_mode(), exact_f32():
+            if program is not None:
+                return program(images)
             return self._forward(images, (w, h))
+
+    # ---- serving: programs and replicas --------------------------------
+
+    def _traced(self, fn, image_size):
+        """``_Traced(fn)`` over this cascade's nets, for frames of
+        ``image_size``; the detection warp's cached coordinates are made
+        first, outside the trace."""
+        self._whole_frame_coords(image_size)
+        return _Traced(fn, [getattr(self, n) for n in self._net_names])
+
+    def export_module(self, image_size):
+        """The module ``torch.export`` traces for ``__call__`` on frames
+        of ``image_size`` (w, h): ``_forward``."""
+        return self._traced(lambda images: self._forward(images, image_size),
+                            image_size)
+
+    def replica(self, device):
+        """This cascade on ``device``: itself on its own device, else one
+        built from the same constructor arguments (the weights read
+        again), once per device and kept."""
+        key = _device_key(device)
+        if key == _device_key(self.device):
+            return self
+        if key not in self._replicas:
+            self._replicas[key] = type(self)(**self._config, device=key)
+        return self._replicas[key]
 
     # ---- the shared stages -------------------------------------------
 
@@ -312,7 +377,14 @@ class FaceCascade(_DetectorBase):
         self._init_detection(detection_model, model_path, compute_dtype,
                              warp_method, max_faces, nms_top_m,
                              input_layout, warp_profile, device,
-                             ("pallas", "gather", "mxu"))
+                             ("pallas", "gather", "mxu"), dict(
+                                 detection_model=detection_model,
+                                 model_path=model_path,
+                                 compute_dtype=compute_dtype,
+                                 warp_method=warp_method,
+                                 max_faces=max_faces, nms_top_m=nms_top_m,
+                                 input_layout=input_layout,
+                                 warp_profile=warp_profile))
         mesh_graph = Graph(self._base / "face_landmark.npz")
         iris_graph = Graph(self._base / "iris_landmark.npz")
         self._mesh_net, self._iris_net = (
@@ -324,6 +396,8 @@ class FaceCascade(_DetectorBase):
                                       device=self.device)
         self._right_idx = torch.tensor(RIGHT_EYE_TO_FACE_LANDMARK_INDEX,
                                        device=self.device)
+
+    _net_names = ("_det_net", "_mesh_net", "_iris_net")
 
     # batched API (infer_batch / __call__): _DetectorBase's; returns a
     # CascadeResult
@@ -554,10 +628,20 @@ class EmbedCascade(_DetectorBase):
         self._init_detection(detection_model, model_path, compute_dtype,
                              warp_method, max_faces, nms_top_m,
                              input_layout, warp_profile, device,
-                             image_ops.WARP_METHODS)
+                             image_ops.WARP_METHODS, dict(
+                                 detection_model=detection_model,
+                                 model_path=model_path,
+                                 embed_model_path=embed_model_path,
+                                 compute_dtype=compute_dtype,
+                                 warp_method=warp_method,
+                                 max_faces=max_faces, nms_top_m=nms_top_m,
+                                 input_layout=input_layout,
+                                 warp_profile=warp_profile))
         egraph, self._embed_net = load_embed_net(
             embed_model_path or model_path, compute_dtype, self.device)
         _, self.embed_h, self.embed_w, _ = egraph.input_shape
+
+    _net_names = ("_det_net", "_embed_net")
 
     # batched API (infer_batch / __call__): _DetectorBase's; returns an
     # EmbedResult

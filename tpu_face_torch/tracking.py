@@ -16,9 +16,18 @@ covers, or every stream, as on the first step) and forced redetects
 The JAX version makes both choices with ``lax.cond`` inside one
 program.  Here they are host branches: each step reads whether the full
 path is due, and on the tracked path whether any stream is lost, with one
-device-to-host copy each.  The outputs are the contract.
+device-to-host copy each.  The outputs are the contract.  So an exported
+tracker (``tpu_face_torch.aot``) holds the programs the branches call:
+the full cascade at the step's batch B and at the repair batch, and the
+tracked stages at B.
+
+A step runs over shards of its streams (``_step_shards``): one, the
+tracker itself, for ``step``; one replica tracker per device of a mesh for
+``tpu_face_torch.parallel.track_sharded``, each holding its streams'
+state on its device, with the step's decisions taken over all B streams.
 """
 
+import copy
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -97,6 +106,48 @@ def _lost_first(lost, r):
     return torch.argsort((~lost).to(torch.int8), stable=True)[:r]
 
 
+def _repairs(lost, r):
+    """The repair of a tracked step over shards whose lost flags are
+    ``lost`` (one [B_i] tensor each, the streams in shard order): the
+    first ``r`` streams of the whole batch with the lost ones first
+    (``_lost_first``), as [(shard, local indices, their lost flags)], one
+    entry per shard that holds any of them; [] when no stream is lost.
+    One host read, and a second one of the indices with several
+    shards."""
+    whole = torch.cat([flags.to(lost[0].device) for flags in lost])
+    if not bool(whole.any()):
+        return []
+    sel = _lost_first(whole, r)
+    if len(lost) == 1:
+        return [(0, sel, whole[sel])]
+    sel = sel.cpu()
+    parts, first = [], 0
+    for i, flags in enumerate(lost):
+        mine = sel[(sel >= first) & (sel < first + flags.shape[0])] - first
+        if mine.numel():
+            mine = mine.to(flags.device)
+            parts.append((i, mine, flags[mine]))
+        first += flags.shape[0]
+    return parts
+
+
+def _cat_state(states, device):
+    """Per-shard states (one NamedTuple each) as one on ``device``."""
+    return type(states[0])(*(torch.cat([f.to(device) for f in fields])
+                             for fields in zip(*states)))
+
+
+class TrackerPrograms(NamedTuple):
+    """The installed programs of an attached artifact
+    (``tpu_face_torch.aot.attach``) for one frame size: ``full`` {batch:
+    the full cascade with its face axis} at the step's batch and the
+    repair batch, ``tracked`` the tracked stages at the step's batch."""
+
+    batch: int
+    full: dict
+    tracked: object
+
+
 def _merge(cur, sub, sel, take):
     """``cur`` with rows ``sel`` replaced by ``sub``'s where ``take``
     [len(sel)] holds, field by field."""
@@ -106,6 +157,11 @@ def _merge(cur, sub, sel, take):
         a[sel] = torch.where(mask, b, a[sel])
         return a
     return type(cur)(*(one(a, b) for a, b in zip(cur, sub)))
+
+
+def _one_face(res):
+    """A result with a face axis of one, without it."""
+    return CascadeResult(*(f[:, 0] for f in res))
 
 
 class _TrackerBase:
@@ -132,6 +188,12 @@ class _TrackerBase:
         self._state = None
         self._state_hw: Optional[Tuple[int, int]] = None
         self._steps = 0
+        # (h, w) -> TrackerPrograms (aot.attach)
+        self._programs = {}
+        # (mesh, [replica trackers]) while track_sharded holds the streams'
+        # state in shards (``_state`` is then None)
+        self._shards = None
+        self._replicas = {}    # (shard index, device) -> replica
 
     def _repair_n(self, b: int) -> int:
         r = (self.repair_batch if self.repair_batch is not None
@@ -171,8 +233,13 @@ class _TrackerBase:
         """Whether the state must start afresh: none yet, or the batch
         size or the frame resolution changed (ROIs are absolute pixels of
         the previous resolution)."""
-        if (self._state is not None and self._state.valid.shape[0] == b
-                and self._state_hw == hw):
+        if self._state is not None:
+            held = self._state.valid.shape[0]
+        elif self._shards is not None:
+            held = sum(t._state.valid.shape[0] for t in self._shards[1])
+        else:
+            held = None
+        if held == b and self._state_hw == hw:
             return False
         self._state_hw = hw
         if self._smoother is not None:
@@ -185,8 +252,82 @@ class _TrackerBase:
         self._state = None
         self._state_hw = None
         self._steps = 0
+        self._shards = None
         if self._smoother is not None:
             self._smoother.reset()
+
+    def replica(self, device):
+        """A tracker over this one's cascade on ``device``
+        (``FaceCascade.replica``), without state, smoother or installed
+        programs: a shard of ``track_sharded``."""
+        rep = copy.copy(self)
+        rep.cascade = self.cascade.replica(device)
+        rep.device = rep.cascade.device
+        rep._smoother = None
+        rep._programs, rep._replicas = {}, {}
+        rep._state = rep._shards = None
+        return rep
+
+    def export_modules(self, image_size, batch):
+        """{name: (module torch.export traces, example inputs)} of the
+        programs a step at ``batch`` streams of ``image_size`` (w, h)
+        frames calls: "full" and, where the repair batch differs,
+        "repair" (the full cascade with its face axis), and "tracked"."""
+        c = self.cascade
+        w, h = image_size
+        k = c.max_faces
+        shape = ((3, h, w) if c._layout == "planar" else (h, w, 3))
+
+        def images(n):
+            return torch.zeros((n,) + shape, dtype=torch.uint8,
+                               device=self.device)
+
+        full = c._traced(lambda x: c._full(x, image_size), image_size)
+        tracked = c._traced(
+            lambda x, roi, valid: _tracked_stages(c, x, roi, valid,
+                                                  image_size), image_size)
+        out = {"full": (full, (images(batch),)),
+               "tracked": (tracked, (
+                   images(batch),
+                   torch.zeros(batch, k, 5, device=self.device),
+                   torch.zeros(batch, k, dtype=torch.bool,
+                               device=self.device)))}
+        r = self._repair_n(batch)
+        if r != batch:
+            out["repair"] = (full, (images(r),))
+        return out
+
+    def _replica_at(self, i, device):
+        """Shard ``i``'s replica tracker on ``device``, made once."""
+        if (i, device) not in self._replicas:
+            self._replicas[i, device] = self.replica(device)
+        return self._replicas[i, device]
+
+    def _run_full(self, images, image_size):
+        """The full cascade over ``images`` with its face axis: the
+        installed program where there is one (at the step's batch or the
+        repair batch), else ``FaceCascade._full``."""
+        progs = self._programs.get((image_size[1], image_size[0]))
+        if progs is not None:
+            return progs.full[images.shape[0]](images)
+        return self.cascade._full(images, image_size)
+
+    def _run_tracked(self, images, rois, valid, image_size):
+        """The tracked stages over faces [B, K] (``_tracked_stages``): the
+        installed program where there is one."""
+        progs = self._programs.get((image_size[1], image_size[0]))
+        if progs is not None:
+            return progs.tracked(images, rois, valid)
+        return _tracked_stages(self.cascade, images, rois, valid,
+                               image_size)
+
+    def _held_state(self):
+        """The state of all streams (gathered from ``track_sharded``'s
+        shards onto the tracker's device), None before the first step."""
+        if self._shards is not None:
+            return _cat_state([t._state for t in self._shards[1]],
+                              self.device)
+        return self._state
 
     @property
     def next_step_forced(self) -> bool:
@@ -201,12 +342,57 @@ class _TrackerBase:
         """One tracked step over a frame batch [B, ...].  ``dt``: seconds
         since the previous frame, read only by the optional smoother."""
         images, hw = self._frames(images)
-        if self._fresh(images.shape[0], hw):
-            self._state = self._empty_state(images.shape[0])
+        b = images.shape[0]
+        progs = self._programs.get(hw)
+        if progs is not None and b != progs.batch:
+            raise ValueError(f"the attached artifact's programs take "
+                             f"{progs.batch} streams (its saved batch), "
+                             f"got {b}")
+        # the streams come back from track_sharded's shards, if it has them
+        self._state, self._shards = self._held_state(), None
+        if self._fresh(b, hw):
+            self._state = self._empty_state(b)
         force = self.next_step_forced
         with torch.inference_mode(), exact_f32():
-            res, self._state = self._step(images, force, (hw[1], hw[0]))
+            (res,) = self._step_shards([(self, images)], force,
+                                       (hw[1], hw[0]), self._repair_n(b))
         self._steps += 1
+        return self._smooth_result(res, dt)
+
+    def _sharded_step(self, chunks, mesh, dt=None) -> CascadeResult:
+        """``step`` over a batch split into ``chunks``, chunk i on device
+        ``mesh[i]`` (``tpu_face_torch.parallel.track_sharded``): each
+        shard's streams are stepped by a replica tracker on its device,
+        which holds their state there; the decisions (a forced step, mass
+        loss, which streams the repair takes) are taken over all B
+        streams, as ``step`` takes them.  Returns the result of all B
+        streams on the tracker's device."""
+        key = tuple(str(torch.device(d)) for d in mesh)
+        if self._shards is not None and self._shards[0] != key:
+            self._state, self._shards = self._held_state(), None
+        reps = (self._shards[1] if self._shards is not None else
+                [self._replica_at(i, d) for i, d in enumerate(key)])
+        frames, hws = zip(*(rep._frames(x) for rep, x in zip(reps, chunks)))
+        hw = hws[0]
+        sizes = [x.shape[0] for x in frames]
+        b = sum(sizes)
+        if self._fresh(b, hw):
+            for rep, n in zip(reps, sizes):
+                rep._state = rep._empty_state(n)
+        elif self._shards is None:
+            # the streams' state goes out to the shards
+            parts = [f.split(sizes) for f in self._state]
+            for i, rep in enumerate(reps):
+                rep._state = type(self._state)(*(p[i].to(rep.device)
+                                                 for p in parts))
+        self._state, self._shards = None, (key, reps)
+        force = self.next_step_forced
+        with torch.inference_mode(), exact_f32():
+            parts = self._step_shards(list(zip(reps, frames)), force,
+                                      (hw[1], hw[0]), self._repair_n(b))
+        self._steps += 1
+        res = type(parts[0])(*(torch.cat([f.to(self.device) for f in fields])
+                               for fields in zip(*parts)))
         return self._smooth_result(res, dt)
 
 
@@ -243,39 +429,44 @@ class FaceTracker(_TrackerBase):
 
     def _tracked(self, images, roi, valid, image_size):
         """The mesh and iris stages from the state's ROIs [B, 5], for
-        every stream (``_tracked_stages`` with one face a stream)."""
-        res = _tracked_stages(self.cascade, images, roi[:, None],
-                              valid[:, None], image_size)
-        return CascadeResult(*(f[:, 0] for f in res))
+        every stream (``_run_tracked`` with one face a stream)."""
+        return _one_face(self._run_tracked(images, roi[:, None],
+                                           valid[:, None], image_size))
 
-    def _step(self, images, force, image_size):
-        c = self.cascade
-        roi, valid = self._state
-        b = images.shape[0]
-        r = self._repair_n(b)
+    def _step_shards(self, shards, force, image_size, r):
+        """One step over ``shards`` [(tracker, frames)] (each tracker
+        holding its streams' state), ``r`` the repair batch of all
+        streams; returns each shard's result and updates each state."""
+        b = sum(x.shape[0] for _, x in shards)
         # the full path for forced redetects or mass entry loss: beyond
         # one repair pass, or every stream (the first step)
-        n_lost = b - int(valid.sum()) if not force else 0
+        n_lost = 0 if force else b - sum(int(t._state.valid.sum())
+                                         for t, _ in shards)
         if force or n_lost > r or n_lost == b:
-            res = c._forward(images, image_size)
+            res = [_one_face(t._run_full(x, image_size)) for t, x in shards]
         else:
-            res = self._tracked(images, roi, valid, image_size)
+            res = [t._tracked(x, *t._state, image_size) for t, x in shards]
             # unusable tracked output: no entry ROI, or presence lost
-            lost = ~(valid & res.mesh_valid)
-            if bool(lost.any()):
-                sel = _lost_first(lost, r)
-                res = _merge(res, c._forward(images[sel], image_size), sel,
-                             lost[sel])
-        return res, TrackerState(roi_from_mesh(res.mesh, image_size),
-                                 res.mesh_valid)
+            lost = [~(t._state.valid & out.mesh_valid)
+                    for (t, _), out in zip(shards, res)]
+            for i, sel, take in _repairs(lost, r):
+                t, x = shards[i]
+                res[i] = _merge(res[i],
+                                _one_face(t._run_full(x[sel], image_size)),
+                                sel, take)
+        for (t, _), out in zip(shards, res):
+            t._state = TrackerState(roi_from_mesh(out.mesh, image_size),
+                                    out.mesh_valid)
+        return res
 
     @property
     def tracking(self) -> np.ndarray:
         """Per-stream bool: True streams enter the next step on the
         detection-free tracked path."""
-        if self._state is None:
+        state = self._held_state()
+        if state is None:
             return np.zeros(0, bool)
-        return self._state.valid.cpu().numpy()
+        return state.valid.cpu().numpy()
 
 
 def _roi_iou_matrix(a, b):
@@ -394,10 +585,10 @@ class MultiFaceTracker(_TrackerBase):
             torch.zeros(b, dtype=torch.bool, device=self.device))
 
     def _detected(self, images, rois, valid, image_size):
-        """The full cascade over ``images``, each frame's faces put in
-        the previous slots' order (``match_slots``)."""
+        """The full cascade over ``images`` (``_run_full``), each frame's
+        faces put in the previous slots' order (``match_slots``)."""
         w, h = image_size
-        res = self.cascade._full(images, image_size)
+        res = self._run_full(images, image_size)
         scale = torch.tensor([w, h, w, h, 1.0], dtype=torch.float32,
                              device=self.device)
         perm = match_slots(res.face_roi * scale, res.mesh_valid, rois,
@@ -407,42 +598,51 @@ class MultiFaceTracker(_TrackerBase):
                      .expand(perm.shape + f.shape[2:]))
             for f in res))
 
-    def _step(self, images, force, image_size):
-        c = self.cascade
-        rois, valid, locked = self._state
-        b = images.shape[0]
-        r = self._repair_n(b)
-        n_unlocked = b - int(locked.sum()) if not force else 0
+    def _step_shards(self, shards, force, image_size, r):
+        """One step over ``shards`` [(tracker, frames)] (each tracker
+        holding its streams' state), ``r`` the repair batch of all
+        streams; returns each shard's result and updates each state."""
+        b = sum(x.shape[0] for _, x in shards)
+        n_unlocked = 0 if force else b - sum(int(t._state.locked.sum())
+                                             for t, _ in shards)
         if force or n_unlocked > r or n_unlocked == b:
-            res = self._detected(images, rois, valid, image_size)
-            next_locked = res.mesh_valid.any(-1)
+            res = [t._detected(x, *t._state[:2], image_size)
+                   for t, x in shards]
+            next_locked = [out.mesh_valid.any(-1) for out in res]
         else:
-            res = _tracked_stages(c, images, rois, valid, image_size)
-            lost = ~locked | (valid & ~res.mesh_valid).any(-1)
-            next_locked = ~lost & res.mesh_valid.any(-1)
-            if bool(lost.any()):
-                sel = _lost_first(lost, r)
-                take = lost[sel]
-                sub = self._detected(images[sel], rois[sel], valid[sel],
-                                     image_size)
-                res = _merge(res, sub, sel, take)
-                next_locked = next_locked.clone()
-                next_locked[sel] = torch.where(take, sub.mesh_valid.any(-1),
-                                               next_locked[sel])
-        return res, MultiTrackerState(roi_from_mesh(res.mesh, image_size),
-                                      res.mesh_valid, next_locked)
+            res = [t._run_tracked(x, *t._state[:2], image_size)
+                   for t, x in shards]
+            lost = [~t._state.locked | (t._state.valid
+                                        & ~out.mesh_valid).any(-1)
+                    for (t, _), out in zip(shards, res)]
+            next_locked = [~flags & out.mesh_valid.any(-1)
+                           for flags, out in zip(lost, res)]
+            for i, sel, take in _repairs(lost, r):
+                (t, x), (rois, valid, _) = shards[i], shards[i][0]._state
+                sub = t._detected(x[sel], rois[sel], valid[sel], image_size)
+                res[i] = _merge(res[i], sub, sel, take)
+                locked = next_locked[i].clone()
+                locked[sel] = torch.where(take, sub.mesh_valid.any(-1),
+                                          locked[sel])
+                next_locked[i] = locked
+        for (t, _), out, locked in zip(shards, res, next_locked):
+            t._state = MultiTrackerState(roi_from_mesh(out.mesh, image_size),
+                                         out.mesh_valid, locked)
+        return res
 
     @property
     def tracking(self) -> np.ndarray:
         """Per-stream bool: True streams enter the next step on the
         detection-free tracked path."""
-        if self._state is None:
+        state = self._held_state()
+        if state is None:
             return np.zeros(0, bool)
-        return self._state.locked.cpu().numpy()
+        return state.locked.cpu().numpy()
 
     @property
     def face_count(self) -> np.ndarray:
         """Per-stream count of the faces tracked now."""
-        if self._state is None:
+        state = self._held_state()
+        if state is None:
             return np.zeros(0, np.int32)
-        return self._state.valid.sum(-1).cpu().numpy().astype(np.int32)
+        return state.valid.sum(-1).cpu().numpy().astype(np.int32)
