@@ -16,6 +16,9 @@ programs, on the CPU: the counterparts of tests/test_aot.py's cases.
 * ``EmbedCascade`` with the demo embedding graph.
 * The trackers' artifacts are in tests/test_torch_aot_tracking.py.
 * ``kind="executable"`` raises ``ValueError``.
+* The tensor table stores each of many short-lived tensors, however the
+  allocator reuses their addresses.
+* ``infer_sharded`` refuses a cascade with an attached artifact.
 """
 
 import json
@@ -32,6 +35,7 @@ from test_rotation_e2e import ROT
 from test_torch_cascade import _compare
 from tpu_face.pipeline import FaceCascade as JaxFaceCascade
 from tpu_face_torch import aot
+from tpu_face_torch.parallel import infer_sharded
 from tpu_face_torch.pipeline import EmbedCascade, FaceCascade
 from tpu_face_torch.tracking import FaceTracker
 from tpu_face_torch.utils.image_io import load_image
@@ -217,3 +221,22 @@ def test_executable_kind_raises(tmp_path):
     with pytest.raises(ValueError, match="executable"):
         aot.save(_cascade(), tmp_path / "exec.aot", batch=1, height=360,
                  width=540, kind="executable")
+
+
+def test_tensor_table_keeps_freed_tensors_apart():
+    # each tensor is freed once added, so the allocator may hand its
+    # address to the next: the table must still store every one
+    table = aot._Tensors()
+    for n in range(64):
+        assert table.add(torch.full((4096,), float(n))) == n
+    for n, blob in enumerate(table.blobs):
+        assert (np.frombuffer(blob, np.float32) == n).all()
+
+
+def test_infer_sharded_refuses_attached(artifact, frames):
+    p, live = artifact
+    fresh = _cascade()
+    aot.attach(fresh, p)
+    with pytest.raises(ValueError, match="attached artifact"):
+        infer_sharded(fresh, frames, ["cpu", "cpu"])
+    _close(live, fresh.infer_batch(frames))

@@ -6,7 +6,8 @@ programs the step's host branches call ("full" at the step's batch,
 step, a repair step (one stream blanked: it loses lock) and a second
 repair step (the stream back: the repair locks it again) through the
 attached programs match the live tracker (within 1e-6, flags and lock
-states equal).  A step at another batch names the saved batch.
+states equal).  A step at another batch names the saved batch, and
+``track_sharded`` refuses the attached tracker.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 from test_rotation_e2e import ROT
 from test_torch_aot import NAMES, _close
 from tpu_face_torch import aot
+from tpu_face_torch.parallel import track_sharded
 from tpu_face_torch.tracking import FaceTracker, MultiFaceTracker
 from tpu_face_torch.utils.image_io import load_image
 
@@ -58,3 +60,5 @@ def test_tracker_roundtrip(tmp_path, frames, cls, kw):
     assert fresh.tracking.all()
     with pytest.raises(ValueError, match="saved batch"):
         fresh.step(frames[:1])
+    with pytest.raises(ValueError, match="attached artifact"):
+        track_sharded(fresh, frames, ["cpu", "cpu"])

@@ -99,10 +99,14 @@ def _export(module, args):
 class _Tensors:
     """The payload's tensor table: each tensor's raw bytes once, keyed by
     its storage and view, in the header as dtype, shape, stride and the
-    byte range of the storage span it views."""
+    byte range of the storage span it views.  The table holds every
+    tensor it was given, so no storage address in its keys is freed and
+    reused by another tensor while it is filled (``save`` drops each
+    exported program before it exports the next)."""
 
     def __init__(self):
         self.rows, self.blobs, self._index, self.size = [], [], {}, 0
+        self._held = []
 
     def add(self, t) -> int:
         t = t.detach()
@@ -119,6 +123,7 @@ class _Tensors:
             self.blobs.append(blob)
             self.size += len(blob)
             self._index[key] = len(self.rows) - 1
+            self._held.append(t)
         return self._index[key]
 
 
@@ -287,14 +292,14 @@ def _programs(path, meta, payload, device):
     return programs
 
 
-def load(path, device=None) -> LoadedProgram:
-    """Read an artifact written by ``save`` (its tensors onto ``device``,
-    by default the device type it was saved on).  Anything else,
-    pickles included, raises ``ValueError``; nothing is unpickled."""
+def load(path) -> LoadedProgram:
+    """Read an artifact written by ``save``, its tensors on the device
+    type it was saved on.  Anything else, pickles included, raises
+    ``ValueError``; nothing is unpickled."""
     path = Path(path)
     meta, payload = _read(path)
-    device = torch.device(meta["device"] if device is None else device)
-    return LoadedProgram(meta, _programs(path, meta, payload, device))
+    return LoadedProgram(meta, _programs(path, meta, payload,
+                                         torch.device(meta["device"])))
 
 
 def attach(obj, path, pad_batch: bool = False) -> LoadedProgram:

@@ -19,6 +19,10 @@ program.
 
 A mesh may name a device more than once: that is how a single card (or
 the CPU, in tests) runs several shards.
+
+A cascade or tracker with an attached artifact (``tpu_face_torch.aot``)
+is refused: its programs are fixed-batch programs for one device, and
+the shards run the Python stages of replicas built without them.
 """
 
 from typing import Optional, Sequence
@@ -56,12 +60,24 @@ def shard_batch(images, mesh) -> list:
             for chunk, dev in zip(images.split(b // n), mesh)]
 
 
+def _unattached(obj, fn):
+    """Refuse ``obj`` (a cascade or a tracker) if it has programs
+    installed by ``aot.attach``."""
+    if obj._programs:
+        raise ValueError(
+            f"{fn} cannot run a {type(obj).__name__} with an attached "
+            "artifact: its programs take the saved batch on one device, "
+            "and the shards would run without them; shard an object "
+            "without one")
+
+
 def infer_sharded(cascade, images, mesh: Optional[Sequence] = None):
     """Run a ``FaceCascade`` or ``EmbedCascade`` over ``images`` split
     across ``mesh`` (default ``data_parallel_mesh()``): one replica per
     device, every shard launched before any result is read; one result
     with every field concatenated in batch order on the cascade's
-    device."""
+    device.  A cascade with an attached artifact raises ``ValueError``."""
+    _unattached(cascade, "infer_sharded")
     mesh = data_parallel_mesh() if mesh is None else mesh
     parts = [cascade.replica(dev)(chunk)
              for chunk, dev in zip(shard_batch(images, mesh), mesh)]
@@ -76,6 +92,8 @@ def track_sharded(tracker, images, mesh: Optional[Sequence] = None):
     re-detected on the device that holds it, and the step's decisions
     are the unsharded tracker's.  Returns the result of all B streams on
     the tracker's device; ``tracker.tracking`` and ``face_count`` report
-    all of them."""
+    all of them.  A tracker with an attached artifact raises
+    ``ValueError``."""
+    _unattached(tracker, "track_sharded")
     mesh = data_parallel_mesh() if mesh is None else mesh
     return tracker._sharded_step(shard_batch(images, mesh), mesh)

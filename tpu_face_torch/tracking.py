@@ -359,7 +359,7 @@ class _TrackerBase:
         self._steps += 1
         return self._smooth_result(res, dt)
 
-    def _sharded_step(self, chunks, mesh, dt=None) -> CascadeResult:
+    def _sharded_step(self, chunks, mesh) -> CascadeResult:
         """``step`` over a batch split into ``chunks``, chunk i on device
         ``mesh[i]`` (``tpu_face_torch.parallel.track_sharded``): each
         shard's streams are stepped by a replica tracker on its device,
@@ -393,7 +393,7 @@ class _TrackerBase:
         self._steps += 1
         res = type(parts[0])(*(torch.cat([f.to(self.device) for f in fields])
                                for fields in zip(*parts)))
-        return self._smooth_result(res, dt)
+        return self._smooth_result(res)
 
 
 class FaceTracker(_TrackerBase):
