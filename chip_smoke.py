@@ -184,16 +184,29 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               library's probe-only entry point) at the BACK runs R1 and
               R4, each one's error and device time (k3_probe): the call
               time (CUDA events over back-to-back calls, the host's
-              launch path included) and the device time (the same calls
-              queued behind a ``torch.cuda._sleep``, ``queued_ms``); K1's
+              launch path included, ``median_ms``) and the device time
+              (the same calls queued behind a ``torch.cuda._sleep``,
+              ``queued_ms``); K1's
               call time is through its registered operator, and its
               ``direct_ms`` the same launches by the operator's CUDA
               implementation called directly.  The f32 and the bf16 fused
-              kernel are timed on the same runs.
+              kernel are timed on the same runs; and the card's launch
+              queue: the small launches the host enqueues behind a
+              sleeping card before one blocks (launch_queue_depth);
+14. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
+              tpu_face_torch.bench``) in this process at batch 64 with
+              short windows (BENCH_ARGS), every row on, with f32 and then
+              bf16 nets, the counts set to 0 before and read after: each
+              run's accuracy gate passed in the type asked for, every row
+              of ``bench.ROWS`` present and positive, the record naming
+              this card (its name and nvidia-smi line); each record is
+              printed.
 
-Its last lines are the nvidia-smi line, a JSON line of numbers, the
-kernels' JSON line and {"ok": true, "device": {...}}.  Imports nothing
-of JAX or of the tpu_face package.
+The timing helpers ``median_ms``, ``window_ms`` and ``queued_ms``, the
+H100's memory rate and its f32 and bf16 peaks come from
+``tpu_face_torch.bench``.  Its last lines are the nvidia-smi
+line, a JSON line of numbers, the kernels' JSON line and {"ok": true,
+"device": {...}}.  Imports nothing of JAX or of the tpu_face package.
 
     python3 chip_smoke.py --trace DIR
 
@@ -213,6 +226,8 @@ each block geometry and window budget of ``STAGED_GEOMETRIES``.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import statistics
@@ -227,9 +242,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ROT = ROOT / "assets" / "rotated"
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
-H100_BF16_FLOPS = 989e12        # bf16 tensor cores, f32 accumulation
 H100_TF32_FLOPS = 495e12        # TF32 tensor cores, f32 accumulation
 
 KERNEL_TOL = 1e-3               # 0-255 units, before rounding
@@ -359,25 +371,6 @@ def canvas_grid(load_image):
 
 def phase(name):
     print(f"== {name}", flush=True)
-
-
-def median_ms(fn, reps, windows=3, warmup=2):
-    """Median over ``windows`` of the mean time of ``reps`` calls of
-    ``fn``, from CUDA events, after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times), times
 
 
 def iou(a, b):
@@ -600,36 +593,13 @@ def stage_coords(cascade, frames, size):
     return planes, [[(mx, my)], [(lx, ly), (rx, ry)]]
 
 
-def queued_ms(fn, reps=5, windows=3):
-    """Device time per call of ``fn`` (the kernels it launches, back to
-    back): the median over ``windows`` of CUDA events around ``reps``
-    calls queued behind a ~20 ms ``torch.cuda._sleep``, so the calls run
-    back to back on the device and the host's launch path is hidden
-    (``reps`` calls must queue in less time than that).  Unlike
-    ``median_ms`` it leaves out the host's launch path."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def time_kernel(kernel, plain, planes, calls, coords=None):
     """A warp kernel at the main path's shapes, ``kernel(planes, *args)``
     for each ``args`` of ``calls`` (``coords``: each call's flat
     coordinates (xs, ys) [B, P], by default the calls themselves): its
     max abs error against its plain version, its time (call time from
-    CUDA events over back-to-back calls, and device time, ``queued_ms``),
-    the plain version's time,
+    CUDA events over back-to-back calls, ``median_ms``, and device time,
+    ``queued_ms``), the plain version's time,
     torch.nn.functional.grid_sample's call and device times on an f32
     copy of the planes (the copy is not timed), and its bound."""
     coords = calls if coords is None else coords
@@ -2094,23 +2064,6 @@ def graph_launches(prog):
     return counts, runs
 
 
-def synced_ms(fn, reps, warmup=2):
-    """Mean host time of ``reps`` calls of ``fn`` ending in a synchronize
-    of every card (the work of a call may span cards)."""
-    def sync():
-        for d in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(d)
-
-    for _ in range(warmup):
-        fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    sync()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
 def aot_cascade(label, make, frames, want, runs):
     """Save ``make()``'s program at ``frames``' geometry, load it, attach
     it to a fresh ``make()`` and hold one call against the live one: within
@@ -2309,9 +2262,15 @@ def phase_sharded():
     launches = launch_counts()
     print(f"launches of the sharded path: {launches}", flush=True)
 
-    unsharded_ms = synced_ms(lambda: cascade(batch), reps=10)
+    def host_ms(fn):
+        # host clock: a call's work may span cards
+        for _ in range(2):
+            fn()
+        return window_ms(fn, 10)
+
+    unsharded_ms = host_ms(lambda: cascade(batch))
     for label, mesh in meshes.items():
-        ms = synced_ms(lambda: infer_sharded(cascade, batch, mesh), reps=10)
+        ms = host_ms(lambda: infer_sharded(cascade, batch, mesh))
         numbers[f"sharded_{label}"].update(
             frames_per_s=b * 1e3 / ms, ms_per_batch=ms,
             unsharded_frames_per_s=b * 1e3 / unsharded_ms)
@@ -2512,6 +2471,26 @@ def throughput(cascade, batch, launches, reps):
             "windows_ms": windows}
 
 
+def launch_queue_depth():
+    """How many small launches the host enqueues behind a card sleeping
+    200 ms before a launch blocks (None: 4,096 did not block).  A call
+    with more launches than this cannot be hidden behind a sleep, which
+    is why the bench's device-only latencies replay a CUDA graph."""
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(bench.sleep_cycles(200.0))
+    t0 = time.perf_counter()
+    depth = None
+    for i in range(4096):
+        x.add_(1)
+        if time.perf_counter() - t0 > 0.1:      # blocked behind the sleep
+            depth = i
+            break
+    torch.cuda.synchronize()
+    return depth
+
+
 def phase_numbers(rng, trace, sweep=False):
     """Throughput, stage times and the kernels' times; returns (numbers,
     {kernel: time_kernel dict})."""
@@ -2586,6 +2565,7 @@ def phase_numbers(rng, trace, sweep=False):
     if trace is not None:
         numbers[f"trace_b{b}"] = trace_cascade(cascade, batch, trace,
                                                f"cascade_b{b}")
+    numbers["launch_queue_depth"] = launch_queue_depth()
 
     # the BACK net and the cascade with the residual runs op by op and on
     # the fused kernel, in turns, with f32 and with bf16 nets
@@ -2692,6 +2672,41 @@ def phase_numbers(rng, trace, sweep=False):
     return numbers, timed
 
 
+# python -m tpu_face_torch.bench's arguments in the bench phase: its
+# rows at batch 64, short windows (every row on, hires included)
+BENCH_ARGS = ["--batch", "64", "--iters", "3", "--warmup", "1",
+              "--repeats", "2"]
+
+
+def phase_bench(smi):
+    """``tpu_face_torch.bench.main`` in this process with f32 and then
+    bf16 nets (BENCH_ARGS), the counts set to 0 before and read after:
+    each run's gate passed in its type, every row of ``bench.ROWS``
+    present and positive, the record naming this card.  Returns
+    (launches, {dtype: record})."""
+    phase("bench")
+    records = {}
+    reset_counts()
+    for dtype in ("f32", "bf16"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(BENCH_ARGS + ["--dtype", dtype])
+        record = json.loads(out.getvalue().strip().splitlines()[-1])
+        assert rc == 0 and record["gate_dtype"] == dtype, (rc, record)
+        assert record["gate_iou"] >= bench.GATE_IOU, record
+        bad = [row for row in bench.ROWS
+               if not isinstance(record.get(row), (int, float))
+               or not record[row] > 0]
+        assert not bad, (dtype, bad, record)
+        assert record["device"]["kind"] == torch.cuda.get_device_name(0)
+        assert record["device"]["nvidia_smi"] in smi, (record, smi)
+        print(f"bench {dtype}: {json.dumps(record)}", flush=True)
+        records[dtype] = record
+    launches = launch_counts()
+    print(f"launches of the bench: {launches}", flush=True)
+    return launches, records
+
+
 # batch sizes of the kernel, strip_dma and numbers phases
 BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
          "fused": 64, "k3": 256, "strip_dma": 64, "track": 64}
@@ -2722,7 +2737,8 @@ def main(argv=None):
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
-    global track_sharded
+    global track_sharded, bench, median_ms, queued_ms, window_ms
+    global H100_BYTES_PER_S, H100_F32_FLOPS, H100_BF16_FLOPS
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace", type=Path, metavar="DIR",
                         help="profile three cascade calls per frame size "
@@ -2737,7 +2753,10 @@ def main(argv=None):
         return 1
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
-    from tpu_face_torch import aot, resolve_device, tracking
+    from tpu_face_torch import aot, bench, resolve_device, tracking
+    from tpu_face_torch.bench import (H100_BF16_FLOPS, H100_BYTES_PER_S,
+                                      H100_F32_FLOPS, median_ms, queued_ms,
+                                      window_ms)
     from tpu_face_torch.compiler import Graph, build_torch_fn
     from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
     from tpu_face_torch.models.face_embeddings import l2_normalize
@@ -2784,6 +2803,7 @@ def main(argv=None):
     more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
+    paths["bench"], numbers["bench"] = phase_bench(smi)
     # the bf16 paths run the bf16 kernel and never the f32 one
     for counts in (paths["cascade_bf16"], models["bf16"]):
         assert counts["fused_dw_pw_block_f32"] == 0, counts

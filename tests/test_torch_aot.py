@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 import tpu_face
 from test_rotation_e2e import ROT
 from test_torch_cascade import _compare
@@ -76,7 +77,16 @@ def artifact(tmp_path_factory, frames):
     return p, live
 
 
-def test_cascade_roundtrip_and_attach(artifact, frames):
+@pytest.fixture(scope="module")
+def attached(artifact):
+    """(cascade, LoadedProgram): a fresh cascade with the module's
+    artifact attached, loaded once for every test that runs it."""
+    p, _ = artifact
+    fresh = _cascade()
+    return fresh, aot.attach(fresh, p)
+
+
+def test_cascade_roundtrip_and_attach(artifact, attached, frames):
     p, live = artifact
     assert p.stat().st_size > 1_000_000  # weights baked in
     prog = aot.load(p)
@@ -87,19 +97,17 @@ def test_cascade_roundtrip_and_attach(artifact, frames):
     with torch.inference_mode():
         _close(live, prog(torch.from_numpy(frames)))
 
-    fresh = _cascade()
-    prog = aot.attach(fresh, p)
+    fresh, prog = attached
+    assert prog.meta["cls"] == "FaceCascade"
     assert (360, 540) in fresh._programs
     _close(live, fresh.infer_batch(frames))
 
 
-def test_live_and_attached_match_jax(artifact, frames):
-    p, live = artifact
+def test_live_and_attached_match_jax(artifact, attached, frames):
+    _, live = artifact
     ref = JaxFaceCascade(warp_method="gather").infer_batch(frames)
     _compare(live, ref, SIZE)
-    fresh = _cascade()
-    aot.attach(fresh, p)
-    _compare(fresh.infer_batch(frames), ref, SIZE)
+    _compare(attached[0].infer_batch(frames), ref, SIZE)
 
 
 def test_artifact_is_pickle_free(artifact, tmp_path, monkeypatch):
@@ -166,7 +174,7 @@ def test_attach_rejects_mismatches(artifact, tmp_path):
         aot.save(object(), tmp_path / "x.aot", batch=1, height=8, width=8)
 
 
-def test_attach_pad_batch(artifact, frames):
+def test_attach_pad_batch(artifact, attached, frames):
     """pad_batch=True: a 1-frame call rides the saved batch-2 program
     (zero-padded, result sliced back), within 1e-6 of the live result;
     exact-size calls pass through; oversize batches raise; without it a
@@ -180,8 +188,7 @@ def test_attach_pad_batch(artifact, frames):
     _close(live, fresh.infer_batch(frames))
     with pytest.raises(ValueError, match="exceeds"):
         fresh.infer_batch(np.concatenate([frames, frames]))
-    strict = _cascade()
-    aot.attach(strict, p)
+    strict, _ = attached
     with pytest.raises(ValueError, match="batch 2"):
         strict.infer_batch(frames[:1])
     with pytest.raises(ValueError, match="pad_batch"):
@@ -233,10 +240,9 @@ def test_tensor_table_keeps_freed_tensors_apart():
         assert (np.frombuffer(blob, np.float32) == n).all()
 
 
-def test_infer_sharded_refuses_attached(artifact, frames):
-    p, live = artifact
-    fresh = _cascade()
-    aot.attach(fresh, p)
+def test_infer_sharded_refuses_attached(artifact, attached, frames):
+    _, live = artifact
+    fresh, _ = attached
     with pytest.raises(ValueError, match="attached artifact"):
         infer_sharded(fresh, frames, ["cpu", "cpu"])
     _close(live, fresh.infer_batch(frames))

@@ -15,6 +15,7 @@ import pytest
 
 from test_rotation_e2e import ROT
 from test_torch_aot import NAMES, _close
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch import aot
 from tpu_face_torch.parallel import track_sharded
 from tpu_face_torch.tracking import FaceTracker, MultiFaceTracker

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from test_rotation_e2e import FRAMES_540, GT, ROT, _check_cascade
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.compiler import Graph as JaxGraph
 from tpu_face.compiler import build_jax_fn
 from tpu_face.ops import image as jimage

@@ -14,6 +14,7 @@ import pytest
 from test_rotation_e2e import GT, ROT
 from test_torch_bf16 import (BF16, PX_TOL, SCORE_TOL, _check_mesh_steps,
                              _px)
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import models as jm
 from tpu_face_torch import models as tm
 from tpu_face_torch.utils.image_io import load_image

@@ -17,6 +17,7 @@ import torch
 
 import chip_smoke
 from test_rotation_e2e import FRAMES_540, GT, GT_PORTRAIT, ROT, _check_cascade
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.pipeline import FaceCascade as JaxFaceCascade
 from tpu_face_torch.pipeline import FaceCascade
 from tpu_face_torch.utils.image_io import load_image

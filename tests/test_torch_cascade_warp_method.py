@@ -19,6 +19,7 @@ import torch
 
 from test_rotation_e2e import ROT
 from test_torch_cascade import _compare
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.pipeline import FaceCascade as JaxFaceCascade
 from tpu_face_torch.models import FaceDetectionModel
 from tpu_face_torch.ops import warp

@@ -23,6 +23,7 @@ import torch
 from PIL import Image
 
 from test_rotation_e2e import ROT
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.__main__ import main as jax_main
 from tpu_face_torch.__main__ import main
 from tpu_face_torch.models.face_detection import _DATA_DIR

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from test_rotation_e2e import FRAMES_540, ROT
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.pipeline import EmbedCascade as JaxEmbedCascade
 from tpu_face_torch.models import FaceDetectionModel
 from tpu_face_torch.models.face_detection import _DATA_DIR

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.compiler import Graph as JaxGraph
 from tpu_face.compiler import build_jax_fn
 from tpu_face.models import FaceEmbeddings as JaxFaceEmbeddings

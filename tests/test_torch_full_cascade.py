@@ -24,6 +24,7 @@ import pytest
 import chip_smoke
 from test_rotation_e2e import FRAMES_540, GT, ROT
 from test_torch_cascade import _compare
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.models import FaceDetectionModel as JModel
 from tpu_face.pipeline import FaceCascade as JaxFaceCascade
 from tpu_face_torch.models import FaceDetectionModel as TModel

@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax import lax
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.compiler import Graph as JaxGraph
 from tpu_face.compiler import build_jax_fn
 from tpu_face_torch.compiler import Graph, TFLiteNet, params_from_consts

@@ -26,6 +26,7 @@ import pytest
 import torch
 from jax import lax
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch.compiler import Graph, TFLiteNet
 from tpu_face_torch.models.face_detection import _DATA_DIR
 from tpu_face_torch.ops import fused_block

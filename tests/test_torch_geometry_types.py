@@ -5,6 +5,7 @@ are numpy code, so the results must be equal (to float64 rounding)."""
 import numpy as np
 import pytest
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import types as jtypes
 from tpu_face.ops import geometry as jgeo
 from tpu_face_torch import types as ttypes

@@ -11,6 +11,8 @@ from pathlib import Path
 
 import pytest
 
+from test_torch_threads import share_cores  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "tpu_face")
 FILES = sorted(str(p.relative_to(ROOT))
@@ -62,7 +64,9 @@ def test_port_covers_the_slice():
             "tpu_face_torch/__main__.py",
             "tpu_face_torch/aot.py",
             "tpu_face_torch/parallel/__init__.py",
-            "tpu_face_torch/parallel/sharding.py"}
+            "tpu_face_torch/parallel/sharding.py",
+            "tpu_face_torch/compiler/traffic.py",
+            "tpu_face_torch/bench.py"}
     assert want <= set(FILES)
     for kernel in ("warp_bilinear", "warp_bilinear_strips",
                    "fused_dw_pw_block", "fused_dw_pw_block_bf16",

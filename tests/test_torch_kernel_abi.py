@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch.ops import _build
 
 CSRC = Path(_build.__file__).resolve().parents[1] / "csrc"

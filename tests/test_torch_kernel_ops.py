@@ -24,6 +24,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch.ops import fused_block, warp
 from tpu_face_torch.pipeline import FaceCascade
 from tpu_face_torch.utils import profiling

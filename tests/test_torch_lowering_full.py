@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.compiler import Graph as JaxGraph
 from tpu_face.compiler import build_jax_fn
 from tpu_face.compiler import graph_flops as jax_graph_flops

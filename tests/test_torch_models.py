@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_rotation_e2e import GT, GT_PORTRAIT, ROT, _iou
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import models as jm
 from tpu_face import types as jtypes
 from tpu_face_torch import models as tm

@@ -26,6 +26,7 @@ import torch
 
 import chip_smoke
 from test_torch_cascade import _compare
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.ops import postprocess as jpost
 from tpu_face.pipeline import FaceCascade as JaxFaceCascade
 from tpu_face_torch.ops import postprocess as tpost

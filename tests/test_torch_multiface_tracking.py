@@ -14,6 +14,7 @@ rules, with ``tracking`` and ``face_count`` equal.
 import numpy as np
 
 import chip_smoke
+from test_torch_threads import share_cores  # noqa: F401
 from test_torch_tracking import _step_both
 from tpu_face import tracking as jtrack
 from tpu_face.models import FaceDetectionModel as JModel

@@ -32,6 +32,7 @@ import torch
 import chip_smoke
 from test_rotation_e2e import FRAMES_540, GT, GT_PORTRAIT, ROT
 from test_torch_cascade import _compare
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import models as jm
 from tpu_face import types as jtypes
 from tpu_face.ops import image as jimage

@@ -19,6 +19,7 @@ import pytest
 from PIL import Image
 
 from test_rotation_e2e import ROT
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.utils import native_loader as jloader
 from tpu_face_torch.utils import native_loader
 from tpu_face_torch.utils.image_io import load_image

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.ops import anchors as janchors
 from tpu_face.ops import postprocess as jpost
 from tpu_face_torch.ops import anchors as tanchors

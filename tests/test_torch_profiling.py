@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_rotation_e2e import ROT
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch.models.face_detection import _DATA_DIR
 from tpu_face_torch.pipeline import EmbedCascade, FaceCascade
 from tpu_face_torch.utils import profiling

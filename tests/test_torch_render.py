@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from test_rotation_e2e import ROT
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import models as jmodels
 from tpu_face import render as jrender
 from tpu_face import types as jtypes

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 import tpu_face
 from test_rotation_e2e import ROT
 from tpu_face.models.face_detection import FaceDetectionModel as JaxModel

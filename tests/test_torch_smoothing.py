@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import smoothing as jsm
 from tpu_face_torch import smoothing as tsm
 

@@ -11,6 +11,7 @@ import torch
 
 import chip_smoke
 from test_rotation_e2e import ROT
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import types as jtypes
 from tpu_face.ops import image as jimage
 from tpu_face.ops import postprocess as jpost

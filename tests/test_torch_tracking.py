@@ -32,6 +32,7 @@ import torch
 
 from test_rotation_e2e import ROT
 from test_torch_cascade import _compare
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face import tracking as jtrack
 from tpu_face_torch import tracking as ttrack
 from tpu_face_torch.utils.image_io import load_image

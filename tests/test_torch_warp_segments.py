@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_threads import share_cores  # noqa: F401
 from tpu_face.ops import pallas_warp
 from tpu_face_torch.ops import image as timage
 from tpu_face_torch.ops import warp

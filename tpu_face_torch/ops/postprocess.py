@@ -30,9 +30,10 @@ def decode_boxes(raw_boxes, anchors, scale: float):
     anchor-shifted."""
     pts = raw_boxes.reshape(*raw_boxes.shape[:-1], -1, 2) / scale
     num_points = pts.shape[-2]
-    shift = torch.ones(num_points, dtype=torch.float32,
-                       device=raw_boxes.device)
-    shift[1] = 0.0
+    # made on the device (no host value is copied in: a CUDA graph can
+    # capture the call)
+    shift = (torch.arange(num_points, device=raw_boxes.device) != 1).to(
+        torch.float32)
     pts = pts + shift[None, :, None] * anchors[:, None, :]
     center = pts[..., 0, :]
     half = pts[..., 1, :] / 2.0
