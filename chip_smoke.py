@@ -150,7 +150,24 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               size, and the cold start of a FaceCascade (construction and
               first call against construction, attach and first call,
               and aot.load and first call);
-11. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
+11. aot_executable -- the same three FaceCascade programs (f32 and bf16
+              at 540x360 batch 8, f32 at 1920x1080 planar batch 4) saved
+              with kind="executable" (AOTInductor packages compiled on the
+              card; the counts set to 0 before and read after), each
+              attached to a fresh object and held against the live one:
+              the same counted launches per call (the package calls the
+              kernels' operators), f32 within 0.25 px / 1e-3 and bf16 nets
+              within the BF16_* criteria, the ground truth of the rotated
+              frames, one call on a side stream equal to the default
+              stream's; the largest difference against live and against
+              the export, each compile's seconds and bytes, one call's
+              host-to-host ms through the live object, the export and the
+              executable, and the cold start of the f32 540x360 b8
+              executable beside the export's.  The EmbedCascade and
+              FaceTracker executables are left out (a compile costs about
+              a minute on the card; tests/test_torch_aot_executable.py
+              runs both on the CPU, under ``slow``);
+12. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
               read after: infer_sharded of FaceCascade() at 540x360 batch
               64 over data_parallel_mesh() (every visible card; its size
               printed) and over [cuda:0, cuda:0] against the unsharded
@@ -160,7 +177,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               unsharded tracker; then each sharded call's frames/s beside
               the unsharded call's (host clock, every card synchronized;
               printed, no limit);
-12. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
+13. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
@@ -168,7 +185,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               turns against one bound, the bytes the staged windows copied
               (counted by the kernel) printed beside those the gather's
               bound counts;
-13. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+14. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
               and with bf16 nets; faces/s of canvas (c) at batch 32 with
@@ -193,7 +210,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               kernel are timed on the same runs; and the card's launch
               queue: the small launches the host enqueues behind a
               sleeping card before one blocks (launch_queue_depth);
-14. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
+15. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
               tpu_face_torch.bench``) in this process at batch 64 with
               short windows (BENCH_ARGS), every row on, with f32 and then
               bf16 nets, the counts set to 0 before and read after: each
@@ -2103,6 +2120,28 @@ def aot_cascade(label, make, frames, want, runs):
     return row, path
 
 
+def aot_cases(frames, hires, fused):
+    """{label: (constructor, frames, launches per call)} of the aot
+    phases: FaceCascade f32 and bf16 at 540x360 batch 8 (``frames``), f32
+    at 1920x1080 planar batch 4 (``hires``: the strip kernel) and
+    EmbedCascade f32 (demo graph) at 540x360 batch 8; ``fused`` the BACK
+    detector's fused launches per forward by the nets' type."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    demo = str(DATA_DIR / "demo")
+    return {
+        "cascade_f32_540p_b8": (FaceCascade, frames, only(
+            warp_bilinear=2, fused_dw_pw_block_f32=fused[f32])),
+        "cascade_bf16_540p_b8": (
+            lambda: FaceCascade(compute_dtype=bf16), frames,
+            only(warp_bilinear=2, fused_dw_pw_block_bf16=fused[bf16])),
+        "cascade_f32_1080p_planar_b4": (
+            lambda: FaceCascade(input_layout="planar"), hires,
+            only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused[f32])),
+        "embed_cascade_f32_540p_b8": (
+            lambda: EmbedCascade(embed_model_path=demo), frames,
+            only(fused_dw_pw_block_f32=fused[f32]))}
+
+
 def phase_aot():
     """The serving programs on the card, the counts set to 0 before and
     read after: FaceCascade f32 and bf16 at 540x360 batch 8, f32 at
@@ -2115,34 +2154,24 @@ def phase_aot():
     lock states and launches equal).  Then cold start: a fresh cascade's
     construction and first call against its construction, ``attach`` and
     first call, and ``aot.load`` alone and a first call.  Returns
-    (launches, numbers)."""
+    (launches, numbers, the three FaceCascade cases of ``aot_cases``,
+    whose export artifacts stay in AOT_DIR for ``phase_aot_executable``)."""
     phase("aot")
     AOT_DIR.mkdir(parents=True, exist_ok=True)
     f32, bf16 = torch.float32, torch.bfloat16
     four = np.stack([load_image(ROT / n) for n in FRAMES_540])
     frames = torch.from_numpy(np.tile(four, (2, 1, 1, 1))).cuda()
     hires = hires_batch(canvas_1080p(load_image), 4, np.random.default_rng(1))
-    demo = str(DATA_DIR / "demo")
     fused = {dt: FaceCascade(compute_dtype=dt)._det_net.fused_launches()
              for dt in (f32, bf16)}
     runs = 4                    # the BACK detector's residual runs
+    cases = aot_cases(frames, hires, fused)
     reset_counts()
     numbers = {}
-    for label, make, x, want in (
-            ("cascade_f32_540p_b8", FaceCascade, frames,
-             only(warp_bilinear=2, fused_dw_pw_block_f32=fused[f32])),
-            ("cascade_bf16_540p_b8", lambda: FaceCascade(compute_dtype=bf16),
-             frames,
-             only(warp_bilinear=2, fused_dw_pw_block_bf16=fused[bf16])),
-            ("cascade_f32_1080p_planar_b4",
-             lambda: FaceCascade(input_layout="planar"), hires,
-             only(warp_bilinear_strips=2,
-                  fused_dw_pw_block_f32=fused[f32])),
-            ("embed_cascade_f32_540p_b8",
-             lambda: EmbedCascade(embed_model_path=demo), frames,
-             only(fused_dw_pw_block_f32=fused[f32]))):
+    for label, (make, x, want) in cases.items():
         numbers[f"aot_{label}"], path = aot_cascade(label, make, x, want,
                                                     runs)
+    cases.pop("embed_cascade_f32_540p_b8")
     assert (fused[f32], fused[bf16]) == (13, 8), fused
 
     # the tracker: full, locked and repair steps through the artifact
@@ -2207,6 +2236,126 @@ def phase_aot():
     numbers["aot_cold_start_540p_b8"] = cold
     print(f"cold start, FaceCascade f32 540x360 b8 (warm process): "
           f"{ {k: round(v, 3) for k, v in cold.items()} }", flush=True)
+    return launches, numbers, cases
+
+
+def host_call_ms(fn, calls=20):
+    """Median host-clock ms of one call of ``fn``, the card synchronized
+    before and after each (``window_ms`` over one call)."""
+    fn()
+    return statistics.median(window_ms(fn, 1) for _ in range(calls))
+
+
+def aot_executable(label, make, frames, want, export_path):
+    """Save ``make()``'s program at ``frames``' geometry as an executable
+    (``kind="executable"``: an AOTInductor package compiled on the card),
+    attach it to a fresh ``make()`` and hold one call against the live
+    object: the same counted launches (``want``) per call, so the
+    package launches the hand-written kernels; within the cascade
+    contract (f32 0.25 px / 1e-3, bf16 nets the BF16_* criteria) and, on
+    the rotated 540p frames, their ground truth; a call on a side stream
+    equal to the default stream's.  Prints and returns the compile
+    (save) and attach seconds, the bytes, the largest differences against
+    live and against the export artifact at ``export_path``, and one
+    call's host-to-host ms through the live object, the export and the
+    executable."""
+    live_obj = make()
+    bf16 = live_obj.compute_dtype == torch.bfloat16
+    live, n = counted(lambda: live_obj(frames))
+    assert n == want, (label, "live", n, want)
+    b = frames.shape[0]
+    planar = live_obj._layout == "planar"
+    h, w = frames.shape[2:] if planar else frames.shape[1:3]
+    t0 = time.perf_counter()
+    path = aot.save(live_obj, AOT_DIR / f"{label}.exe.aot", batch=b,
+                    height=h, width=w, kind="executable")
+    save_s = time.perf_counter() - t0
+    served = make()
+    t0 = time.perf_counter()
+    prog = aot.attach(served, path)
+    attach_s = time.perf_counter() - t0
+    assert prog.meta["kind"] == "executable", prog.meta
+    out, n = counted(lambda: served(frames))
+    assert n == want, (label, "executable", n, want)
+    px, sc = check_against_cpu(out, type(live)(*(f.cpu() for f in live)),
+                               (w, h), bf16)
+    if not planar:              # the rotated 540p frames, tiled
+        for i in range(b):
+            check_gt(out, i, GT[FRAMES_540[i % len(FRAMES_540)]],
+                     BF16_ROT_TOL if bf16 else ROT_TOL)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = served(frames)
+    torch.cuda.current_stream().wait_stream(side)
+    close(again, out, 0.0, f"{label} side stream")
+    exported = make()
+    aot.attach(exported, export_path)
+    vs_export = close(out, exported(frames), math.inf, f"{label} export")
+    ms = {key: host_call_ms(lambda: obj(frames)) for key, obj in (
+        ("live", live_obj), ("export", exported), ("executable", served))}
+    row = {"save_s": save_s, "attach_s": attach_s,
+           "bytes": path.stat().st_size, "vs_live_px": px,
+           "vs_live_score": sc,
+           "max_abs_diff_live": close(out, live, math.inf, label),
+           "max_abs_diff_export": vs_export,
+           "launches_per_call": {k: v for k, v in want.items() if v},
+           "host_ms": ms}
+    print(f"aot executable {label}: compile (save) {save_s:.2f} s, attach "
+          f"{attach_s:.2f} s, {row['bytes'] / 1e6:.2f} MB; vs live "
+          f"{px:.4f} px, scores {sc:.2e}, max |diff| "
+          f"{row['max_abs_diff_live']:.3g} (vs export {vs_export:.3g}); "
+          f"launches per call {row['launches_per_call']}; one call host to "
+          f"host: live {ms['live']:.3f} ms, export {ms['export']:.3f}, "
+          f"executable {ms['executable']:.3f}", flush=True)
+    return row, path
+
+
+def phase_aot_executable(cases, export_cold):
+    """The serving programs as executables on the card, the counts set to
+    0 before and read after: the three FaceCascade cases of ``aot_cases``
+    (f32 and bf16 at 540x360 batch 8, f32 at 1920x1080 planar batch 4),
+    each compiled, attached and held against the live object by
+    ``aot_executable``; then the cold start of the f32 540x360 b8
+    executable (construction, ``attach`` and a first call; ``aot.load``
+    and a first call) beside the export's (``export_cold``).  Left out,
+    to keep the script within half its time limit (each program compiles
+    in about a minute on the card, a tracker's three in three): the
+    EmbedCascade and FaceTracker executables, which
+    tests/test_torch_aot_executable.py compiles and checks on the CPU
+    (its ``slow`` tests).  Returns (launches, numbers)."""
+    phase("aot_executable")
+    numbers = {}
+    reset_counts()
+    paths = {}
+    for label, (make, x, want) in cases.items():
+        numbers[f"aot_executable_{label}"], paths[label] = aot_executable(
+            label, make, x, want, AOT_DIR / f"{label}.aot")
+    launches = launch_counts()
+    print(f"launches of the executables' path: {launches}", flush=True)
+
+    path = paths["cascade_f32_540p_b8"]
+    frames = cases["cascade_f32_540p_b8"][1]
+
+    def attached():
+        cascade = FaceCascade()
+        aot.attach(cascade, path)
+        return cascade
+
+    cold = {}
+    for key, start in (("construct_attach_and_call", attached),
+                       ("load_and_call", lambda: aot.load(path))):
+        t0 = time.perf_counter()
+        fn = start()
+        with torch.inference_mode():
+            fn(frames)
+        torch.cuda.synchronize()
+        cold[key + "_s"] = time.perf_counter() - t0
+    numbers["aot_executable_cold_start_540p_b8"] = cold
+    print(f"cold start, FaceCascade f32 540x360 b8 (warm process): "
+          f"executable { {k: round(v, 3) for k, v in cold.items()} }, "
+          f"export { {k: round(v, 3) for k, v in export_cold.items()} }",
+          flush=True)
     for p in AOT_DIR.glob("*.aot"):
         p.unlink()
     return launches, numbers
@@ -2682,8 +2831,8 @@ def phase_bench(smi):
     """``tpu_face_torch.bench.main`` in this process with f32 and then
     bf16 nets (BENCH_ARGS), the counts set to 0 before and read after:
     each run's gate passed in its type, every row of ``bench.ROWS``
-    present and positive, the record naming this card.  Returns
-    (launches, {dtype: record})."""
+    present and positive (``p50_aot_b8_ms`` through an executable), the
+    record naming this card.  Returns (launches, {dtype: record})."""
     phase("bench")
     records = {}
     reset_counts()
@@ -2698,6 +2847,7 @@ def phase_bench(smi):
                if not isinstance(record.get(row), (int, float))
                or not record[row] > 0]
         assert not bad, (dtype, bad, record)
+        assert record["aot_kind"] == "executable", record
         assert record["device"]["kind"] == torch.cuda.get_device_name(0)
         assert record["device"]["nvidia_smi"] in smi, (record, smi)
         print(f"bench {dtype}: {json.dumps(record)}", flush=True)
@@ -2793,7 +2943,10 @@ def main(argv=None):
     paths["mxu"] = phase_mxu()
     paths["tracker"], tracker_numbers = phase_tracker()
     paths["embed"], embed_numbers = phase_embed(args.trace)
-    paths["aot"], aot_numbers = phase_aot()
+    paths["aot"], aot_numbers, aot_cascades = phase_aot()
+    paths["aot_executable"], exec_numbers = phase_aot_executable(
+        aot_cascades, aot_numbers["aot_cold_start_540p_b8"])
+    aot_numbers.update(exec_numbers)
     paths["sharded"], sharded_numbers = phase_sharded()
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
     numbers.update(tracker_numbers)
@@ -2812,10 +2965,12 @@ def main(argv=None):
                  "fused_dw_pw_block_f32"):
         assert models["f32"][name] > 0, (name, models["f32"])
         assert paths["tracker"][name] > 0, (name, paths["tracker"])
-    # the exported programs launch the four kernels of the package's path
+    # the exported programs and the executables launch the four kernels
+    # of the package's path
     for name in ("warp_bilinear", "warp_bilinear_strips",
                  "fused_dw_pw_block_f32", "fused_dw_pw_block_bf16"):
-        assert paths["aot"][name] > 0, (name, paths["aot"])
+        for key in ("aot", "aot_executable"):
+            assert paths[key][name] > 0, (name, key, paths[key])
     # the full-range nets have no fused run; mxu launches no warp kernel
     assert paths["full_detectors"] == only(
         warp_bilinear=paths["full_detectors"]["warp_bilinear"]), paths

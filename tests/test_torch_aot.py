@@ -15,7 +15,7 @@ programs, on the CPU: the counterparts of tests/test_aot.py's cases.
   another batch names the saved batch; ``pad_batch`` (HWC and planar).
 * ``EmbedCascade`` with the demo embedding graph.
 * The trackers' artifacts are in tests/test_torch_aot_tracking.py.
-* ``kind="executable"`` raises ``ValueError``.
+* ``kind="executable"`` artifacts are in tests/test_torch_aot_executable.py.
 * The tensor table stores each of many short-lived tensors, however the
   allocator reuses their addresses.
 * ``infer_sharded`` refuses a cascade with an attached artifact.
@@ -222,12 +222,6 @@ def test_embed_cascade_roundtrip(tmp_path, frames):
     assert type(out).__name__ == "EmbedResult"
     _close(live, out)
     assert bool(out.face_valid.all())
-
-
-def test_executable_kind_raises(tmp_path):
-    with pytest.raises(ValueError, match="executable"):
-        aot.save(_cascade(), tmp_path / "exec.aot", batch=1, height=360,
-                 width=540, kind="executable")
 
 
 def test_tensor_table_keeps_freed_tensors_apart():

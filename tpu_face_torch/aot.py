@@ -1,5 +1,6 @@
 """Ahead-of-time programs: a cascade's or a tracker's batched program as
-a ``torch.export`` artifact (counterpart of tpu_face/aot.py).
+a ``torch.export`` artifact or a compiled AOTInductor package
+(counterpart of tpu_face/aot.py).
 
 ``save()`` traces ``obj``'s program at one (batch, height, width) with
 ``torch.export`` and writes it, the weights as constants, into one file;
@@ -21,25 +22,40 @@ Kinds:
 
 - ``"export"`` (the default): the ``torch.export`` program, the
   counterpart of the JAX package's ``"stablehlo"``.  It is not
-  StableHLO, so it does not take that name.
-- ``"executable"`` raises ``ValueError`` in ``save``, the JAX module's
-  contract for a backend without it: a compiled AOTInductor package
-  cannot call kernels that Python launches through ``ctypes``.  It waits
-  until the kernels are bound as C++ operators.
+  StableHLO, so it does not take that name.  A loaded program runs the
+  graph's ATen calls one by one from Python.
+- ``"executable"``: each exported program compiled by AOTInductor
+  (``torch._inductor.aoti_compile_and_package``, TF32 off) into a
+  package whose compiled wrapper runs the whole program without Python
+  per op, the counterpart of a serialized XLA executable.  The kernels'
+  operators stay opaque nodes: the package calls their registered
+  implementations, so it launches the same hand-written kernels as the
+  live object.  Inductor compiles the ATen part, fusing elementwise
+  chains, so the result is held to the cascade's accuracy contract, not
+  to bit identity with the live object.  An executable is bound to its
+  runtime, as an XLA executable is: the header records the device type,
+  the GPU's name and compute capability (or the CPU's vector ISA) and
+  the torch version, and ``load`` refuses any other before it loads a
+  package.
 
-The container is pickle-free and safe to load from untrusted sources:
-a magic prefix, a u64-be length, a JSON header (the metadata, which
-program is which, and a table of tensors), then the payload: each
-program's graph as ``torch.export``'s JSON and each tensor's raw bytes,
-stored once however many programs read it.  ``load`` never unpickles:
-it hands the deserializer tensors it built from those bytes, never
-serialized state for ``torch.load`` to read.
+Both kinds share one container: a magic prefix, a u64-be length, a JSON
+header (the metadata and which program is which), then the payload.  An
+``"export"`` payload is each program's graph as ``torch.export``'s JSON
+and a table of tensors, each tensor's raw bytes stored once however
+many programs read it.  ``load`` of an export never unpickles: it hands
+the deserializer tensors it built from those bytes, never serialized
+state for ``torch.load`` to read, so an export is safe to load from
+untrusted sources.  An ``"executable"`` payload is each program's
+package bytes: a package holds a compiled shared library that its load
+runs, so load only executables you made yourself (the JAX package's
+trust model for its executables).
 
 An artifact is tied to its device type ("cuda" or "cpu"), its frame
 geometry and its batch, as an XLA program is; ``pad_batch`` lets smaller
 cascade batches ride it.
 """
 
+import io
 import json
 import struct
 from pathlib import Path
@@ -96,6 +112,60 @@ def _export(module, args):
         return torch.export.export(module, args, strict=False)
 
 
+# Inductor's options for an executable.  Its C++ wrapper is compiled and
+# linked by the g++ on PATH (Inductor's own default), not by $CXX, since
+# the link takes -fopenmp and a $CXX toolchain may lack GCC's OpenMP
+# runtime (libgomp.spec).  Fused bf16 chains round to bf16 after every
+# op, as the live nets do (without it Inductor keeps them in f32: on an
+# H100 the bf16 detector's boxes and face ROIs then moved up to 2.3e-3
+# from the live object's, and 2.4e-7 with it).
+_INDUCTOR = {"cpp.cxx": ("g++",), "emulate_precision_casts": True}
+
+
+def _compile(ep) -> bytes:
+    """The AOTInductor package of exported program ``ep``, compiled under
+    ``no_grad`` and full f32 (the package's matmuls and convolutions
+    read the TF32 flags when they run, and ``_Program`` calls it under
+    ``exact_f32`` too); a failed compile raises."""
+    buf = io.BytesIO()
+    with torch.no_grad(), exact_f32():
+        torch._inductor.aoti_compile_and_package(
+            ep, package_path=buf, inductor_configs=_INDUCTOR)
+    return buf.getvalue()
+
+
+def _target(device) -> dict:
+    """What binds an executable compiled for ``device`` to its runtime:
+    the GPU's name and compute capability, or the CPU's vector ISA (the
+    package's kernels use its instructions)."""
+    if device.type == "cuda":
+        return {"gpu": torch.cuda.get_device_name(device),
+                "capability": list(torch.cuda.get_device_capability(device))}
+    from torch._inductor.cpu_vec_isa import pick_vec_isa
+
+    return {"cpu_isa": str(pick_vec_isa())}
+
+
+def _check_target(meta, device):
+    """Refuse (``ValueError``) to load an executable on another device
+    type, GPU, compute capability, CPU vector ISA or torch version than
+    the one it was compiled for."""
+    if meta["device"] != device.type:
+        raise ValueError(f"the executable was compiled for device type "
+                         f"{meta['device']!r}, not {device.type!r}")
+    if meta.get("torch") != torch.__version__:
+        raise ValueError(f"the executable was compiled with torch "
+                         f"{meta.get('torch')}, not {torch.__version__}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise ValueError("the executable was compiled for a CUDA device, "
+                         "and none is available")
+    here = _target(device)
+    for key, value in here.items():
+        if meta.get(key) != value:
+            raise ValueError(f"the executable was compiled for {key} "
+                             f"{meta.get(key)!r}, not {value!r}")
+
+
 class _Tensors:
     """The payload's tensor table: each tensor's raw bytes once, keyed by
     its storage and view, in the header as dtype, shape, stride and the
@@ -130,7 +200,9 @@ class _Tensors:
 def save(obj, path, batch: int, height: int, width: int,
          kind: str = "export") -> Path:
     """Export ``obj``'s batched programs at the given geometry into
-    ``path``.
+    ``path``; with ``kind="executable"`` compile each one into an
+    AOTInductor package (on ``obj``'s device: the card's compile runs
+    Inductor's code generation and its CUDA and C++ compilers).
 
     ``obj``: a ``FaceCascade`` or ``EmbedCascade``, a ``FaceTracker`` or
     a ``MultiFaceTracker``.  The batch size and frame geometry are baked
@@ -138,30 +210,30 @@ def save(obj, path, batch: int, height: int, width: int,
     programs run on the device type ``obj`` runs on."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
-    if kind == "executable":
-        raise ValueError(
-            'kind="executable" is not supported by this backend: a compiled '
-            "AOTInductor package cannot call the port's kernels, which "
-            "Python launches through ctypes; use kind=\"export\"")
     from torch._export.serde import serialize as serde
 
     path = Path(path)
     tensors = _Tensors()
-    graphs, programs = [], []
+    blobs, programs = [], []
     for name, (module, args) in _modules(obj, batch, height, width).items():
         ep = _export(module, args)
+        prog = {"name": name, "batch": int(args[0].shape[0]),
+                "inputs": [[str(a.dtype), list(a.shape)] for a in args],
+                "result": ("EmbedResult" if isinstance(obj, EmbedCascade)
+                           else "CascadeResult")}
+        if kind == "executable":
+            blobs.append(_compile(ep))
+            prog["package_bytes"] = len(blobs[-1])
+            programs.append(prog)
+            continue
         for fqn, value in (*ep.state_dict.items(), *ep.constants.items()):
             if not isinstance(value, torch.Tensor):
                 raise ValueError(f"{name}: constant {fqn} is a "
                                  f"{type(value).__name__}, not a tensor")
         # the graph's JSON only: the weights go into the tensor table
-        graphs.append(serde.serialize(ep).exported_program)
+        blobs.append(serde.serialize(ep).exported_program)
         programs.append({
-            "name": name, "batch": int(args[0].shape[0]),
-            "inputs": [[str(a.dtype), list(a.shape)] for a in args],
-            "result": ("EmbedResult" if isinstance(obj, EmbedCascade)
-                       else "CascadeResult"),
-            "graph_bytes": len(graphs[-1]),
+            **prog, "graph_bytes": len(blobs[-1]),
             "state_dict": {k: tensors.add(v)
                            for k, v in ep.state_dict.items()},
             "params": [k for k, v in ep.state_dict.items()
@@ -175,6 +247,8 @@ def save(obj, path, batch: int, height: int, width: int,
         "max_faces": _cascade(obj).max_faces,
         "torch": torch.__version__, "programs": programs,
         "tensors": tensors.rows}
+    if kind == "executable":
+        meta.update(_target(obj.device))
     if isinstance(obj, _TrackerBase):
         meta["repair_batch"] = obj._repair_n(batch)
     head = json.dumps(meta).encode()
@@ -182,20 +256,20 @@ def save(obj, path, batch: int, height: int, width: int,
         f.write(_MAGIC)
         f.write(struct.pack(">Q", len(head)))
         f.write(head)
-        for graph in graphs:
-            f.write(graph)
-        for blob in tensors.blobs:
+        for blob in blobs + tensors.blobs:
             f.write(blob)
     return path
 
 
 class _Program:
     """One loaded program: ``__call__(*tensors)`` checks its inputs
-    against the saved ones and returns the result NamedTuple."""
+    against the saved ones, runs ``module`` (an exported program's
+    module or a loaded AOTInductor package) under ``inference_mode`` and
+    full f32 and returns the result NamedTuple."""
 
-    def __init__(self, name, ep, inputs, result):
+    def __init__(self, name, module, inputs, result):
         self.name = name
-        self.module = ep.module()
+        self.module = module
         self.inputs = inputs
         self.result = result
 
@@ -258,14 +332,16 @@ def _read(path):
             raise _not_artifact(path, "bad header") from e
         payload = memoryview(f.read())
     if not isinstance(meta, dict) or meta.get("format") != _FORMAT \
-            or meta.get("kind") != "export" or not _META_KEYS <= set(meta):
+            or meta.get("kind") not in KINDS or not _META_KEYS <= set(meta):
         raise _not_artifact(path, "bad format")
     return meta, payload
 
 
 def _programs(path, meta, payload, device):
-    """{name: _Program} of an artifact read by ``_read``, its tensors on
-    ``device``."""
+    """{name: _Program} of an artifact read by ``_read``, its tensors (or
+    an executable's packages) on ``device``."""
+    if meta["kind"] == "executable":
+        return _packages(path, meta, payload, device)
     from torch._export.serde import serialize as serde
 
     try:
@@ -286,16 +362,49 @@ def _programs(path, meta, payload, device):
             ep = serde.deserialize(serde.SerializedArtifact(
                 graph, state, consts, b""))
             programs[prog["name"]] = _Program(
-                prog["name"], ep, prog["inputs"], _RESULTS[prog["result"]])
+                prog["name"], ep.module(), prog["inputs"],
+                _RESULTS[prog["result"]])
     except Exception as e:   # untrusted input: any failure is a bad file
         raise _not_artifact(path, f"{type(e).__name__}: {e}") from e
+    return programs
+
+
+def _load_package(blob, device):
+    """The AOTInductor package ``blob`` (``_compile``'s bytes) loaded on
+    ``device``."""
+    index = -1 if device.index is None else device.index
+    return torch._inductor.aoti_load_package(io.BytesIO(blob),
+                                             device_index=index)
+
+
+def _packages(path, meta, payload, device):
+    """{name: _Program} of an executable read by ``_read``, loaded on
+    ``device`` once its header has passed ``_check_target``."""
+    _check_target(meta, device)
+    try:
+        sizes = [int(prog["package_bytes"]) for prog in meta["programs"]]
+        results = [_RESULTS[prog["result"]] for prog in meta["programs"]]
+    except (KeyError, TypeError, ValueError) as e:
+        raise _not_artifact(path, "bad program table") from e
+    if min(sizes, default=0) <= 0 or sum(sizes) != len(payload):
+        raise _not_artifact(path, f"{len(payload)} payload bytes, the "
+                            f"header gives {sum(sizes)}: truncated")
+    programs, start = {}, 0
+    for prog, n, result in zip(meta["programs"], sizes, results):
+        module = _load_package(bytes(payload[start:start + n]), device)
+        start += n
+        programs[prog["name"]] = _Program(prog["name"], module,
+                                          prog["inputs"], result)
     return programs
 
 
 def load(path) -> LoadedProgram:
     """Read an artifact written by ``save``, its tensors on the device
     type it was saved on.  Anything else, pickles included, raises
-    ``ValueError``; nothing is unpickled."""
+    ``ValueError``; an export's load unpickles nothing.  An executable's
+    header must name this runtime (``_check_target``); its packages'
+    compiled code runs when they load, so load only executables you
+    made."""
     path = Path(path)
     meta, payload = _read(path)
     return LoadedProgram(meta, _programs(path, meta, payload,
@@ -307,13 +416,14 @@ def attach(obj, path, pad_batch: bool = False) -> LoadedProgram:
     saved geometry, so the normal host API runs them (no Python stages).
 
     The artifact must come from the same class, input layout, device
-    type and ``max_faces`` (a tracker's also from the same repair batch).
-    A call at another batch then raises ``ValueError`` naming the saved
-    batch.  ``pad_batch=True`` (cascades only: trackers carry per-stream
-    state, where padding would corrupt the lock bookkeeping) lets
-    smaller batches ride the fixed-batch program: frames are zero-padded
-    up to the saved batch and the result sliced back; a larger batch
-    raises ("exceeds")."""
+    type and ``max_faces`` (a tracker's also from the same repair batch),
+    and an executable from this runtime (``load``); its packages load on
+    ``obj``'s device.  A call at another batch then raises
+    ``ValueError`` naming the saved batch.  ``pad_batch=True`` (cascades
+    only: trackers carry per-stream state, where padding would corrupt
+    the lock bookkeeping) lets smaller batches ride the fixed-batch
+    program: frames are zero-padded up to the saved batch and the result
+    sliced back; a larger batch raises ("exceeds")."""
     if not isinstance(obj, (_DetectorBase, _TrackerBase)):
         raise TypeError(f"cannot attach to {type(obj).__name__}; expected "
                         "a FaceCascade/EmbedCascade, FaceTracker or "

@@ -29,7 +29,9 @@ Where it differs from the JAX bench:
   null on ``--device cpu``;
 * the device-only latencies replay a CUDA graph of one call behind a
   ``torch.cuda._sleep`` (``queued_ms``); null on the CPU;
-* the serving row attaches a ``kind="export"`` artifact (``aot``);
+* the serving row attaches a ``kind="executable"`` artifact (``aot``: an
+  AOTInductor package, whose compile the row waits for), as the JAX
+  bench does;
 * a row that fails raises: the run exits non-zero and prints no record.
 
 The entry point runs on the CUDA card unless ``--device cpu`` is given,
@@ -419,19 +421,20 @@ def _latency_rows(cascade, batch, device):
 
 def _aot_row(make, batch, size):
     """p50_aot_b8_ms: host-to-host latency of a cascade with an attached
-    ``kind="export"`` artifact saved at batch 8."""
+    ``kind="executable"`` artifact saved at batch 8."""
     from . import aot
 
     w, h = size
     served = make()
     with tempfile.TemporaryDirectory() as td:
         path = Path(td) / "cascade_b8.aot"
-        aot.save(served, path, batch=8, height=h, width=w, kind="export")
+        aot.save(served, path, batch=8, height=h, width=w,
+                 kind="executable")
         aot.attach(served, path)
     eight = batch[:8]
     ms = _host_p50_ms(lambda: _fetch(served(eight)))
-    _log(f"batch-8 AOT (export) p50: {ms:.2f} ms host-to-host")
-    return {"p50_aot_b8_ms": ms, "aot_kind": "export"}
+    _log(f"batch-8 AOT (executable) p50: {ms:.2f} ms host-to-host")
+    return {"p50_aot_b8_ms": ms, "aot_kind": "executable"}
 
 
 def _tracking_rows(make_tracker, batch, iters, churn_row):
