@@ -47,7 +47,13 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               error of the f32-staged kernel it replaced on the same
               inputs;
 4. cascade -- the main paths, with every launch count set to 0 before
-              each and read after it.  f32: FaceCascade() on the seven
+              each and read after it.  Each call is a cascade's first at
+              its geometry: on the card it runs ``_forward`` eagerly
+              twice (the warm-ups) and once more under capture, then
+              replays the captured CUDA graph, which launches the same
+              kernels without a wrapper call; so each call counts three
+              times the launches of one ``_forward`` (``capture_runs``),
+              and its result is the replay's.  f32: FaceCascade() on the seven
               rotated frames of assets/rotated/ (one infer_batch per
               geometry; 2 warp_bilinear, 0 warp_bilinear_strips and the
               detector's planned f32 fused-block launches each), held
@@ -74,6 +80,12 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               rotated frames, no warp kernel launched (only the detector's
               fused launches), against the ground truth and the kernel
               path's result within 0.25 px / 1e-3;
+   The phases that check each call's launches from here on (models,
+   the standalone detectors of full_detectors, the chain of mxu,
+   tracker, embed, aot, aot_executable, sharded, numbers) run the
+   objects' eager calls (``eager_calls``: the program caches step
+   aside), so every count is one ``_forward``'s; == graphs holds the
+   cached calls against them;
 5. models  -- the standalone models, counts set to 0 before and read
               after: FaceDetection(BACK) -> face_detection_to_roi ->
               FaceLandmark -> iris_roi_from_face_landmarks -> IrisLandmark
@@ -167,7 +179,28 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               FaceTracker executables are left out (a compile costs about
               a minute on the card; tests/test_torch_aot_executable.py
               runs both on the CPU, under ``slow``);
-12. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
+12. graphs -- the per-geometry CUDA-graph programs (tpu_face_torch.programs),
+              the counts set to 0 before and read after (the warm-ups and
+              captures of first calls, and the eager references): every
+              cached path against the eager call on the same input,
+              bit-identical or within the cascade contract (printed):
+              FaceCascade f32 and bf16 at 540x360 b1, b8 and b64, planar
+              1920x1080 b64 (the strip kernel), FULL_SPARSE K=4 on canvas
+              (c) b32, EmbedCascade f32 b8, FaceTracker and
+              MultiFaceTracker (K=2) over 8 streams and five steps with a
+              two-stream repair and a forced redetect (each step from the
+              same state, the lock states equal; their caches hold the
+              full program at 8 and 2 streams and the tracked one), the
+              four models' infer_batch at b8; two geometries interleaved
+              (540x360 b8, the close-up, 540x360 b8 again) with a held
+              result unchanged; one profiled replay each of f32 540x360
+              b8, bf16 540x360 b8 and f32 1080p planar b64 holding K1 and
+              K3, K4, and K2 among its kernels; each graph's capture
+              seconds and pool bytes; one call host to host, eager
+              against cached, and the cached call's device time, at
+              540x360 b1, b8, b64 and b128 in f32 and bf16, beside the
+              executable's at b8 (from aot_executable);
+13. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
               read after: infer_sharded of FaceCascade() at 540x360 batch
               64 over data_parallel_mesh() (every visible card; its size
               printed) and over [cuda:0, cuda:0] against the unsharded
@@ -177,7 +210,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               unsharded tracker; then each sharded call's frames/s beside
               the unsharded call's (host clock, every card synchronized;
               printed, no limit);
-13. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
+14. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
@@ -185,7 +218,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               turns against one bound, the bytes the staged windows copied
               (counted by the kernel) printed beside those the gather's
               bound counts;
-14. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+15. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
               and with bf16 nets; faces/s of canvas (c) at batch 32 with
@@ -210,7 +243,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               kernel are timed on the same runs; and the card's launch
               queue: the small launches the host enqueues behind a
               sleeping card before one blocks (launch_queue_depth);
-15. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
+16. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
               tpu_face_torch.bench``) in this process at batch 64 with
               short windows (BENCH_ARGS), every row on, with f32 and then
               bf16 nets, the counts set to 0 before and read after: each
@@ -266,6 +299,9 @@ BLOCK_TOL_F32 = 1e-4            # fused block, x max(1, max|plain|)
 BLOCK_TOL_BF16 = 2e-2           # bf16 BACK net, fused vs op by op, x max(1, max)
 CPU_PX_TOL = 0.25               # landmarks, GPU vs CPU port, pixels
 CPU_SCORE_TOL = 1e-3
+# a standalone model's cached call vs its eager call where they are not
+# bit-identical: normalized points and scores, CPU_PX_TOL at 540 px
+MODEL_TOL = CPU_PX_TOL / 540
 # FULL's cascade: nose and irises against the ground truth rows (taken
 # with the BACK detector's ROIs), the budget tests/test_rotation_e2e.py
 # gives the tracked mesh and iris
@@ -1125,14 +1161,20 @@ def segment_calls(fn):
 
 
 def run_cascade(cascade, frames, launches):
-    """One infer_batch on the card, checked for its kernel launches; where
-    it warps f32 planes, for the mesh grid as one segment and the iris
-    grids as two, read where they lie (no coordinate concatenation)."""
+    """The first infer_batch of ``cascade`` at ``frames``' geometry on the
+    card, checked for its kernel launches: ``launches`` per eager run of
+    ``_forward``, times the runs of a first call (``capture_runs``: the
+    warm-ups and the capture of its CUDA graph, whose replay makes no
+    wrapper call); where it warps f32 planes, for the mesh grid as one
+    segment and the iris grids as two in each run, read where they lie
+    (no coordinate concatenation)."""
     (res, n), seen = segment_calls(
         lambda: counted(lambda: cascade.infer_batch(frames)))
-    assert n == launches, (n, launches)
-    assert seen == ([(1, True), (2, True)] if launches["warp_bilinear"]
-                    else []), seen
+    runs = capture_runs()
+    assert n == {k: v * runs for k, v in launches.items()}, (n, launches,
+                                                            runs)
+    assert seen == ([(1, True), (2, True)] * runs
+                    if launches["warp_bilinear"] else []), seen
     return res
 
 
@@ -1176,8 +1218,10 @@ def phase_cascade(dtype=torch.float32):
                       for key, (img, k, n) in canvases.items()}
     launches = launch_counts()
     print(f"launches on the main path: {launches} for {len(batches)} "
-          f"rotated-frame and {len(canvases)} canvas infer_batch calls "
-          f"({fused} fused-block launches planned per infer_batch)")
+          f"rotated-frame and {len(canvases)} canvas infer_batch calls, "
+          f"each a first call at its geometry ({capture_runs()} runs of "
+          f"_forward: the warm-ups and the capture; {fused} fused-block "
+          f"launches planned per run)")
 
     cpu = {k: FaceCascade(device="cpu", max_faces=k, compute_dtype=dtype)
            for k in cascades}
@@ -1423,15 +1467,16 @@ def phase_full_detectors():
         assert det._net.runs == [], m
     reset_counts()
     found = {}
-    for m, det in card.items():
-        for name, img in frames.items():
-            size = (img.shape[1], img.shape[0])
-            # the whole-frame warp is K1 unless the geometry takes the
-            # exact two-stage letterbox (the 200x225 portraits)
-            warps = int(image_ops.letterbox_two_stage_params(
-                size, (det.in_w, det.in_h)) is None)
-            found[m, name], n = counted(lambda: det.infer(img))
-            assert n == only(warp_bilinear=warps), (m, name, n)
+    with eager_calls():         # each call's launches
+        for m, det in card.items():
+            for name, img in frames.items():
+                size = (img.shape[1], img.shape[0])
+                # the whole-frame warp is K1 unless the geometry takes
+                # the exact two-stage letterbox (the 200x225 portraits)
+                warps = int(image_ops.letterbox_two_stage_params(
+                    size, (det.in_w, det.in_h)) is None)
+                found[m, name], n = counted(lambda: det.infer(img))
+                assert n == only(warp_bilinear=warps), (m, name, n)
     cards = {label: FaceCascade(m, max_faces=k)
              for label, (m, k, _) in cascades.items()}
     results = {}
@@ -1490,9 +1535,11 @@ def phase_mxu():
     batch = np.stack([frames[n] for n in FRAMES_540])
     reset_counts()
     chains = {}
-    for name, img in frames.items():
-        chains[name], n = counted(lambda: chain(card, img, GT[name]["size"]))
-        assert n == only(fused_dw_pw_block_f32=fused), (name, n)
+    with eager_calls():         # each call's launches
+        for name, img in frames.items():
+            chains[name], n = counted(lambda: chain(card, img,
+                                                    GT[name]["size"]))
+            assert n == only(fused_dw_pw_block_f32=fused), (name, n)
     res = run_cascade(cascade, batch, only(fused_dw_pw_block_f32=fused))
     launches = launch_counts()
     print(f"launches of the mxu paths: {launches} for {len(frames)} "
@@ -2857,6 +2904,316 @@ def phase_bench(smi):
     return launches, records
 
 
+# ---- the cached programs (tpu_face_torch.programs) ---------------------
+
+
+EAGER = False      # inside eager_calls
+
+
+@contextlib.contextmanager
+def eager_calls():
+    """Inside the block the objects' calls run their eager functions
+    (``_forward``, the trackers' and the models' passes) and not the
+    CUDA graphs their program caches hold: for the phases that count
+    each call's kernel launches, which a graph replay does not make."""
+    global EAGER
+    cached = programs.ProgramCache.__call__
+    programs.ProgramCache.__call__ = (
+        lambda self, name, fn, *inputs: fn(*inputs))
+    EAGER = True
+    try:
+        yield
+    finally:
+        programs.ProgramCache.__call__ = cached
+        EAGER = False
+
+
+def capture_runs():
+    """The eager runs of a program's function in its first call: the
+    warm-ups and the capture (one where ``eager_calls`` is on)."""
+    return 1 if EAGER else programs.WARMUPS + 1
+
+
+def result_arrays(out):
+    """The numbers of a call's result as a flat list of CPU tensors (a
+    NamedTuple of tensors, numpy arrays, lists of ``Detection``)."""
+    if isinstance(out, torch.Tensor):
+        return [out.cpu()]
+    if isinstance(out, np.ndarray):
+        return [torch.from_numpy(out)]
+    if hasattr(out, "data") and hasattr(out, "score"):      # Detection
+        return [torch.from_numpy(out.data), torch.tensor(out.score)]
+    return [t for part in out for t in result_arrays(part)]
+
+
+def hold_cached(label, got, want, size=None, bf16=False, tol=0.0):
+    """A cached call's result against the eager call's on the same input:
+    bit-identical, or else equal bools and a CascadeResult within the
+    cascade contract (``check_against_cpu``: f32 0.25 px / 1e-3, bf16 nets
+    the BF16_* criteria), anything else within ``tol``.  Prints which and
+    returns the largest difference."""
+    a, b = result_arrays(got), result_arrays(want)
+    assert [(t.shape, t.dtype) for t in a] == [(t.shape, t.dtype)
+                                               for t in b], label
+    if all(torch.equal(x, y) for x, y in zip(a, b)):
+        print(f"{label}: cached vs eager bit-identical", flush=True)
+        return 0.0
+    worst = 0.0
+    for x, y in zip(a, b):
+        if x.dtype == torch.bool:
+            assert torch.equal(x, y), label
+        else:
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    if hasattr(got, "mesh"):
+        check_against_cpu(got, type(want)(*(f.cpu() for f in want)), size,
+                          bf16)
+    else:
+        assert worst <= tol, (label, worst, tol)
+    print(f"{label}: cached vs eager max |diff| {worst:.3e} (within the "
+          f"contract)", flush=True)
+    return worst
+
+
+def eager_forward(obj, frames):
+    """``obj``'s eager ``_forward`` on ``frames``, as ``__call__`` runs it."""
+    planar = obj._layout == "planar"
+    h, w = frames.shape[2:] if planar else frames.shape[1:3]
+    with torch.inference_mode(), exact_f32():
+        return obj._forward(frames, (w, h))
+
+
+def hold_steps(label, tracker, steps, size):
+    """Each frame batch of ``steps`` through ``tracker``'s cached step and,
+    from the same state, its eager step (``eager_calls``); the cached
+    step's state goes on.  Returns the worst difference."""
+    worst = 0.0
+    for i, frames in enumerate(steps):
+        before = (tracker._state, tracker._state_hw, tracker._steps)
+        with eager_calls():
+            want = tracker.step(frames)
+            want_lock = tracker.tracking
+        tracker._state, tracker._state_hw, tracker._steps = before
+        got = tracker.step(frames)
+        assert (tracker.tracking == want_lock).all(), (label, i)
+        worst = max(worst, hold_cached(f"{label} step {i}", got, want,
+                                       size))
+    return worst
+
+
+def replay_kernels(obj, frames, label, out):
+    """torch.profiler over one cached call (a graph replay): {kernel
+    name: launches} of what the device ran.  The table goes into ``out``
+    when given."""
+    from torch.profiler import ProfilerActivity, profile
+    obj(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        obj(frames)
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"replay_{label}_kernels.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=40))
+    return names
+
+
+# the 540x360 batches of the cached FaceCascade: each held against
+# _forward but the last, and each timed
+GRAPH_BATCHES = (1, 8, 64, 128)
+# the hand-written kernels' function names in csrc/, as the profiler
+# lists them (a substring of the key)
+KERNEL_FUNCS = {"warp_bilinear": "warp_bilinear_kernel",
+                "warp_bilinear_strips": "warp_bilinear_strips_kernel",
+                "fused_dw_pw_block_f32": "fused_blocks_kernel",
+                "fused_dw_pw_block_bf16": "fused_blocks_bf16_kernel"}
+
+
+def kernels_in(names):
+    """{kernels line entry: launches} of the hand-written kernels among
+    a profile's {kernel name: launches}."""
+    found = {k: sum(c for n, c in names.items() if func in n)
+             for k, func in KERNEL_FUNCS.items()}
+    return {k: c for k, c in found.items() if c}
+
+
+def cache_rows(label, cache):
+    """{key label: capture seconds and graph pool bytes} of ``cache``."""
+    rows = {}
+    for key, prog in cache.entries.items():
+        name = key[0] if isinstance(key[0], str) else "/".join(
+            str(k) for k in key[0])
+        shapes = ",".join("x".join(map(str, s)) + f":{str(d)[6:]}"
+                          for s, d in key[1:])
+        rows[f"{label} {name} {shapes}"] = {"capture_s": prog.capture_s,
+                                           "bytes": prog.nbytes}
+    return rows
+
+
+def phase_graphs(trace, exec_numbers):
+    """The cached programs on the card: each object's first call at a
+    geometry captures a CUDA graph, every later call replays it.  Each
+    cached path against the eager call on the same input; two geometries
+    interleaved with a held result; the hand-written kernels found in the
+    profiled replays; capture seconds, graph bytes and host-to-host ms,
+    eager against cached (and the executable's at b8, from
+    ``exec_numbers``).  Returns (launches, numbers)."""
+    phase("graphs")
+    t0 = time.perf_counter()
+    rot = {n: load_image(ROT / n) for n in GT}
+    tile = np.stack([rot[n] for n in FRAMES_540])
+    rows, numbers, caches = {}, {}, {}
+    reset_counts()
+
+    def frames540(b):
+        return torch.from_numpy(np.tile(tile, (b // 4 or 1, 1, 1, 1))[:b]
+                                ).cuda()
+
+    # FaceCascade BACK at 540x360: b1, b8, b64 held against _forward, and
+    # b128 timed; eager against cached host to host, and the cached
+    # call's device time (queued behind a sleep)
+    timing = {}
+    for dt, short in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        name = str(dt)[6:]
+        cascade = FaceCascade(compute_dtype=dt)
+        caches[f"cascade_{name}"] = cascade._cache
+        for b in GRAPH_BATCHES:
+            x = frames540(b)
+            got = cascade(x)
+            if b < GRAPH_BATCHES[-1]:
+                hold_cached(f"FaceCascade {name} 540x360 b{b}", got,
+                            eager_forward(cascade, x), (540, 360),
+                            dt == torch.bfloat16)
+            eager = host_call_ms(lambda: eager_forward(cascade, x), 10)
+            cached = host_call_ms(lambda: cascade(x), 10)
+            device = queued_ms(lambda: cascade(x))
+            timing[f"{name}_b{b}"] = {"eager_ms": eager, "cached_ms": cached,
+                                      "cached_device_ms": device}
+            print(f"FaceCascade {name} 540x360 b{b}: one call host to host "
+                  f"eager {eager:.3f} ms, cached {cached:.3f} ms (device "
+                  f"{device:.3f} ms queued)", flush=True)
+        exe = exec_numbers[f"aot_executable_cascade_{short}_540p_b8"]
+        timing[f"{name}_b8"]["executable_ms"] = exe["host_ms"]["executable"]
+        print(f"FaceCascade {name} 540x360 b8 through the executable "
+              f"(== aot_executable): {exe['host_ms']['executable']:.3f} ms "
+              f"host to host", flush=True)
+        if dt == torch.float32:
+            f32_cascade = cascade
+    numbers["graphs_host_ms_540p"] = timing
+
+    # two geometries interleaved (540x360 b8, the 704x704 close-up b1),
+    # a held result unchanged by the next calls
+    cascade = f32_cascade
+    a1, a2 = frames540(8), frames540(8).flip(0).contiguous()
+    close_up = torch.from_numpy(rot["man_closeup_rotp30.png"][None].copy()
+                                ).cuda()
+    first = cascade(a1)
+    held = [f.clone() for f in first]
+    other = cascade(close_up)
+    again = cascade(a2)
+    for f, h in zip(first, held):
+        assert torch.equal(f, h), "a held result changed"
+    hold_cached("interleaved B (704x704 b1)", other,
+                eager_forward(cascade, close_up), (704, 704))
+    hold_cached("interleaved A again (540x360 b8, other frames)", again,
+                eager_forward(cascade, a2), (540, 360))
+
+    # planar 1080p b64 (the strip kernel), FULL_SPARSE K=4 on canvas (c)
+    # b32, EmbedCascade f32 b8
+    rng = np.random.default_rng(1)
+    hires = hires_batch(canvas_1080p(load_image), BATCH["1080p"], rng)
+    planar = FaceCascade(input_layout="planar")
+    caches["planar_1080p"] = planar._cache
+    hold_cached(f"FaceCascade f32 1920x1080 planar b{BATCH['1080p']}",
+                planar(hires), eager_forward(planar, hires), (1920, 1080))
+    grid = torch.from_numpy(np.stack([canvas_grid(load_image)]
+                                     * BATCH["k4"])).cuda()
+    sparse = FaceCascade(tmodels.FaceDetectionModel.FULL_SPARSE,
+                         max_faces=4)
+    caches["full_sparse_k4"] = sparse._cache
+    hold_cached(f"FaceCascade FULL_SPARSE K=4 1080x720 b{BATCH['k4']}",
+                sparse(grid), eager_forward(sparse, grid), (1080, 720))
+    embed = EmbedCascade(embed_model_path=str(DATA_DIR / "demo"))
+    caches["embed"] = embed._cache
+    x8 = frames540(8)
+    hold_cached("EmbedCascade f32 540x360 b8", embed(x8),
+                eager_forward(embed, x8), tol=EMBED_TOL)
+
+    # the trackers: 8 streams, a forced redetect every third step, a
+    # two-stream repair (stream 2 blanked at step 2)
+    seq = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
+    steps = [tracker_frames(seq, i, 8, (2,) if i == 2 else ())
+             for i in range(5)]
+    for label, tracker in (
+            ("FaceTracker", tracking.FaceTracker(redetect_every=3,
+                                                 repair_batch=2)),
+            ("MultiFaceTracker K=2", tracking.MultiFaceTracker(
+                max_faces=2, redetect_every=3, repair_batch=2))):
+        hold_steps(label, tracker, steps, (540, 360))
+        cache = tracker.cascade._cache
+        caches[label] = cache
+        assert sorted((k[0], k[1][0][0]) for k in cache.entries) == [
+            ("full", 2), ("full", 8), ("tracked", 8)], list(cache.entries)
+
+    # the four models' infer_batch, cached against eager
+    models = {"FaceDetection": tmodels.FaceDetection(
+                  tmodels.FaceDetectionModel.BACK_CAMERA),
+              "FaceLandmark": tmodels.FaceLandmark(),
+              "IrisLandmark": tmodels.IrisLandmark(),
+              "FaceEmbeddings": tmodels.FaceEmbeddings(
+                  str(DATA_DIR / "demo"))}
+    roi = Rect(0.47, 0.41, 0.4, 0.6, 0.2, normalized=True)
+    eye = Rect(0.42, 0.33, 0.08, 0.08, 0.1, normalized=True)
+    n8 = x8.cpu().numpy()
+    calls = {"FaceDetection": lambda m: m.infer_batch(n8),
+             "FaceLandmark": lambda m: m.infer_batch(n8, [roi] * 8),
+             "IrisLandmark": lambda m: m.infer_batch(
+                 n8, [eye] * 8, [i % 2 == 1 for i in range(8)]),
+             "FaceEmbeddings": lambda m: m.infer_batch(
+                 n8, [(180, 80, 320, 215)] * 8)}
+    for label, model in models.items():
+        got = calls[label](model)
+        with eager_calls():
+            want = calls[label](model)
+        hold_cached(f"{label}.infer_batch 540x360 b8", got, want,
+                    tol=EMBED_TOL if label == "FaceEmbeddings" else MODEL_TOL)
+        assert len(model._cache.entries) == 1, label
+        caches[label] = model._cache
+    launches = launch_counts()
+    print(f"launches of the graphs phase (the warm-ups and captures of "
+          f"each first call; a replay makes no wrapper call): {launches}",
+          flush=True)
+
+    # the kernels in one profiled replay per type and frame tier
+    found = {}
+    for label, obj, x, want in (
+            ("f32_540p_b8", f32_cascade, x8,
+             {"warp_bilinear", "fused_dw_pw_block_f32"}),
+            ("bf16_540p_b8", FaceCascade(compute_dtype=torch.bfloat16), x8,
+             {"warp_bilinear", "fused_dw_pw_block_bf16"}),
+            ("f32_1080p_b64", planar, hires, {"warp_bilinear_strips"})):
+        names = replay_kernels(obj, x, label, trace)
+        found[label] = kernels_in(names)
+        assert want <= set(found[label]), (label, want, sorted(names))
+        print(f"replay {label}: {sum(names.values())} kernel launches "
+              f"({len(names)} kernels by name), the hand-written ones "
+              f"{found[label]}", flush=True)
+    numbers["graphs_replay_kernels"] = found
+
+    for label, cache in caches.items():
+        rows.update(cache_rows(label, cache))
+    for key, row in rows.items():
+        print(f"graph {key}: capture {row['capture_s']:.3f} s, "
+              f"{row['bytes'] / 2**20:.1f} MiB")
+    numbers["graphs_by_key"] = rows
+    numbers["graphs_seconds"] = time.perf_counter() - t0
+    print(f"graphs phase: {numbers['graphs_seconds']:.1f} s", flush=True)
+    return launches, numbers
+
+
 # batch sizes of the kernel, strip_dma and numbers phases
 BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
          "fused": 64, "k3": 256, "strip_dma": 64, "track": 64}
@@ -2880,30 +3237,20 @@ SOURCES = {
 }
 
 
-def main(argv=None):
-    # the port's modules become this module's globals here, once the
-    # repository is on sys.path (the helpers above use them)
+def import_port():
+    """The port's modules as this module's globals, once the repository
+    is on sys.path (the helpers above use them)."""
     global _build, image_ops, warp, fused_block, FaceCascade, exact_f32
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
     global track_sharded, bench, median_ms, queued_ms, window_ms
+    global programs, Rect
     global H100_BYTES_PER_S, H100_F32_FLOPS, H100_BF16_FLOPS
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--trace", type=Path, metavar="DIR",
-                        help="profile three cascade calls per frame size "
-                        "and write the kernel tables and traces into DIR")
-    parser.add_argument("--sweep", action="store_true",
-                        help="time the fused kernel at every tiling of "
-                        "each residual run of the BACK detector")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs a CUDA card", file=sys.stderr)
-        return 1
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
-    from tpu_face_torch import aot, bench, resolve_device, tracking
+    from tpu_face_torch import (aot, bench, programs, resolve_device,
+                                tracking)
     from tpu_face_torch.bench import (H100_BF16_FLOPS, H100_BYTES_PER_S,
                                       H100_F32_FLOPS, median_ms, queued_ms,
                                       window_ms)
@@ -2917,8 +3264,25 @@ def main(argv=None):
                                          track_sharded)
     from tpu_face_torch.pipeline import (EmbedCascade, FaceCascade,
                                          exact_f32)
+    from tpu_face_torch.types import Rect
     from tpu_face_torch.utils import native_loader
     from tpu_face_torch.utils.image_io import load_image
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--trace", type=Path, metavar="DIR",
+                        help="profile three cascade calls per frame size "
+                        "and write the kernel tables and traces into DIR")
+    parser.add_argument("--sweep", action="store_true",
+                        help="time the fused kernel at every tiling of "
+                        "each residual run of the BACK detector")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    import_port()
 
     t_start = time.perf_counter()
     phase("device")
@@ -2934,26 +3298,38 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     phase_build()
     errs = phase_kernels(rng)
-    # the paths, each with the counts set to 0 before it and read after
+    # the paths, each with the counts set to 0 before it and read after.
+    # The cascades' main paths are the cached calls (their first call at
+    # each geometry counted: the warm-ups and the capture); the phases
+    # that check each call's launches run the eager calls (eager_calls),
+    # and == graphs holds every cached path against them
     paths = {"cascade_f32": phase_cascade(),
              "cascade_bf16": phase_cascade(torch.bfloat16),
              "cascade_gather": phase_cascade_gather()}
-    models = {"f32": phase_models(), "bf16": phase_models(torch.bfloat16)}
+    with eager_calls():
+        models = {"f32": phase_models(),
+                  "bf16": phase_models(torch.bfloat16)}
     paths["full_detectors"] = phase_full_detectors()
     paths["mxu"] = phase_mxu()
-    paths["tracker"], tracker_numbers = phase_tracker()
-    paths["embed"], embed_numbers = phase_embed(args.trace)
-    paths["aot"], aot_numbers, aot_cascades = phase_aot()
-    paths["aot_executable"], exec_numbers = phase_aot_executable(
-        aot_cascades, aot_numbers["aot_cold_start_540p_b8"])
+    with eager_calls():
+        paths["tracker"], tracker_numbers = phase_tracker()
+        paths["embed"], embed_numbers = phase_embed(args.trace)
+        paths["aot"], aot_numbers, aot_cascades = phase_aot()
+        paths["aot_executable"], exec_numbers = phase_aot_executable(
+            aot_cascades, aot_numbers["aot_cold_start_540p_b8"])
     aot_numbers.update(exec_numbers)
-    paths["sharded"], sharded_numbers = phase_sharded()
+    paths["graphs"], graphs_numbers = phase_graphs(args.trace, exec_numbers)
+    with eager_calls():
+        paths["sharded"], sharded_numbers = phase_sharded()
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
     numbers.update(tracker_numbers)
     numbers.update(embed_numbers)
     numbers.update(aot_numbers)
+    numbers.update(graphs_numbers)
     numbers.update(sharded_numbers)
-    more_numbers, more_timed = phase_numbers(rng, args.trace, args.sweep)
+    with eager_calls():
+        more_numbers, more_timed = phase_numbers(rng, args.trace,
+                                                 args.sweep)
     numbers.update(more_numbers)
     timed.update(more_timed)
     paths["bench"], numbers["bench"] = phase_bench(smi)

@@ -49,9 +49,12 @@ def result(img):
 
 class _HostValues(TorchDispatchMode):
     """Records the ops that bring a host value into a tensor or read one
-    back: a CUDA graph cannot capture them."""
+    back: a CUDA graph cannot capture them.  (Under inference mode a read
+    dispatches as ``aten.item`` or ``aten.is_nonzero``, not decomposed
+    into ``aten._local_scalar_dense``.)"""
 
-    OPS = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.nonzero")
+    OPS = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.nonzero",
+           "aten.item", "aten.is_nonzero")
 
     def __init__(self):
         super().__init__()

@@ -27,7 +27,13 @@ Where it differs from the JAX bench:
   bf16, 67 TFLOP/s f32: TF32 is off), ``hbm_gbps`` from the card's
   traffic model (``compiler/traffic.py``) against 3,350 GB/s; both are
   null on ``--device cpu``;
-* the device-only latencies replay a CUDA graph of one call behind a
+* on the card every cascade, tracker and embedding call replays the
+  CUDA graph its object captured on the first call at that geometry
+  (``tpu_face_torch.programs``): the throughput, latency and tracking
+  rows time the cached path, the first call of each geometry (the
+  capture) falling in the warm-up;
+* the device-only latencies queue cached calls (one graph replay
+  each, with its input copy and output copies) behind a
   ``torch.cuda._sleep`` (``queued_ms``); null on the CPU;
 * the serving row attaches a ``kind="executable"`` artifact (``aot``: an
   AOTInductor package, whose compile the row waits for), as the JAX
@@ -162,8 +168,8 @@ def queued_ms(fn, reps=5, windows=3):
     enqueued them all before the sleep ended; otherwise it raises, since
     the time would be the host's.  ``fn`` must read nothing back to the
     host, and the calls must fit the card's launch queue (about a
-    thousand launches); a call with more launches is timed as a CUDA
-    graph (``graph_of``)."""
+    thousand launches): the cascade's cached calls do (a CUDA graph
+    replay each), its eager ``_forward`` (~1,400 launches) does not."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -189,23 +195,6 @@ def queued_ms(fn, reps=5, windows=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
-
-
-def graph_of(fn):
-    """One call of ``fn`` captured as a CUDA graph; returns its replay,
-    which the device runs as one queue entry (``fn`` warmed up on a side
-    stream first, as CUDA graph capture asks)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    torch.cuda.synchronize()
-    return graph.replay
 
 
 # ---- frames and gates ------------------------------------------------
@@ -401,7 +390,8 @@ def _rtt_ms(batch):
 
 def _latency_rows(cascade, batch, device):
     """p50_batch1_ms (host to host), p50_device_ms and p50_device_ms_b8
-    (CUDA graphs of one call queued behind a sleep; None on the CPU)."""
+    (cached calls, each a CUDA graph replay, queued behind a sleep; None
+    on the CPU)."""
     one = batch[:1]
     rows = {"p50_batch1_ms": _host_p50_ms(lambda: _fetch(cascade(one)))}
     _log(f"batch-1 p50 latency: {rows['p50_batch1_ms']:.2f} ms "
@@ -412,10 +402,10 @@ def _latency_rows(cascade, batch, device):
         return rows
     for key, frames, reps in (("p50_device_ms", one, 20),
                               ("p50_device_ms_b8", batch[:8], 10)):
-        rows[key] = queued_ms(graph_of(lambda: cascade(frames)), reps=reps,
+        rows[key] = queued_ms(lambda: cascade(frames), reps=reps,
                               windows=5)
         _log(f"batch-{frames.shape[0]} device-only latency: "
-             f"{rows[key]:.3f} ms (a CUDA graph of one call, queued)")
+             f"{rows[key]:.3f} ms (cached calls, queued)")
     return rows
 
 
@@ -549,6 +539,10 @@ def main(argv=None):
     from .utils.image_io import load_image
 
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        _log("the rows time the cached calls: each object replays the CUDA "
+             "graph it captured on its first call at a geometry (not "
+             "comparable with the eager calls of earlier records)")
     model = {"back": FaceDetectionModel.BACK_CAMERA,
              "short": FaceDetectionModel.SHORT,
              "full": FaceDetectionModel.FULL}[args.model]

@@ -7,7 +7,9 @@ box decoding, clamped sigmoid scoring, weighted NMS and letterbox removal
 run on the model's device in one batched pass per call.  On the card the
 warp is the hand-written warp kernel (``ops/image.warp_image_to_tensor``,
 method "pallas") and the detector's residual runs are the fused block
-kernel (``compiler/lowering.py``).  The weights are read by path from the
+kernel (``compiler/lowering.py``), and the pass is a CUDA graph captured
+on the first call at each geometry (``programs.ProgramCache``, the JAX
+model's ``_get_jitted``).  The weights are read by path from the
 JAX package's data directory; nothing of that package is imported.
 """
 
@@ -20,6 +22,7 @@ import torch
 
 from .. import exact_f32, resolve_device
 from ..compiler import Graph, build_torch_fn
+from ..programs import ProgramCache
 from ..ops import anchors as anchors_lib
 from ..ops import image as image_ops
 from ..ops import postprocess as post
@@ -127,6 +130,7 @@ class FaceDetection:
         self.max_faces = max_faces
         self.nms_top_m = nms_top_m
         self._warp = image_ops.resolve_warp_method(warp_method, self.device)
+        self._cache = ProgramCache(self.device)
 
     # ---- the device pass ----------------------------------------------
 
@@ -161,7 +165,10 @@ class FaceDetection:
         rois = torch.from_numpy(np.ascontiguousarray(rois, np.float32)).to(
             self.device)
         with torch.inference_mode(), exact_f32():
-            out = self._pipeline(images, rois, method, two_stage)
+            out = self._cache(
+                ("pipeline", method, two_stage),
+                lambda x, r: self._pipeline(x, r, method, two_stage),
+                images, rois)
         return [t.cpu().numpy() for t in out]
 
     # ---- host API ------------------------------------------------------

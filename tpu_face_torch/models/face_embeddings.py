@@ -28,6 +28,7 @@ from .. import exact_f32, resolve_device
 from ..compiler import Graph, build_torch_fn
 from ..ops import geometry
 from ..ops import image as image_ops
+from ..programs import ProgramCache
 from ..types import BBox
 from ..utils.image_io import load_image
 from .face_detection import _DATA_DIR, frames_on
@@ -79,6 +80,7 @@ class FaceEmbeddings:
                                                self.device)
         _, self.in_h, self.in_w, _ = self.graph.input_shape
         self._warp = image_ops.resolve_warp_method(warp_method, self.device)
+        self._cache = ProgramCache(self.device)
 
     # ---- the device pass ----------------------------------------------
 
@@ -96,7 +98,7 @@ class FaceEmbeddings:
 
     def _run(self, images, roi_abs):
         with torch.inference_mode(), exact_f32():
-            return self._pipeline(images, roi_abs)
+            return self._cache("pipeline", self._pipeline, images, roi_abs)
 
     # ---- host API ------------------------------------------------------
 
@@ -190,11 +192,15 @@ class FaceEmbeddings:
             raise ValueError(f"{b} images but {boxes.shape[0]} box "
                              f"rows (leading dims must agree)")
         lead = boxes.shape[:-2]
-        with torch.inference_mode(), exact_f32():
+
+        def crop_embed(frames, boxes):
             roi_abs, _ = geometry.crop_roi_from_detection(
                 boxes, (w, h), xp=torch)
             if len(lead) == 2:
                 frames = frames.repeat_interleave(lead[1], dim=0)
-            out = self._pipeline(frames, roi_abs.reshape(-1, 5))
+            return self._pipeline(frames, roi_abs.reshape(-1, 5))
+
+        with torch.inference_mode(), exact_f32():
+            out = self._cache("boxes", crop_embed, frames, boxes)
         out = out.reshape(*lead, -1)
         return out.cpu().numpy() if as_numpy else out

@@ -16,6 +16,7 @@ from .. import exact_f32, resolve_device
 from ..ops import geometry
 from ..ops import image as image_ops
 from ..ops import postprocess as post
+from ..programs import ProgramCache
 from ..types import Detection, Landmark, Rect
 from ..utils.image_io import load_image
 from .face_detection import FaceIndex, frames_on, load_net
@@ -117,6 +118,7 @@ class FaceLandmark:
                                          compute_dtype, self.device)
         _, self.in_h, self.in_w, _ = self.graph.input_shape
         self._warp = image_ops.resolve_warp_method(warp_method, self.device)
+        self._cache = ProgramCache(self.device)
 
     # ---- the device pass ----------------------------------------------
 
@@ -148,7 +150,10 @@ class FaceLandmark:
             self._warp, roi_abs, (w, h), (self.in_w, self.in_h), False)
         rois = torch.from_numpy(roi_abs).to(self.device)
         with torch.inference_mode(), exact_f32():
-            lmk, score = self._pipeline(images, rois, (w, h), method)
+            lmk, score = self._cache(
+                ("pipeline", method),
+                lambda x, r: self._pipeline(x, r, (w, h), method),
+                images, rois)
         return lmk.cpu().numpy(), score.cpu().numpy()
 
     # ---- host API ------------------------------------------------------

@@ -20,6 +20,7 @@ from .. import exact_f32, resolve_device
 from ..ops import geometry
 from ..ops import image as image_ops
 from ..ops import postprocess as post
+from ..programs import ProgramCache
 from ..types import Landmark, Rect
 from ..utils.image_io import load_image
 from .face_detection import frames_on, load_net
@@ -234,6 +235,7 @@ class IrisLandmark:
                                          compute_dtype, self.device)
         _, self.in_h, self.in_w, _ = self.graph.input_shape
         self._warp = image_ops.resolve_warp_method(warp_method, self.device)
+        self._cache = ProgramCache(self.device)
 
     # ---- the device pass ----------------------------------------------
 
@@ -263,8 +265,10 @@ class IrisLandmark:
         rois = torch.from_numpy(roi_abs).to(self.device)
         flip = torch.from_numpy(flips).to(self.device)
         with torch.inference_mode(), exact_f32():
-            contour, iris = self._pipeline(images, rois, flip, (w, h),
-                                           method)
+            contour, iris = self._cache(
+                ("pipeline", method),
+                lambda x, r, f: self._pipeline(x, r, f, (w, h), method),
+                images, rois, flip)
         return contour.cpu().numpy(), iris.cpu().numpy()
 
     # ---- host API ------------------------------------------------------

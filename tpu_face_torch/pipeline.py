@@ -22,9 +22,12 @@ Stage semantics match the standalone models of the reference:
   refinement   iris_landmark.rs:380-398
 
 ``__call__`` runs an installed program instead of ``_forward`` where
-``tpu_face_torch.aot.attach`` put one for the frame size (the JAX
-package's per-geometry jit cache), and ``replica`` builds the same
-cascade on another device for ``tpu_face_torch.parallel``.
+``tpu_face_torch.aot.attach`` put one for the frame size; otherwise, on
+the card, it replays the CUDA graph of ``_forward`` that the cascade's
+``programs.ProgramCache`` captured on the first call at that geometry
+(the JAX package's per-geometry jit cache).  ``_forward`` is the eager
+call.  ``replica`` builds the same cascade on another device for
+``tpu_face_torch.parallel``.
 
 ``EmbedCascade`` crops each detected face axis-aligned (the reference's
 int-truncated rect, intersected with the frame) to 112x112 and runs the
@@ -61,6 +64,7 @@ from .ops import geometry
 from .ops import image as image_ops
 from .ops import postprocess as post
 from .ops import warp as warp_ops
+from .programs import ProgramCache
 from .utils import profiling
 
 
@@ -191,6 +195,9 @@ class _DetectorBase:
         # (h, w) -> the installed program for frames of that size
         # (tpu_face_torch.aot.attach): __call__ runs it instead of _forward
         self._programs = {}
+        # the CUDA graphs of _forward (and of the trackers' programs) by
+        # geometry, captured on first use
+        self._cache = ProgramCache(self.device)
         self._replicas = {}    # device -> this cascade on it (replica)
 
     # ---- batched host API ------------------------------------------
@@ -216,7 +223,8 @@ class _DetectorBase:
         with torch.inference_mode(), exact_f32():
             if program is not None:
                 return program(images)
-            return self._forward(images, (w, h))
+            return self._cache("forward",
+                               lambda x: self._forward(x, (w, h)), images)
 
     # ---- serving: programs and replicas --------------------------------
 

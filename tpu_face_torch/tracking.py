@@ -19,7 +19,10 @@ path is due, and on the tracked path whether any stream is lost, with one
 device-to-host copy each.  The outputs are the contract.  So an exported
 tracker (``tpu_face_torch.aot``) holds the programs the branches call:
 the full cascade at the step's batch B and at the repair batch, and the
-tracked stages at B.
+tracked stages at B.  On the card the same three programs are CUDA graphs
+in the cascade's ``programs.ProgramCache``, captured on first use; the
+branches, the repair's merge, the next ROIs and the smoother run
+outside them.
 
 A step runs over shards of its streams (``_step_shards``): one, the
 tracker itself, for ``step``; one replica tracker per device of a mesh for
@@ -28,6 +31,7 @@ state on its device, with the step's decisions taken over all B streams.
 """
 
 import copy
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,7 +40,8 @@ import torch
 from . import exact_f32
 from .models.face_detection import FaceDetectionModel, frames_on
 from .models.face_landmark import ROI_SCALE as MESH_ROI_SCALE
-from .pipeline import CascadeResult, FaceCascade, _bbox_to_roi_abs
+from .pipeline import (CascadeResult, FaceCascade, _bbox_to_roi_abs,
+                       _scale_xy)
 from .smoothing import OneEuroConfig, ResultSmoother
 
 # rotation keypoints of landmark-derived ROIs: the eye outer corners (the
@@ -58,10 +63,9 @@ def roi_from_mesh(mesh, image_size: Tuple[int, int]):
     w, h = image_size
     xy = mesh[..., :2]
     lo, hi = xy.amin(-2), xy.amax(-2)
-    scale = torch.tensor([w, h], dtype=torch.float32, device=mesh.device)
     return _bbox_to_roi_abs(lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1],
-                            mesh[..., _ROT_LEFT, :2] * scale,
-                            mesh[..., _ROT_RIGHT, :2] * scale,
+                            _scale_xy(mesh[..., _ROT_LEFT, :2], w, h),
+                            _scale_xy(mesh[..., _ROT_RIGHT, :2], w, h),
                             MESH_ROI_SCALE, w, h)
 
 
@@ -78,9 +82,12 @@ def _det_from_roi(roi_abs, image_size):
                       (center + half)[..., None, :], zeros], -2)
 
 
+@functools.lru_cache(maxsize=None)
 def _dummy_roi(image_size, device):
     """A unit ROI at the frame centre for slots without a usable ROI
-    (their stages still run, NaN-free; the result is masked)."""
+    (their stages still run, NaN-free; the result is masked), made once
+    per frame size and device: a tensor made from host values in every
+    call could not be captured."""
     w, h = image_size
     return torch.tensor([w / 2.0, h / 2.0, 64.0, 64.0, 0.0],
                         dtype=torch.float32, device=device)
@@ -286,10 +293,11 @@ class _TrackerBase:
         tracked = c._traced(
             lambda x, roi, valid: _tracked_stages(c, x, roi, valid,
                                                   image_size), image_size)
+        rois = torch.zeros(batch, k, 5, device=self.device)
+        _dummy_roi(image_size, rois.device)    # made outside the trace
         out = {"full": (full, (images(batch),)),
                "tracked": (tracked, (
-                   images(batch),
-                   torch.zeros(batch, k, 5, device=self.device),
+                   images(batch), rois,
                    torch.zeros(batch, k, dtype=torch.bool,
                                device=self.device)))}
         r = self._repair_n(batch)
@@ -306,20 +314,26 @@ class _TrackerBase:
     def _run_full(self, images, image_size):
         """The full cascade over ``images`` with its face axis: the
         installed program where there is one (at the step's batch or the
-        repair batch), else ``FaceCascade._full``."""
+        repair batch), else ``FaceCascade._full`` through the cascade's
+        program cache."""
         progs = self._programs.get((image_size[1], image_size[0]))
         if progs is not None:
             return progs.full[images.shape[0]](images)
-        return self.cascade._full(images, image_size)
+        c = self.cascade
+        return c._cache("full", lambda x: c._full(x, image_size), images)
 
     def _run_tracked(self, images, rois, valid, image_size):
         """The tracked stages over faces [B, K] (``_tracked_stages``): the
-        installed program where there is one."""
+        installed program where there is one, else the cascade's program
+        cache."""
         progs = self._programs.get((image_size[1], image_size[0]))
         if progs is not None:
             return progs.tracked(images, rois, valid)
-        return _tracked_stages(self.cascade, images, rois, valid,
-                               image_size)
+        c = self.cascade
+        return c._cache("tracked",
+                        lambda x, r, v: _tracked_stages(c, x, r, v,
+                                                        image_size),
+                        images, rois, valid)
 
     def _held_state(self):
         """The state of all streams (gathered from ``track_sharded``'s
@@ -502,8 +516,7 @@ def match_slots(new_roi, new_valid, prev_roi, prev_valid,
     over the whole batch."""
     k = new_roi.shape[-2]
     m = torch.where(new_valid[..., :, None] & prev_valid[..., None, :],
-                    _roi_iou_matrix(new_roi, prev_roi),
-                    torch.tensor(-1.0, device=new_roi.device))
+                    _roi_iou_matrix(new_roi, prev_roi), -1.0)
     lead = m.shape[:-2]
     m = m.reshape(-1, k, k).clone()
     n = m.shape[0]
@@ -589,10 +602,11 @@ class MultiFaceTracker(_TrackerBase):
         faces put in the previous slots' order (``match_slots``)."""
         w, h = image_size
         res = self._run_full(images, image_size)
-        scale = torch.tensor([w, h, w, h, 1.0], dtype=torch.float32,
-                             device=self.device)
-        perm = match_slots(res.face_roi * scale, res.mesh_valid, rois,
-                           valid)
+        roi = res.face_roi
+        roi_abs = torch.stack([roi[..., 0] * w, roi[..., 1] * h,
+                               roi[..., 2] * w, roi[..., 3] * h,
+                               roi[..., 4]], -1)
+        perm = match_slots(roi_abs, res.mesh_valid, rois, valid)
         return type(res)(*(
             f.gather(1, perm.reshape(perm.shape + (1,) * (f.dim() - 2))
                      .expand(perm.shape + f.shape[2:]))
