@@ -189,8 +189,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               (c) b32, EmbedCascade f32 b8, FaceTracker and
               MultiFaceTracker (K=2) over 8 streams and five steps with a
               two-stream repair and a forced redetect (each step from the
-              same state, the lock states equal; their caches hold the
-              full program at 8 and 2 streams and the tracked one), the
+              same state, the lock states equal; their caches hold one
+              step program at 8 streams), the
               four models' infer_batch at b8; two geometries interleaved
               (540x360 b8, the close-up, 540x360 b8 again) with a held
               result unchanged; one profiled replay each of f32 540x360
@@ -200,7 +200,31 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               against cached, and the cached call's device time, at
               540x360 b1, b8, b64 and b128 in f32 and bf16, beside the
               executable's at b8 (from aot_executable);
-13. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
+13. tracker_program -- each tracker step as one captured program
+              (programs.cond: the step's two decisions as CUDA-graph
+              conditional nodes), the counts set to 0 before and read
+              after (the warm-ups and captures): a nested cond (a cuBLAS
+              matmul and an inner cond against a cuDNN convolution) for
+              each pair of predicates against the eager call; then
+              FaceTracker and MultiFaceTracker (K=2) with f32 and with
+              bf16 nets at 540x360: over == graphs' five-step sequence
+              at 8 streams, and for each branch (locked, repair, forced,
+              mass loss) at 8 and 64 streams, each step bit-identical
+              with the host-branch step entered with the same state (the
+              step ``_step_shards`` takes, its decisions read to the
+              host; NaN where both have NaN), one step program per
+              tracker; each branch's host-to-host ms, the program's
+              device ms (queued) and both steps' stream span, the locked
+              branch beside the tracked sub-program's device ms; at 8
+              streams two profiled replays of each branch: 2 K1 and no
+              fused launch locked, 4 K1 and the detector's 13 K3 (f32) or
+              8 K4 (bf16) on a repair, 2 K1 and the detector's on the full
+              path; each step program's capture seconds and pool bytes
+              beside the host-branch step's three programs'; then 12
+              steps over every branch with OneEuro smoothing and ``dt``,
+              after their capture, under
+              ``torch.cuda.set_sync_debug_mode("error")``;
+14. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
               read after: infer_sharded of FaceCascade() at 540x360 batch
               64 over data_parallel_mesh() (every visible card; its size
               printed) and over [cuda:0, cuda:0] against the unsharded
@@ -210,7 +234,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               unsharded tracker; then each sharded call's frames/s beside
               the unsharded call's (host clock, every card synchronized;
               printed, no limit);
-14. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
+15. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
               strip kernel and both staged variants once each (this
@@ -218,7 +242,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               turns against one bound, the bytes the staged windows copied
               (counted by the kernel) printed beside those the gather's
               bound counts;
-15. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
+16. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
               residual runs on the fused kernel and op by op), at 1080p
               batch 64 and at 4K batch 8 (planar input), each with f32
               and with bf16 nets; faces/s of canvas (c) at batch 32 with
@@ -243,7 +267,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               kernel are timed on the same runs; and the card's launch
               queue: the small launches the host enqueues behind a
               sleeping card before one blocks (launch_queue_depth);
-16. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
+17. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
               tpu_face_torch.bench``) in this process at batch 64 with
               short windows (BENCH_ARGS), every row on, with f32 and then
               bf16 nets, the counts set to 0 before and read after: each
@@ -276,10 +300,13 @@ each block geometry and window budget of ``STAGED_GEOMETRIES``.
 """
 
 import argparse
+import collections
 import contextlib
 import io
+import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3155,8 +3182,8 @@ def phase_graphs(trace, exec_numbers):
         hold_steps(label, tracker, steps, (540, 360))
         cache = tracker.cascade._cache
         caches[label] = cache
-        assert sorted((k[0], k[1][0][0]) for k in cache.entries) == [
-            ("full", 2), ("full", 8), ("tracked", 8)], list(cache.entries)
+        assert [(k[0], k[1][0][0]) for k in cache.entries] == [
+            ("step", 8)], list(cache.entries)
 
     # the four models' infer_batch, cached against eager
     models = {"FaceDetection": tmodels.FaceDetection(
@@ -3214,12 +3241,298 @@ def phase_graphs(trace, exec_numbers):
     return launches, numbers
 
 
+# ---- each tracker step as one program (programs.cond) -----------------
+
+
+def host_step(tracker, frames):
+    """One step of ``tracker`` with its decisions taken on the host: the
+    step ``_step_shards`` takes over one shard (its full, tracked and
+    repair stages the cascade's cached programs), as ``step`` runs it
+    with an attached artifact."""
+    images, hw = tracker._frames(frames)
+    if tracker._fresh(images.shape[0], hw):
+        tracker._state = tracker._empty_state(images.shape[0])
+    force = tracker.next_step_forced
+    with torch.inference_mode(), exact_f32():
+        (res,) = tracker._step_shards([(tracker, images)], force,
+                                      (hw[1], hw[0]),
+                                      tracker._repair_n(images.shape[0]))
+    tracker._steps += 1
+    return res
+
+
+def entered(tracker, state, steps):
+    """``tracker`` set to enter its next step with ``state`` after
+    ``steps`` steps (the redetect schedule reads the count)."""
+    tracker._state, tracker._steps = state, steps
+
+
+def same_step(label, tracker, frames):
+    """``frames`` through the step program and, from the same state, the
+    host-branch step: the results and the next states bit-identical.
+    Returns the program's result; the program's state goes on."""
+    before = (tracker._state, tracker._steps)
+    want = host_step(tracker, frames)
+    want_state = tracker._state
+    entered(tracker, *before)
+    got = tracker.step(frames)
+    for a, b in zip(result_arrays((got, tracker._state)),
+                    result_arrays((want, want_state))):
+        # bit-identical, NaN where the other has NaN (an empty slot's
+        # mesh may be NaN on both)
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=label)
+    return got
+
+
+def span_ms(fn, reps=10):
+    """Median ms of the card's stream from before one call of ``fn`` to
+    after it (CUDA events), the card synchronized around each call: the
+    device time plus the gaps in which it waited on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nested_cond():
+    """``programs.cond`` nested on the card: a captured program of two
+    conds, a cuBLAS matmul and an inner cond in one branch and a cuDNN
+    convolution in the other, bit-identical with the eager call for each
+    pair of predicates."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(64, 64, device="cuda", generator=gen)
+    w = torch.randn(1, 1, 3, 3, device="cuda", generator=gen)
+
+    def fn(x, p, q):
+        def matmul(x):
+            return programs.cond(q, lambda y: (y * 2,), lambda y: (y - 1,),
+                                 (x @ x,))
+
+        def conv(x):
+            return (torch.nn.functional.conv2d(x[None, None], w,
+                                               padding=1)[0, 0],)
+        return programs.cond(p, matmul, conv, (x,))
+
+    flags = tracking._force_flags(x.device)
+    prog = programs.Program(fn, [x, flags[1], flags[1]], x.device)
+    for p, q in itertools.product(flags, flags):
+        with torch.inference_mode(), exact_f32():
+            assert torch.equal(prog(x, p, q)[0], fn(x, p, q)[0]), (p, q)
+    print(f"nested cond: captured in {prog.capture_s:.3f} s, each pair of "
+          f"predicates bit-identical with the eager call", flush=True)
+
+
+def branch_cases(tracker, frames, blank):
+    """{branch: (frames, state, steps)} entering each decision of a step
+    of ``tracker`` (redetect_every=3, repair_batch=2): every stream
+    locked (locked), stream 2 black (repair), the redetect due (forced),
+    three streams unlocked (mass loss).  The locked state is the one the
+    first step leaves."""
+    tracker.reset()
+    tracker.step(frames)
+    locked = tracker._state
+    field = "locked" if hasattr(locked, "locked") else "valid"
+    flags = getattr(locked, field).clone()
+    flags[:3] = False
+    return {"locked": (frames, locked, 1), "repair": (blank, locked, 1),
+            "forced": (frames, locked, 3),
+            "mass_loss": (frames, locked._replace(**{field: flags}), 1)}
+
+
+def step_kernels(fn, label, out, calls=2):
+    """{kernel name: launches per call} of ``fn`` from torch.profiler over
+    ``calls`` back-to-back calls (each hand-written kernel's count a
+    multiple of ``calls``).  The table goes into ``out`` when given."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    odd = kernels_in({n: c for n, c in names.items() if c % calls})
+    assert not odd, (label, calls, odd)
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"step_{label}_kernels.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=40))
+    return {n: c // calls for n, c in names.items()}
+
+
+# the replayed step's hand-written kernels by branch, beside the
+# detector's fused launches (13 f32, 8 bf16): a locked step runs the
+# tracked stages only, a repair step those and the cascade on the repair
+# batch, the full path the cascade on every stream
+STEP_KERNELS = {"locked": (2, False), "repair": (4, True),
+                "forced": (2, True), "mass_loss": (2, True)}
+STEP_SEQ = [()] * 2 + [(2,), (), (1, 3, 5), ()] + [()] * 3 + [(0,), (), ()]
+
+
+def phase_tracker_program(trace):
+    """Each tracker step as one captured program (``programs.cond``):
+    FaceTracker and MultiFaceTracker K=2, f32 and bf16, 540x360, the
+    counts set to 0 before and read after.  At 8 streams the sequence of
+    == graphs (a redetect every third step, a two-stream repair, stream
+    2 blanked at step 2), each step bit-identical with the host-branch
+    step entered with the same state; one step entry per tracker.  Then,
+    at 8 and 64 streams, each branch (locked, repair, forced, mass loss)
+    entered from the same state through both steps: bit-identical, and
+    the host-to-host ms, the program's device ms (queued behind a sleep)
+    and both steps' stream span; at 8 streams two profiled replays of
+    each branch, its warp and fused launches checked (STEP_KERNELS).  Then 12
+    steps over every branch with OneEuro smoothing and ``dt``, after their
+    capture, under ``torch.cuda.set_sync_debug_mode("error")``.  Returns
+    (launches, numbers)."""
+    phase("tracker_program")
+    t0 = time.perf_counter()
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"driver {driver}, torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    nested_cond()
+    seq = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
+    steps = [tracker_frames(seq, i, 8, (2,) if i == 2 else ())
+             for i in range(5)]
+    f32 = torch.float32
+    kinds = {"FaceTracker": lambda **kw: tracking.FaceTracker(**kw),
+             "MultiFaceTracker K=2": lambda **kw: tracking.MultiFaceTracker(
+                 max_faces=2, **kw)}
+    reset_counts()
+    rows, pools = {}, {}
+    for (kind, make), dt in itertools.product(kinds.items(),
+                                              (f32, torch.bfloat16)):
+        name = str(dt)[6:]
+        fused = "fused_dw_pw_block_" + ("f32" if dt == f32 else "bf16")
+        for b in (8, BATCH["track"]):
+            tracker = make(compute_dtype=dt, redetect_every=3,
+                           repair_batch=2)
+            label = f"{kind} {name} b{b}"
+            if b == 8:
+                for i, x in enumerate(steps):
+                    same_step(f"{label} step {i}", tracker, x)
+            frames = torch.from_numpy(np.stack(
+                [np.roll(seq[TRACK_SEQ[2]], 4 * s, axis=1)
+                 for s in range(b)])).cuda()
+            blank = frames.clone()
+            blank[2] = 0
+            for branch, (x, state, n) in branch_cases(
+                    tracker, frames, blank).items():
+                entered(tracker, state, n)
+                same_step(f"{label} {branch}", tracker, x)
+
+                def program():
+                    entered(tracker, state, n)
+                    tracker.step(x)
+
+                def host():
+                    entered(tracker, state, n)
+                    host_step(tracker, x)
+
+                row = {"program_host_ms": host_call_ms(program, 10),
+                       "program_device_ms": queued_ms(program),
+                       "program_span_ms": span_ms(program, 5),
+                       "host_branch_host_ms": host_call_ms(host, 10),
+                       "host_branch_span_ms": span_ms(host, 5)}
+                if branch == "locked":
+                    roi, valid = state[:2]
+                    if roi.dim() == 2:          # FaceTracker: one face each
+                        roi, valid = roi[:, None], valid[:, None]
+                    with torch.inference_mode(), exact_f32():
+                        row["tracked_device_ms"] = queued_ms(
+                            lambda: tracker._run_tracked(x, roi, valid,
+                                                         (540, 360)))
+                if b == 8:
+                    names = step_kernels(
+                        program, f"{kind[:4]}_{name}_{branch}", trace)
+                    found = kernels_in(names)
+                    warps, detector = STEP_KERNELS[branch]
+                    assert found.get("warp_bilinear") == warps, (
+                        label, branch, found)
+                    want = (tracker.cascade._det_net.fused_launches()
+                            if detector else None)
+                    assert found.get(fused) == want, (label, branch, found)
+                    row["replay_kernels"] = found
+                rows[f"{label} {branch}"] = row
+                extra = ""
+                if "tracked_device_ms" in row:
+                    extra += (f"; the tracked program alone "
+                              f"{row['tracked_device_ms']:.3f} ms device")
+                if "replay_kernels" in row:
+                    extra += f"; replay {row['replay_kernels']}"
+                print(f"{label} {branch}: step program "
+                      f"{row['program_host_ms']:.3f} ms host to host "
+                      f"(device {row['program_device_ms']:.3f} ms queued, "
+                      f"span {row['program_span_ms']:.3f} ms); host-branch "
+                      f"step {row['host_branch_host_ms']:.3f} ms (span "
+                      f"{row['host_branch_span_ms']:.3f} ms){extra}",
+                      flush=True)
+            entries = tracker.cascade._cache.entries
+            steps_keyed = [k for k in entries if k[0] == "step"]
+            assert len(steps_keyed) == 1 and steps_keyed[0][1][0][0] == b, \
+                (label, list(entries))
+            pools[label] = entries[steps_keyed[0]].nbytes
+            print(f"{label}: one step program, capture "
+                  f"{entries[steps_keyed[0]].capture_s:.3f} s, "
+                  f"{pools[label] / 2**20:.1f} MiB of pool (the host-branch "
+                  f"step's programs " + ", ".join(
+                      f"{k[0]} b{k[1][0][0]} {p.nbytes / 2**20:.1f} MiB"
+                      for k, p in entries.items() if k[0] != "step")
+                  + ")", flush=True)
+    launches = launch_counts()
+    print(f"launches of the tracker_program phase (the warm-ups and "
+          f"captures; a replay makes no wrapper call): {launches}",
+          flush=True)
+
+    # every branch after the capture: no synchronizing call
+    batches = [torch.from_numpy(tracker_frames(seq, i % 5, 8, blank)).cuda()
+               for i, blank in enumerate(STEP_SEQ)]
+    for kind, make in kinds.items():
+        tracker = make(redetect_every=6, repair_batch=2,
+                       smoothing="one_euro")
+        for x in batches:
+            tracker.step(x, dt=1 / 30)
+        tracker.reset()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i, x in enumerate(batches):
+                res = tracker.step(x, dt=1 / 30 + i * 1e-3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(res.mesh[res.mesh_valid]).all(), kind
+        assert len(tracker.cascade._cache.entries) == 1, kind
+        print(f"{kind}: {len(batches)} steps (full, locked, repair, "
+              f"unrepaired, mass loss, forced) with OneEuro smoothing "
+              f"under sync debug mode 'error': no synchronizing call",
+              flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"tracker_program phase: {seconds:.1f} s", flush=True)
+    return launches, {"tracker_program": rows,
+                      "tracker_program_pool_bytes": pools,
+                      "tracker_program_seconds": seconds}
+
+
 # batch sizes of the kernel, strip_dma and numbers phases
 BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
          "fused": 64, "k3": 256, "strip_dma": 64, "track": 64}
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
-           "fused_dw_pw_block_bf16", "warp_strips_staged")
+           "fused_dw_pw_block_bf16", "warp_strips_staged", "graph_cond")
 # the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
@@ -3278,6 +3591,10 @@ def main(argv=None):
                         help="time the fused kernel at every tiling of "
                         "each residual run of the BACK detector")
     args = parser.parse_args(argv)
+    # end CUPTI's session with each profile: left subscribed, it kept
+    # recording the later CUDA-graph replays (slowing their launches) and
+    # gave their records to the next profile
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs a CUDA card", file=sys.stderr)
@@ -3319,6 +3636,9 @@ def main(argv=None):
             aot_cascades, aot_numbers["aot_cold_start_540p_b8"])
     aot_numbers.update(exec_numbers)
     paths["graphs"], graphs_numbers = phase_graphs(args.trace, exec_numbers)
+    paths["tracker_program"], program_numbers = phase_tracker_program(
+        args.trace)
+    graphs_numbers.update(program_numbers)
     with eager_calls():
         paths["sharded"], sharded_numbers = phase_sharded()
     paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
@@ -3341,6 +3661,11 @@ def main(argv=None):
                  "fused_dw_pw_block_f32"):
         assert models["f32"][name] > 0, (name, models["f32"])
         assert paths["tracker"][name] > 0, (name, paths["tracker"])
+    # the step programs' captures launch the f32 and the bf16 path's
+    # kernels
+    for name in ("warp_bilinear", "fused_dw_pw_block_f32",
+                 "fused_dw_pw_block_bf16"):
+        assert paths["tracker_program"][name] > 0, (name, paths)
     # the exported programs and the executables launch the four kernels
     # of the package's path
     for name in ("warp_bilinear", "warp_bilinear_strips",

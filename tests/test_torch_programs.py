@@ -10,12 +10,11 @@ in and the fresh outputs out are the cache's own code.
 * Every program the cache captures, reached through the public calls
   (``FaceCascade`` BACK f32 and bf16, ``max_faces=4``, FULL,
   FULL_SPARSE, each ``warp_method``, the planar layout;
-  ``EmbedCascade``; ``FaceTracker`` and ``MultiFaceTracker``'s full
-  program at the step's batch and at the repair batch and their tracked
-  program; the four models' ``_run`` and ``embed_boxes``), runs free of
-  host values: no tensor made from host data (``torch.tensor``,
-  ``torch.from_numpy``), no value read back (tests/test_torch_bench.py's
-  ``_HostValues``).
+  ``EmbedCascade``; ``FaceTracker`` and ``MultiFaceTracker``'s step
+  program, with both sides of its conds run; the four models' ``_run``
+  and ``embed_boxes``), runs free of host values: no tensor made from
+  host data (``torch.tensor``, ``torch.from_numpy``), no value read back
+  (tests/test_torch_bench.py's ``_HostValues``).
 * The bookkeeping: one entry per key (program name, input shapes and
   types), reused at the same key; a held result unchanged by the next
   call; attached programs (``aot.attach``) taking precedence; a
@@ -24,8 +23,8 @@ in and the fresh outputs out are the cache's own code.
   device.
 * The slice as a whole against ``tpu_face``: seeded frames through the
   cached ``FaceCascade`` call and ``tpu_face.FaceCascade``, and a
-  ``FaceTracker`` over steps with a repair through the cached programs
-  and ``tpu_face.tracking.FaceTracker``, within the cascade contract
+  ``FaceTracker`` over steps with a repair through the cached step
+  program and ``tpu_face.tracking.FaceTracker``, within the cascade contract
   (tests/test_torch_cascade.py's ``_compare``: equal bools, 0.25 px,
   1e-3 rad, 1e-3 on scores).
 """
@@ -92,8 +91,11 @@ def cached(monkeypatch):
 
 def _host_values(program):
     """What ``_HostValues`` records over one call of a captured
-    program's function on its static inputs."""
-    with torch.inference_mode(), exact_f32(), _HostValues() as mode:
+    program's function on its static inputs, with both sides of each
+    ``programs.cond`` run (as the warm-ups run them, and as a capture
+    records them: neither side may read a value back)."""
+    with (torch.inference_mode(), exact_f32(), programs.both_branches(),
+          _HostValues() as mode):
         program.fn(*program.inputs)
     return mode.seen
 
@@ -185,9 +187,9 @@ def test_captured_programs_are_free_of_host_values(img, cached, name):
     drive()
     entries = {k: p for c in caches for k, p in c.entries.items()}
     # every program the call path reaches was captured: the cascade's
-    # call, the trackers' full at 4 and at the repair batch 1 and their
-    # tracked program, each model's pass
-    want = {"face_tracker": 3, "multiface_tracker": 3, "models": 5}
+    # call, the trackers' step (its full, tracked and repair branches in
+    # one program), each model's pass
+    want = {"models": 5}
     assert len(entries) == want.get(name, 1), list(entries)
     for key, program in entries.items():
         assert _host_values(program) == [], key
@@ -330,5 +332,4 @@ def test_cached_tracker_matches_jax(cached):
         res, _ = _step_both(mine, ref, _batch(frames, step, blank))
         assert bool(res.mesh_valid[2]) == (step != 2)
     assert mine.tracking.all()
-    assert sorted((k[0], k[1][0][0]) for k in cache.entries) == [
-        ("full", 1), ("full", 4), ("tracked", 4)]
+    assert [(k[0], k[1][0][0]) for k in cache.entries] == [("step", 4)]

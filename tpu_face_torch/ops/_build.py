@@ -52,9 +52,17 @@ _BLOCK_SIG = ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I)
 _STAGED_SIG = ((_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
                _I)
 
+# (pred, negate, body stream, stream) -> cudaError_t and (stream) ->
+# cudaError_t: the IF node of programs.cond, begun on the capturing
+# stream with its body captured from ``body``, and the body's end
+_IF_BEGIN_SIG = ((_P, _I, _P, _P), _I)
+_IF_END_SIG = ((_P,), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
+    "graph_cond": {"graph_if_begin": _IF_BEGIN_SIG,
+                   "graph_if_end": _IF_END_SIG},
     "warp_bilinear": {"warp_bilinear": _SEGMENT_WARP_SIG},
     "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
                              "warp_bilinear_strips_f32": _WARP_SIG},

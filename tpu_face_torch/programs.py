@@ -16,19 +16,180 @@ and the shape and type of every input.  The cache is unbounded, like
 function runs eagerly and no entry is made.  A capture or replay error
 raises: nothing falls back to the eager call.  The eager path stays
 callable as the objects' ``_forward`` (or their ``device="cpu"``).
+
+``cond`` is the counterpart of ``lax.cond`` and the one place where the
+package takes a branch on device data: inside a capture both branches
+become CUDA-graph conditional (IF) nodes, so a replay runs the branch
+its predicate picks without a read to the host.
 """
 
+import collections
 import contextlib
+import functools
+import threading
 import time
+import weakref
 
 import torch
 from torch.utils import _pytree as pytree
 
 from . import exact_f32
+from .ops import _build
 
 # eager calls on a side stream before the capture (lazy caches, cuBLAS
-# and cuDNN handles and workspaces are made outside the graph)
+# and cuDNN handles and workspaces are made outside the graph), each with
+# both sides of every ``cond`` run
 WARMUPS = 2
+
+# this thread's branch mode: ``specs`` is the list ``both_branches``
+# records into, ``capture`` the queue of output specs a capture's conds
+# allocate from
+_BRANCH = threading.local()
+
+
+@contextlib.contextmanager
+def both_branches():
+    """Inside the block every ``cond`` runs both of its branches and picks
+    each output with ``torch.where``: no read of its predicate, and every
+    lazy cache, handle and workspace of either side made.  Yields the
+    list of each cond's output spec (tree and leaf shapes, types and
+    devices), in the order the conds were entered; a capture's conds
+    allocate their outputs from it."""
+    saved = getattr(_BRANCH, "specs", None)
+    _BRANCH.specs = []
+    try:
+        yield _BRANCH.specs
+    finally:
+        _BRANCH.specs = saved
+
+
+@contextlib.contextmanager
+def _capturing(specs):
+    """The block captures a CUDA graph whose conds were entered, in this
+    order, by the both-branch run that recorded ``specs``."""
+    saved = (getattr(_BRANCH, "capture", None),
+             getattr(_BRANCH, "pools", None), getattr(_BRANCH, "depth", 0))
+    _BRANCH.capture = collections.deque(specs)
+    # the IF-node bodies' pools by nesting depth, [pool, bodies captured
+    # into it] each, and the depth of the body being captured
+    _BRANCH.pools, _BRANCH.depth = [], 0
+    try:
+        yield _BRANCH.pools
+        if _BRANCH.capture:
+            raise RuntimeError(f"{len(_BRANCH.capture)} cond(s) of the "
+                               f"warm-up were not reached in the capture")
+    finally:
+        _BRANCH.capture, _BRANCH.pools, _BRANCH.depth = saved
+
+
+def _release_pools(device, pools):
+    """Give back the bodies' pools: the allocator counts one use of a pool
+    per body captured into it."""
+    for pool, uses in pools:
+        for _ in range(uses):
+            torch._C._cuda_releasePool(device, pool)
+
+
+def _spec(out):
+    leaves, tree = pytree.tree_flatten(out)
+    return tree, [(t.shape, t.dtype, t.device) for t in leaves]
+
+
+def _check_same(spec, other, where):
+    if spec != other:
+        raise ValueError(f"cond: the branches' outputs differ ({where}): "
+                         f"{spec} against {other}")
+
+
+def cond(pred, true_fn, false_fn, operands=()):
+    """``true_fn(*operands)`` where the bool scalar tensor ``pred`` holds,
+    else ``false_fn(*operands)`` (``jax.lax.cond``).  Both branches return
+    the same tree of tensors with the same shapes and types, else
+    ``ValueError``.  Three modes:
+
+    * under a CUDA-graph capture (``Program``), each branch is captured
+      into an IF node, on ``pred`` and on its negation; each writes its
+      outputs into buffers allocated before both, so neither body can
+      overwrite an operand or the other's result.  A replay runs one
+      body and reads nothing back to the host.  Conds nest;
+    * inside ``both_branches``, both run and ``torch.where`` picks;
+    * otherwise (the CPU, an eager call on the card) the branch is taken
+      by reading ``pred``."""
+    specs = getattr(_BRANCH, "specs", None)
+    if specs is not None:
+        slot = len(specs)
+        specs.append(None)
+        a = true_fn(*operands)
+        b = false_fn(*operands)
+        specs[slot] = _spec(a)
+        _check_same(specs[slot], _spec(b), "both branches run")
+        leaves, tree = pytree.tree_flatten(a)
+        return pytree.tree_unflatten(
+            [torch.where(pred, x, y)
+             for x, y in zip(leaves, pytree.tree_leaves(b))], tree)
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        return _if_nodes(pred, true_fn, false_fn, operands)
+    return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
+def _if_nodes(pred, true_fn, false_fn, operands):
+    """``cond`` under a capture: the output buffers from the warm-up's
+    spec, then one IF node per branch (``csrc/graph_cond.cu``), its body
+    captured from ``_body_stream`` with the body's allocations in a pool
+    of the capture's own for its nesting depth."""
+    queue = getattr(_BRANCH, "capture", None)
+    if not queue:
+        raise RuntimeError("cond under a CUDA-graph capture needs the "
+                           "output specs of a both_branches warm-up")
+    tree, metas = queue.popleft()
+    outs = [torch.empty(shape, dtype=dtype, device=device)
+            for shape, dtype, device in metas]
+    index = pred.get_device()
+    depth = _BRANCH.depth
+    body = _body_stream(pred.device, depth)
+    if depth == len(_BRANCH.pools):
+        _BRANCH.pools.append([torch.cuda.graph_pool_handle(), 0])
+    pool = _BRANCH.pools[depth]
+    begin = _build.entry("graph_cond", "graph_if_begin")
+    end = _build.entry("graph_cond", "graph_if_end")
+    for negate, fn in ((0, true_fn), (1, false_fn)):
+        _build.launch(begin, index, pred.data_ptr(), negate,
+                      body.cuda_stream)
+        _BRANCH.depth += 1
+        try:
+            with torch.cuda.stream(body):
+                _allocate_to_pool(index, pool[0])
+                pool[1] += 1
+                got = fn(*operands)
+                _check_same((tree, metas), _spec(got), "captured")
+                for buf, t in zip(outs, pytree.tree_leaves(got)):
+                    buf.copy_(t)
+                del got
+        finally:
+            _BRANCH.depth -= 1
+            torch._C._cuda_endAllocateToPool(index, pool[0])
+            err = end(body.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"graph_if_end: CUDA error {err}")
+    return pytree.tree_unflatten(outs, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _body_stream(device, depth):
+    """The stream IF-node bodies at nesting ``depth`` are captured from
+    (one per device and depth, as torch keeps one capture stream)."""
+    return torch.cuda.Stream(device)
+
+
+def _allocate_to_pool(device, pool):
+    """The caching allocator's allocations on the body stream go to
+    ``pool`` until ``_cuda_endAllocateToPool``: only the capture's own
+    allocations are matched by torch's filter, and a body is captured
+    from another stream."""
+    if hasattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool"):
+        torch._C._cuda_beginAllocateCurrentStreamToPool(device, pool)
+    else:
+        torch._C._cuda_beginAllocateToPool(device, pool)
 
 
 class Program:
@@ -59,14 +220,18 @@ class Program:
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(WARMUPS):
-                    fn(*self.inputs)
+                    with both_branches() as specs:
+                        fn(*self.inputs)
             torch.cuda.current_stream().wait_stream(side)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph), _capturing(specs) as pools:
                 out = fn(*self.inputs)
+            weakref.finalize(self, _release_pools,
+                             torch.cuda.current_device(),
+                             [tuple(p) for p in pools])
             torch.cuda.synchronize()
             return out, torch.cuda.memory_reserved() - before
 

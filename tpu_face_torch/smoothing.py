@@ -10,9 +10,11 @@ at every resolution and distance.
 
 Each update is a handful of elementwise torch ops over [..., N, 3]
 landmark sets of B streams, with the state on the smoother's device
-(the card unless ``device="cpu"``).  The state follows the input's
-shape: a shape change starts it afresh, as the JAX version's re-jit per
-shape does.
+(the card unless ``device="cpu"``).  On the card they run as one CUDA
+graph per input shape (the smoother's ``programs.ProgramCache``; the JAX
+version jits its filter), the state and the elapsed time its inputs; on
+the CPU eagerly.  The state follows the input's shape: a shape change
+starts it afresh, as the JAX version's re-jit per shape does.
 
 >>> smoother = LandmarkSmoother()               # OneEuroConfig()
 >>> for frames in video_batches:
@@ -20,12 +22,14 @@ shape does.
 ...     mesh = smoother(res.mesh, res.mesh_valid)
 """
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import resolve_device
+from .programs import ProgramCache
 
 __all__ = ["OneEuroConfig", "LandmarkSmoother", "ResultSmoother"]
 
@@ -95,6 +99,13 @@ def _filter_step(x, valid, x_hat, dx_hat, ok, cfg, te):
             valid)
 
 
+@functools.lru_cache(maxsize=None)
+def _rate_te(rate, device):
+    """1/``rate`` seconds as an f32 device scalar, made once per rate and
+    device (filled on the device: no host copy)."""
+    return torch.full((), 1.0 / rate, dtype=torch.float32, device=device)
+
+
 class _SmootherBase:
     """Config validation and the (x_hat, dx_hat, ok) state, shared by
     both smoothers."""
@@ -108,6 +119,7 @@ class _SmootherBase:
                              f"be positive, got {self.config}")
         self.device = resolve_device(device)
         self._state = None  # (x_hat [lead+(N,C)], dx_hat, ok [lead])
+        self._cache = ProgramCache(self.device)   # the filter by shape
 
     def reset(self):
         self._state = None
@@ -127,11 +139,18 @@ class _SmootherBase:
 
     def _te(self, dt):
         """Elapsed seconds since the previous frame as an f32 scalar
-        tensor; ``dt=None`` is 1/config.rate."""
-        te = (1.0 / self.config.rate) if dt is None else float(dt)
+        tensor on the device: ``dt=None`` is 1/config.rate (``_rate_te``);
+        a given ``dt`` goes to the card through a fresh pinned tensor,
+        without waiting on the stream."""
+        if dt is None:
+            return _rate_te(self.config.rate, self.device)
+        te = float(dt)
         if te <= 0:
             raise ValueError(f"dt must be positive, got {dt}")
-        return torch.tensor(te, dtype=torch.float32, device=self.device)
+        host = torch.tensor(te, dtype=torch.float32)
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -153,6 +172,9 @@ class LandmarkSmoother(_SmootherBase):
     a stream-identity or resolution change at the same shapes needs
     ``reset()``."""
 
+    def _fn(self, x, valid, x_hat, dx_hat, ok, te):
+        return _filter_step(x, valid, x_hat, dx_hat, ok, self.config, te)
+
     def __call__(self, landmarks, valid=None, dt=None):
         """``dt``: seconds since the previous frame; ``None`` assumes
         1/config.rate."""
@@ -160,9 +182,8 @@ class LandmarkSmoother(_SmootherBase):
         lead = x.shape[:-2]
         valid = self._valid(valid, lead)
         st = self._stored_state(x.shape, x.dtype, lead)
-        out, x_hat, dx_hat, ok = _filter_step(x, valid, *st, self.config,
-                                              self._te(dt))
-        self._state = (x_hat, dx_hat, ok)
+        out, *self._state = self._cache("filter", self._fn, x, valid, *st,
+                                        self._te(dt))
         return out
 
 
@@ -171,15 +192,23 @@ class ResultSmoother(_SmootherBase):
     face-scaled point set of 478 points (a separate iris filter would
     normalize speed by the tiny iris bbox instead of the face's)."""
 
+    def _fn(self, mesh, iris, valid, x_hat, dx_hat, ok, te):
+        """The filter over the 478 points, split back into (mesh, iris)
+        and the new state."""
+        lead, n = mesh.shape[:-2], mesh.shape[-2]
+        x = torch.cat([mesh, iris.reshape(*lead, -1, mesh.shape[-1])], -2)
+        out, *state = _filter_step(x, valid, x_hat, dx_hat, ok,
+                                   self.config, te)
+        return (out[..., :n, :], out[..., n:, :].reshape(iris.shape),
+                *state)
+
     def __call__(self, mesh, iris, valid, dt=None):
         mesh = self._tensor(mesh)
         iris = self._tensor(iris)
         lead = mesh.shape[:-2]
         valid = self._valid(valid, lead)
-        x = torch.cat([mesh, iris.reshape(*lead, -1, mesh.shape[-1])], -2)
-        st = self._stored_state(x.shape, x.dtype, lead)
-        out, x_hat, dx_hat, ok = _filter_step(x, valid, *st, self.config,
-                                              self._te(dt))
-        self._state = (x_hat, dx_hat, ok)
-        n = mesh.shape[-2]
-        return out[..., :n, :], out[..., n:, :].reshape(iris.shape)
+        n = mesh.shape[-2] + math.prod(iris.shape[len(lead):-1])
+        st = self._stored_state(lead + (n, mesh.shape[-1]), mesh.dtype, lead)
+        mesh, iris, *self._state = self._cache(
+            "filter", self._fn, mesh, iris, valid, *st, self._te(dt))
+        return mesh, iris

@@ -13,21 +13,30 @@ scattered back.  Mass loss (more lost streams than one repair pass
 covers, or every stream, as on the first step) and forced redetects
 (``redetect_every``) run the full cascade for every stream.
 
-The JAX version makes both choices with ``lax.cond`` inside one
-program.  Here they are host branches: each step reads whether the full
-path is due, and on the tracked path whether any stream is lost, with one
-device-to-host copy each.  The outputs are the contract.  So an exported
-tracker (``tpu_face_torch.aot``) holds the programs the branches call:
-the full cascade at the step's batch B and at the repair batch, and the
-tracked stages at B.  On the card the same three programs are CUDA graphs
-in the cascade's ``programs.ProgramCache``, captured on first use; the
-branches, the repair's merge, the next ROIs and the smoother run
-outside them.
+The JAX version makes both choices with ``lax.cond`` inside one jitted
+program per frame size, and so does ``step`` here: ``_step_fn`` takes
+them with ``programs.cond``, and on the card it runs through the
+cascade's ``programs.ProgramCache`` as one CUDA graph per frame size and
+batch, the two decisions conditional (IF) nodes.  A replay runs the taken
+branches' kernels only (a locked step launches no detector kernel), and
+nothing of the step is read back to the host.  On the CPU the same
+function runs eagerly and takes its branches by reading the predicates.
+JAX nests the repair's cond inside the tracked branch; here it follows
+the first cond, its predicate false after the full path, which makes the
+same decisions with two IF nodes side by side.  (Nested, on an H100
+under the CUDA 12.8 driver, the end of the tracked body's capture
+crashed inside the driver whenever both bodies ran the iris net;
+``programs.cond`` itself nests.)
 
-A step runs over shards of its streams (``_step_shards``): one, the
-tracker itself, for ``step``; one replica tracker per device of a mesh for
-``tpu_face_torch.parallel.track_sharded``, each holding its streams'
-state on its device, with the step's decisions taken over all B streams.
+An exported tracker (``tpu_face_torch.aot``) holds the programs the
+branches call: the full cascade at the step's batch B and at the repair
+batch, and the tracked stages at B.  With such programs attached, and
+over ``tpu_face_torch.parallel.track_sharded``'s shards (one replica
+tracker per device of a mesh, each holding its streams' state there), a
+step takes its decisions on the host over all B streams
+(``_step_shards``, one device-to-host read for each decision), and its
+branches call the attached programs or the cascade's three cached
+sub-programs.
 """
 
 import copy
@@ -37,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import exact_f32
+from . import exact_f32, programs
 from .models.face_detection import FaceDetectionModel, frames_on
 from .models.face_landmark import ROI_SCALE as MESH_ROI_SCALE
 from .pipeline import (CascadeResult, FaceCascade, _bbox_to_roi_abs,
@@ -91,6 +100,14 @@ def _dummy_roi(image_size, device):
     w, h = image_size
     return torch.tensor([w / 2.0, h / 2.0, 64.0, 64.0, 0.0],
                         dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _force_flags(device):
+    """(False, True) as device bool scalars, made once per device: the
+    step program's ``force`` input, with no host copy per step."""
+    return (torch.zeros((), dtype=torch.bool, device=device),
+            torch.ones((), dtype=torch.bool, device=device))
 
 
 def _tracked_stages(cascade, images, rois, valid, image_size):
@@ -354,7 +371,10 @@ class _TrackerBase:
 
     def step(self, images, dt=None) -> CascadeResult:
         """One tracked step over a frame batch [B, ...].  ``dt``: seconds
-        since the previous frame, read only by the optional smoother."""
+        since the previous frame, read only by the optional smoother.  The
+        step is ``_step_fn`` through the cascade's program cache (one CUDA
+        graph per frame size and batch on the card), or with attached
+        programs ``_step_shards`` over this one shard."""
         images, hw = self._frames(images)
         b = images.shape[0]
         progs = self._programs.get(hw)
@@ -366,10 +386,15 @@ class _TrackerBase:
         self._state, self._shards = self._held_state(), None
         if self._fresh(b, hw):
             self._state = self._empty_state(b)
-        force = self.next_step_forced
+        force, size = self.next_step_forced, (hw[1], hw[0])
         with torch.inference_mode(), exact_f32():
-            (res,) = self._step_shards([(self, images)], force,
-                                       (hw[1], hw[0]), self._repair_n(b))
+            if progs is not None:
+                (res,) = self._step_shards([(self, images)], force, size,
+                                           self._repair_n(b))
+            else:
+                res, self._state = self.cascade._cache(
+                    "step", lambda x, *state: self._step_fn(x, *state, size),
+                    images, *self._state, _force_flags(self.device)[force])
         self._steps += 1
         return self._smooth_result(res, dt)
 
@@ -447,20 +472,59 @@ class FaceTracker(_TrackerBase):
         return _one_face(self._run_tracked(images, roi[:, None],
                                            valid[:, None], image_size))
 
+    @staticmethod
+    def _next_state(res, image_size):
+        return TrackerState(roi_from_mesh(res.mesh, image_size),
+                            res.mesh_valid)
+
+    def _step_fn(self, images, roi, valid, force, image_size):
+        """One step over all B streams (``tpu_face.tracking.FaceTracker.
+        _step_fn``): the full cascade for every stream on a forced
+        redetect or mass entry loss (beyond one repair pass, or every
+        stream: the first step), else the tracked stages; then, if a
+        tracked stream is lost, the full cascade over the first ``r``
+        streams with the lost ones first, merged back.  Both decisions are
+        ``programs.cond``.  Returns (result, next state)."""
+        c = self.cascade
+        b = images.shape[0]
+        r = self._repair_n(b)
+        n_lost = (~valid).sum()
+        use_full = force | (n_lost > r) | (n_lost == b)
+
+        def full(images, roi, valid):
+            return _one_face(c._full(images, image_size))
+
+        def tracked(images, roi, valid):
+            return _one_face(_tracked_stages(c, images, roi[:, None],
+                                             valid[:, None], image_size))
+
+        def repair(res, lost):
+            sel = _lost_first(lost, r)
+            sub = _one_face(c._full(images[sel], image_size))
+            return _merge(res, sub, sel, lost[sel])
+
+        res = programs.cond(use_full, full, tracked, (images, roi, valid))
+        # unusable tracked output: no entry ROI, or presence lost; the full
+        # path leaves nothing to repair (the module docstring says why the
+        # repair's cond follows the first instead of lying inside it)
+        lost = ~(use_full | (valid & res.mesh_valid))
+        res = programs.cond(lost.any(), repair, lambda res, _: res,
+                            (res, lost))
+        return res, self._next_state(res, image_size)
+
     def _step_shards(self, shards, force, image_size, r):
-        """One step over ``shards`` [(tracker, frames)] (each tracker
-        holding its streams' state), ``r`` the repair batch of all
-        streams; returns each shard's result and updates each state."""
+        """``_step_fn`` over ``shards`` [(tracker, frames)] (each tracker
+        holding its streams' state) with the decisions taken on the host
+        over all their streams and the stages run by ``_run_full`` and
+        ``_run_tracked``; ``r`` the repair batch of all streams.  Returns
+        each shard's result and updates each state."""
         b = sum(x.shape[0] for _, x in shards)
-        # the full path for forced redetects or mass entry loss: beyond
-        # one repair pass, or every stream (the first step)
         n_lost = 0 if force else b - sum(int(t._state.valid.sum())
                                          for t, _ in shards)
         if force or n_lost > r or n_lost == b:
             res = [_one_face(t._run_full(x, image_size)) for t, x in shards]
         else:
             res = [t._tracked(x, *t._state, image_size) for t, x in shards]
-            # unusable tracked output: no entry ROI, or presence lost
             lost = [~(t._state.valid & out.mesh_valid)
                     for (t, _), out in zip(shards, res)]
             for i, sel, take in _repairs(lost, r):
@@ -469,8 +533,7 @@ class FaceTracker(_TrackerBase):
                                 _one_face(t._run_full(x[sel], image_size)),
                                 sel, take)
         for (t, _), out in zip(shards, res):
-            t._state = TrackerState(roi_from_mesh(out.mesh, image_size),
-                                    out.mesh_valid)
+            t._state = self._next_state(out, image_size)
         return res
 
     @property
@@ -518,9 +581,10 @@ def match_slots(new_roi, new_valid, prev_roi, prev_valid,
     m = torch.where(new_valid[..., :, None] & prev_valid[..., None, :],
                     _roi_iou_matrix(new_roi, prev_roi), -1.0)
     lead = m.shape[:-2]
-    m = m.reshape(-1, k, k).clone()
+    m = m.reshape(-1, k, k)
     n = m.shape[0]
     rows = torch.arange(n, device=m.device)
+    slots = torch.arange(k, device=m.device)
     slot_src = torch.full((n, k), -1, dtype=torch.int64, device=m.device)
     used = torch.zeros((n, k), dtype=torch.bool, device=m.device)
     for _ in range(k):
@@ -529,10 +593,10 @@ def match_slots(new_roi, new_valid, prev_roi, prev_valid,
         ok = m.reshape(n, -1)[rows, flat] > iou_thresh
         slot_src[rows, j] = torch.where(ok, i, slot_src[rows, j])
         used[rows, i] |= ok
-        cleared = m.clone()
-        cleared[rows, i, :] = -1.0
-        cleared[rows, :, j] = -1.0
-        m = torch.where(ok[:, None, None], cleared, m)
+        # the matched pair's row and column leave the matrix
+        hit = ((slots[None, :, None] == i[:, None, None])
+               | (slots[None, None, :] == j[:, None, None]))
+        m = m.masked_fill(hit & ok[:, None, None], -1.0)
     unmatched = slot_src < 0
     rank = unmatched.long().cumsum(-1) - 1
     # unmatched new faces in ascending index (NMS score order) fill the
@@ -597,11 +661,12 @@ class MultiFaceTracker(_TrackerBase):
             torch.zeros(b, k, dtype=torch.bool, device=self.device),
             torch.zeros(b, dtype=torch.bool, device=self.device))
 
-    def _detected(self, images, rois, valid, image_size):
-        """The full cascade over ``images`` (``_run_full``), each frame's
-        faces put in the previous slots' order (``match_slots``)."""
+    @staticmethod
+    def _reordered(res, rois, valid, image_size):
+        """A full cascade's result ``res`` with each frame's faces put in
+        the previous slots' order (``match_slots`` against the slots'
+        ROIs and flags)."""
         w, h = image_size
-        res = self._run_full(images, image_size)
         roi = res.face_roi
         roi_abs = torch.stack([roi[..., 0] * w, roi[..., 1] * h,
                                roi[..., 2] * w, roi[..., 3] * h,
@@ -612,10 +677,77 @@ class MultiFaceTracker(_TrackerBase):
                      .expand(perm.shape + f.shape[2:]))
             for f in res))
 
+    def _detected(self, images, rois, valid, image_size):
+        """The full cascade over ``images`` (``_run_full``), reordered
+        into the previous slots (``_reordered``)."""
+        return self._reordered(self._run_full(images, image_size), rois,
+                               valid, image_size)
+
+    @staticmethod
+    def _lost(locked, valid, res):
+        """The streams whose tracked output ``res`` is unusable (entered
+        unlocked, or a tracked face lost presence), and the lock flags
+        of the others."""
+        lost = ~locked | (valid & ~res.mesh_valid).any(-1)
+        return lost, ~lost & res.mesh_valid.any(-1)
+
+    @staticmethod
+    def _repaired(res, locked, sub, sel, take):
+        """``res`` and the lock flags ``locked`` with the repair's result
+        ``sub`` of streams ``sel`` merged in where ``take`` holds."""
+        locked = locked.clone()
+        locked[sel] = torch.where(take, sub.mesh_valid.any(-1), locked[sel])
+        return _merge(res, sub, sel, take), locked
+
+    @staticmethod
+    def _next_state(res, locked, image_size):
+        return MultiTrackerState(roi_from_mesh(res.mesh, image_size),
+                                 res.mesh_valid, locked)
+
+    def _step_fn(self, images, rois, valid, locked, force, image_size):
+        """One step over all B streams (``tpu_face.tracking.
+        MultiFaceTracker._step_fn``): the full cascade, its faces matched
+        to the slots, for every stream on a forced redetect or mass loss of
+        lock, else the tracked stages over the B*K slots; then, if a
+        tracked stream is lost, the matched full cascade over the first
+        ``r`` streams with the lost ones first, merged back.  Both
+        decisions are ``programs.cond`` (the second after the first, as
+        in ``FaceTracker._step_fn``).  Returns (result, next state)."""
+        c = self.cascade
+        b = images.shape[0]
+        r = self._repair_n(b)
+        n_unlocked = (~locked).sum()
+        use_full = force | (n_unlocked > r) | (n_unlocked == b)
+
+        def full(images, rois, valid, locked):
+            res = self._reordered(c._full(images, image_size), rois, valid,
+                                  image_size)
+            return res, res.mesh_valid.any(-1)
+
+        def tracked(images, rois, valid, locked):
+            res = _tracked_stages(c, images, rois, valid, image_size)
+            return res, self._lost(locked, valid, res)[1]
+
+        def repair(res, ok, lost):
+            sel = _lost_first(lost, r)
+            sub = self._reordered(c._full(images[sel], image_size),
+                                  rois[sel], valid[sel], image_size)
+            return self._repaired(res, ok, sub, sel, lost[sel])
+
+        res, ok = programs.cond(use_full, full, tracked,
+                                (images, rois, valid, locked))
+        lost = ~use_full & self._lost(locked, valid, res)[0]
+        res, next_locked = programs.cond(lost.any(), repair,
+                                         lambda res, ok, _: (res, ok),
+                                         (res, ok, lost))
+        return res, self._next_state(res, next_locked, image_size)
+
     def _step_shards(self, shards, force, image_size, r):
-        """One step over ``shards`` [(tracker, frames)] (each tracker
-        holding its streams' state), ``r`` the repair batch of all
-        streams; returns each shard's result and updates each state."""
+        """``_step_fn`` over ``shards`` [(tracker, frames)] (each tracker
+        holding its streams' state) with the decisions taken on the host
+        over all their streams and the stages run by ``_run_full`` and
+        ``_run_tracked``; ``r`` the repair batch of all streams.  Returns
+        each shard's result and updates each state."""
         b = sum(x.shape[0] for _, x in shards)
         n_unlocked = 0 if force else b - sum(int(t._state.locked.sum())
                                              for t, _ in shards)
@@ -626,22 +758,17 @@ class MultiFaceTracker(_TrackerBase):
         else:
             res = [t._run_tracked(x, *t._state[:2], image_size)
                    for t, x in shards]
-            lost = [~t._state.locked | (t._state.valid
-                                        & ~out.mesh_valid).any(-1)
-                    for (t, _), out in zip(shards, res)]
-            next_locked = [~flags & out.mesh_valid.any(-1)
-                           for flags, out in zip(lost, res)]
+            lost, next_locked = zip(*(
+                self._lost(t._state.locked, t._state.valid, out)
+                for (t, _), out in zip(shards, res)))
+            next_locked = list(next_locked)
             for i, sel, take in _repairs(lost, r):
                 (t, x), (rois, valid, _) = shards[i], shards[i][0]._state
                 sub = t._detected(x[sel], rois[sel], valid[sel], image_size)
-                res[i] = _merge(res[i], sub, sel, take)
-                locked = next_locked[i].clone()
-                locked[sel] = torch.where(take, sub.mesh_valid.any(-1),
-                                          locked[sel])
-                next_locked[i] = locked
+                res[i], next_locked[i] = self._repaired(
+                    res[i], next_locked[i], sub, sel, take)
         for (t, _), out, locked in zip(shards, res, next_locked):
-            t._state = MultiTrackerState(roi_from_mesh(out.mesh, image_size),
-                                         out.mesh_valid, locked)
+            t._state = self._next_state(out, locked, image_size)
         return res
 
     @property
