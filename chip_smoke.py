@@ -155,30 +155,44 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               counted launches per call, and the loaded graph's kernel
               operators giving those launches (2 warp nodes, 4 fused run
               nodes whose chunks add up to 13 f32 or 8 bf16 launches);
-              then FaceTracker's artifact (the full cascade at 8 streams
-              and at the repair batch 1, the tracked stages) over a full,
-              a locked and a repair step against a live tracker, step by
-              step; each artifact's save, load and attach seconds and
-              size, and the cold start of a FaceCascade (construction and
-              first call against construction, attach and first call,
-              and aot.load and first call);
-11. aot_executable -- the same three FaceCascade programs (f32 and bf16
-              at 540x360 batch 8, f32 at 1920x1080 planar batch 4) saved
-              with kind="executable" (AOTInductor packages compiled on the
-              card; the counts set to 0 before and read after), each
-              attached to a fresh object and held against the live one:
-              the same counted launches per call (the package calls the
-              kernels' operators), f32 within 0.25 px / 1e-3 and bf16 nets
-              within the BF16_* criteria, the ground truth of the rotated
+              then FaceTracker's and MultiFaceTracker's (K=2) artifacts at
+              8 streams of 540x360, each one "step" program (its exported
+              graph two torch.cond nodes), attached and held against the
+              live step in every branch (locked, repair, forced, mass
+              loss; within 1e-6, flags, lock states and launches equal),
+              the loaded program attach returns (aot.load's) called as
+              prog(images, *state, force) bit-identical with the
+              attached step; per branch the host reads of one attached
+              step (torch.profiler's stream synchronizations) and its
+              host-to-host ms beside the cached unattached step's; each
+              artifact's save, load and attach seconds and size, and
+              the cold start of a FaceCascade (construction and first
+              call against construction, attach and first call, and
+              aot.load and first call);
+11. aot_executable -- those three FaceCascade programs (f32 and bf16
+              nets at 540x360 batch 8, f32 at 1920x1080 planar batch 4)
+              and FaceTracker's step program at 8 streams of 540x360,
+              saved with kind="executable" (AOTInductor packages compiled
+              on the card, the four compiles in four child processes of
+              this script started together; the counts set to 0 before
+              and read after), each cascade attached to a fresh object
+              and held against the live one: the same counted launches
+              per call (the package calls the kernels' operators), f32
+              within 0.25 px / 1e-3 and bf16 nets within the BF16_*
+              criteria, the ground truth of the rotated
               frames, one call on a side stream equal to the default
               stream's; the largest difference against live and against
               the export, each compile's seconds and bytes, one call's
               host-to-host ms through the live object, the export and the
-              executable, and the cold start of the f32 540x360 b8
-              executable beside the export's.  The EmbedCascade and
-              FaceTracker executables are left out (a compile costs about
-              a minute on the card; tests/test_torch_aot_executable.py
-              runs both on the CPU, under ``slow``);
+              executable; then the tracker's step executable in every
+              branch (the cascade contract on the result and on the next
+              ROIs, flags, lock states and launches equal; its compile
+              seconds, host reads and ms); then the cold start of the f32
+              540x360 b8 cascade, executable beside export.  The
+              EmbedCascade and MultiFaceTracker executables are left out
+              (a compile costs one to three minutes on the card);
+              tests/test_torch_aot_executable.py compiles and checks both
+              on the CPU, under ``slow``;
 12. graphs -- the per-geometry CUDA-graph programs (tpu_face_torch.programs),
               the counts set to 0 before and read after (the warm-ups and
               captures of first calls, and the eager references): every
@@ -210,8 +224,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               bf16 nets at 540x360: over == graphs' five-step sequence
               at 8 streams, and for each branch (locked, repair, forced,
               mass loss) at 8 and 64 streams, each step bit-identical
-              with the host-branch step entered with the same state (the
-              step ``_step_shards`` takes, its decisions read to the
+              with the host-branch step entered with the same state (its
+              ``_step_fn`` called eagerly, each decision read to the
               host; NaN where both have NaN), one step program per
               tracker; each branch's host-to-host ms, the program's
               device ms (queued) and both steps' stream span, the locked
@@ -220,7 +234,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               fused launch locked, 4 K1 and the detector's 13 K3 (f32) or
               8 K4 (bf16) on a repair, 2 K1 and the detector's on the full
               path; each step program's capture seconds and pool bytes
-              beside the host-branch step's three programs'; then 12
+              beside the tracked stages' program's; then 12
               steps over every branch with OneEuro smoothing and ``dt``,
               after their capture, under
               ``torch.cuda.set_sync_debug_mode("error")``;
@@ -231,9 +245,15 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               call (within 2e-3, flags equal; each shard's launches), and
               track_sharded of FaceTracker() over both meshes, 8 streams
               over a full, a locked and a repair step, against the
-              unsharded tracker; then each sharded call's frames/s beside
-              the unsharded call's (host clock, every card synchronized;
-              printed, no limit);
+              unsharded tracker; then FaceTracker and MultiFaceTracker
+              (K=2, repair_batch=2) over [cuda:0, cuda:0] in every branch
+              (locked, repair, forced, mass loss) from the unsharded
+              tracker's state, after a first step, under
+              torch.cuda.set_sync_debug_mode("error"), within 2e-3 of the
+              unsharded step with the lock states equal, each branch's
+              steps/s beside the unsharded tracker's; then each sharded
+              cascade call's frames/s beside the unsharded call's (host
+              clock, every card synchronized; printed, no limit);
 15. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
               configuration (batch 64 of 1920x1080 bf16 planes, 192x192
               mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
@@ -449,8 +469,11 @@ def canvas_grid(load_image):
     return canvas
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def iou(a, b):
@@ -2092,7 +2115,8 @@ def phase_tracker():
     roi, valid = timed._state
     with torch.inference_mode(), exact_f32():
         stages_ms, _ = median_ms(lambda: tracking.roi_from_mesh(
-            timed._tracked(batch, roi, valid, (540, 360)).mesh,
+            tracking._tracked_stages(timed.cascade, batch, roi[:, None],
+                                     valid[:, None], (540, 360)).mesh,
             (540, 360)), reps=10)
     numbers = {f"tracker_locked_b{b}": {
         "steps_per_s": 1e3 / step_ms, "frames_per_s": b * 1e3 / step_ms,
@@ -2194,6 +2218,19 @@ def aot_cascade(label, make, frames, want, runs):
     return row, path
 
 
+def cascade_makers():
+    """{label: constructor} of the aot phases' cascades."""
+    demo = str(DATA_DIR / "demo")
+    return {
+        "cascade_f32_540p_b8": FaceCascade,
+        "cascade_bf16_540p_b8": lambda: FaceCascade(
+            compute_dtype=torch.bfloat16),
+        "cascade_f32_1080p_planar_b4": lambda: FaceCascade(
+            input_layout="planar"),
+        "embed_cascade_f32_540p_b8": lambda: EmbedCascade(
+            embed_model_path=demo)}
+
+
 def aot_cases(frames, hires, fused):
     """{label: (constructor, frames, launches per call)} of the aot
     phases: FaceCascade f32 and bf16 at 540x360 batch 8 (``frames``), f32
@@ -2201,19 +2238,17 @@ def aot_cases(frames, hires, fused):
     EmbedCascade f32 (demo graph) at 540x360 batch 8; ``fused`` the BACK
     detector's fused launches per forward by the nets' type."""
     f32, bf16 = torch.float32, torch.bfloat16
-    demo = str(DATA_DIR / "demo")
-    return {
-        "cascade_f32_540p_b8": (FaceCascade, frames, only(
+    make = cascade_makers()
+    want = {
+        "cascade_f32_540p_b8": (frames, only(
             warp_bilinear=2, fused_dw_pw_block_f32=fused[f32])),
-        "cascade_bf16_540p_b8": (
-            lambda: FaceCascade(compute_dtype=bf16), frames,
-            only(warp_bilinear=2, fused_dw_pw_block_bf16=fused[bf16])),
-        "cascade_f32_1080p_planar_b4": (
-            lambda: FaceCascade(input_layout="planar"), hires,
-            only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused[f32])),
-        "embed_cascade_f32_540p_b8": (
-            lambda: EmbedCascade(embed_model_path=demo), frames,
-            only(fused_dw_pw_block_f32=fused[f32]))}
+        "cascade_bf16_540p_b8": (frames, only(
+            warp_bilinear=2, fused_dw_pw_block_bf16=fused[bf16])),
+        "cascade_f32_1080p_planar_b4": (hires, only(
+            warp_bilinear_strips=2, fused_dw_pw_block_f32=fused[f32])),
+        "embed_cascade_f32_540p_b8": (frames, only(
+            fused_dw_pw_block_f32=fused[f32]))}
+    return {label: (make[label], *v) for label, v in want.items()}
 
 
 def phase_aot():
@@ -2222,10 +2257,13 @@ def phase_aot():
     1920x1080 planar batch 4 (the strip kernel), EmbedCascade f32 (demo
     graph) at 540x360 batch 8, each saved (``aot.save``), loaded and
     attached to a fresh object and held against the live one
-    (``aot_cascade``); then FaceTracker at 8 streams of 540x360 over three
-    steps (full, locked, repair: stream 2 blanked) through an attached
-    artifact against a live tracker, step by step (within 1e-6, flags,
-    lock states and launches equal).  Then cold start: a fresh cascade's
+    (``aot_cascade``); then FaceTracker and MultiFaceTracker (K=2) at 8
+    streams of 540x360, each saved as one step program, attached and held
+    against the live step in every branch (``aot_tracker``: within 1e-6,
+    flags, lock states and launches equal; the loaded program
+    bit-identical with the attached step; host reads and host-to-host ms
+    per step beside the cached unattached step).  Then cold start: a
+    fresh cascade's
     construction and first call against its construction, ``attach`` and
     first call, and ``aot.load`` alone and a first call.  Returns
     (launches, numbers, the three FaceCascade cases of ``aot_cases``,
@@ -2248,43 +2286,13 @@ def phase_aot():
     cases.pop("embed_cascade_f32_540p_b8")
     assert (fused[f32], fused[bf16]) == (13, 8), fused
 
-    # the tracker: full, locked and repair steps through the artifact
+    # the trackers: one step program each, held in every branch
     track = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
-    steps = [(tracker_frames(track, i, 8, (2,) if i == 2 else ()), want)
-             for i, want in enumerate((
-                 only(warp_bilinear=2, fused_dw_pw_block_f32=fused[f32]),
-                 only(warp_bilinear=2),
-                 only(warp_bilinear=4, fused_dw_pw_block_f32=fused[f32])))]
-    live_tracker = tracking.FaceTracker()
-    t0 = time.perf_counter()
-    path = aot.save(tracking.FaceTracker(), AOT_DIR / "tracker.aot",
-                    batch=8, height=360, width=540)
-    save_s = time.perf_counter() - t0
-    attached = tracking.FaceTracker()
-    t0 = time.perf_counter()
-    prog = aot.attach(attached, path)
-    attach_s = time.perf_counter() - t0
-    # the full cascade at 8 and at the repair batch 1, the tracked stages
-    assert graph_launches(prog) == (only(
-        warp_bilinear=6, fused_dw_pw_block_f32=2 * fused[f32]), 2 * runs), \
-        graph_launches(prog)
-    worst = 0.0
-    for i, (x, want) in enumerate(steps):
-        live, n = counted(lambda: live_tracker.step(x))
-        assert n == want, (i, "live", n, want)
-        out, n = counted(lambda: attached.step(x))
-        assert n == want, (i, "attached", n, want)
-        worst = max(worst, close(out, live, 1e-6, f"tracker step {i}"))
-        assert (attached.tracking == live_tracker.tracking).all(), i
-    assert list(attached.tracking) == [True, True, False] + [True] * 5
-    numbers["aot_tracker_540p_b8"] = {
-        "save_s": save_s, "attach_s": attach_s,
-        "bytes": path.stat().st_size, "max_abs_diff": worst,
-        "programs": [q["name"] for q in prog.meta["programs"]]}
-    print(f"aot tracker 540x360 8 streams: save {save_s:.2f} s, attach "
-          f"{attach_s:.2f} s, {path.stat().st_size / 1e6:.2f} MB, programs "
-          f"{numbers['aot_tracker_540p_b8']['programs']}; full, locked, "
-          f"repair steps vs live max |diff| {worst:.3g}", flush=True)
+    x = torch.from_numpy(np.stack([np.roll(track[TRACK_SEQ[2]], 4 * s,
+                                           axis=1)
+                                   for s in range(8)])).cuda()
+    for label, make in TRACKERS.items():
+        numbers[f"aot_{label}_540p_b8"], _ = aot_tracker(label, make, x)
     launches = launch_counts()
     print(f"launches of the aot path: {launches}", flush=True)
 
@@ -2313,6 +2321,141 @@ def phase_aot():
     return launches, numbers, cases
 
 
+# the trackers of the aot phases: redetect_every and repair_batch as
+# branch_cases needs them
+TRACKERS = {
+    "face_tracker": lambda: tracking.FaceTracker(redetect_every=3,
+                                                 repair_batch=2),
+    "multiface_tracker_k2": lambda: tracking.MultiFaceTracker(
+        max_faces=2, redetect_every=3, repair_batch=2)}
+
+
+def host_reads(fn):
+    """The host reads of one call of ``fn``: the stream synchronizations
+    torch.profiler records (a read of a device value waits on its
+    stream; this sees the compiled wrapper of an executable too)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+               for e in prof.events())
+
+
+def entered_step(tracker, state, steps, frames):
+    """One ``step`` of ``tracker`` entered with ``state`` after ``steps``
+    steps, on frames of the state's size; returns (result, next
+    state)."""
+    entered(tracker, state, steps)
+    tracker._state_hw = tuple(frames.shape[1:3])
+    res = tracker.step(frames)
+    return res, tracker._state
+
+
+def next_rois(got, want, label):
+    """A next tracker state held to the cascade contract: the flags and
+    lock states equal, and over the valid rows the ROIs' centre and size
+    within 0.25 px and their angle within 1e-3 rad (as
+    tests/test_torch_aot_tracking.py holds a loaded step against JAX's).
+    Returns the largest (px, rad)."""
+    close(got, want, math.inf, label)           # the bools equal
+    ok = want.valid
+    if not bool(ok.any()):
+        return 0.0, 0.0
+    d = (got.roi[ok] - want.roi[ok]).abs()
+    px, rad = float(d[:, :4].max()), float(d[:, 4].max())
+    assert px <= CPU_PX_TOL and rad <= 1e-3, (label, px, rad)
+    return px, rad
+
+
+def aot_tracker(label, make, frames, compiled=None):
+    """Save ``make()``'s step program at 8 streams of 540x360 (one
+    "step" program, its exported graph two ``torch.cond`` nodes), or take
+    the executable ``compiled`` holds (its path and compile seconds, from
+    ``compile_executables``), attach it to a fresh ``make()`` and hold it
+    in every branch
+    (``branch_cases``: locked, repair, forced, mass loss), each entered
+    with the same state: the attached step against the live step (this
+    phase's eager calls) with the same counted launches, the flags and
+    next lock states equal and the numbers within 1e-6 (an export) or,
+    the result and the next ROIs, the cascade contract (an executable:
+    ``next_rois``); the loaded program ``attach``
+    returns (``aot.load``'s), called as ``prog(images, *state, force)``,
+    bit-identical with the attached step.  Per branch, the host
+    reads of one attached step (``host_reads``) and one step's
+    host-to-host ms attached against the cached unattached step (the
+    CUDA-graph program, ``eager_calls(False)``).  Prints and returns the
+    numbers and the artifact's path."""
+    blank = frames.clone()
+    blank[2] = 0
+    live, attached, cached = make(), make(), make()
+    if compiled is None:
+        kind, path = "export", AOT_DIR / f"{label}.aot"
+        t0 = time.perf_counter()
+        aot.save(make(), path, batch=8, height=360, width=540)
+        save_s = time.perf_counter() - t0
+    else:
+        kind, (path, save_s) = "executable", compiled
+    t0 = time.perf_counter()
+    prog = aot.attach(attached, path)
+    attach_s = time.perf_counter() - t0
+    assert [q["name"] for q in prog.meta["programs"]] == ["step"], prog.meta
+    if kind == "export":
+        graph = prog.programs["step"].module.graph
+        assert sum(n.target is torch.ops.higher_order.cond
+                   for n in graph.nodes) == 2, label
+    row = {"kind": kind, "save_s": save_s, "attach_s": attach_s,
+           "bytes": path.stat().st_size, "branches": {}}
+    cases = branch_cases(live, frames, blank)
+    for branch, (x, state, n) in cases.items():
+        (want, want_state), nl = counted(
+            lambda: entered_step(live, state, n, x))
+        (got, got_state), na = counted(
+            lambda: entered_step(attached, state, n, x))
+        assert na == nl, (label, branch, na, nl)
+        if kind == "export":
+            diff = max(close(got, want, 1e-6, f"{label} {branch}"),
+                       close(got_state, want_state, 1e-6,
+                             f"{label} {branch} state"))
+        else:
+            px, sc = check_against_cpu(
+                got, type(want)(*(f.cpu() for f in want)), (540, 360))
+            roi_px, roi_rad = next_rois(got_state, want_state,
+                                        f"{label} {branch} state")
+            diff = {"px": px, "score": sc, "next_roi_px": roi_px,
+                    "next_roi_rad": roi_rad}
+        entered(attached, state, n)
+        force = tracking._force_flags(x.device)[attached.next_step_forced]
+        loaded = prog(x, *state, force)
+        close(loaded[0], got, 0.0, f"{label} {branch} load")
+        close(loaded[1], got_state, 0.0, f"{label} {branch} load state")
+        reads = host_reads(lambda: entered_step(attached, state, n, x))
+        with eager_calls(False):
+            ms = {"attached": host_call_ms(
+                      lambda: entered_step(attached, state, n, x), 10),
+                  "cached_unattached": host_call_ms(
+                      lambda: entered_step(cached, state, n, x), 10)}
+            reads_cached = host_reads(
+                lambda: entered_step(cached, state, n, x))
+        row["branches"][branch] = {
+            "diff": diff, "launches": {k: v for k, v in na.items() if v},
+            "host_reads": reads, "host_reads_cached": reads_cached,
+            "host_ms": ms}
+        print(f"aot {label} ({kind}) {branch}: vs live {diff}, launches "
+              f"{row['branches'][branch]['launches']}; host reads of one "
+              f"attached step {reads} (the cached unattached step "
+              f"{reads_cached}); one step host to host: attached "
+              f"{ms['attached']:.3f} ms, cached unattached "
+              f"{ms['cached_unattached']:.3f} ms", flush=True)
+    print(f"aot {label} ({kind}) 540x360 8 streams: save "
+          f"{'(compile) ' if compiled else ''}{save_s:.2f} s, "
+          f"attach (the load included) {attach_s:.2f} s, "
+          f"{row['bytes'] / 1e6:.2f} MB", flush=True)
+    return row, path
+
+
 def host_call_ms(fn, calls=20):
     """Median host-clock ms of one call of ``fn``, the card synchronized
     before and after each (``window_ms`` over one call)."""
@@ -2320,10 +2463,11 @@ def host_call_ms(fn, calls=20):
     return statistics.median(window_ms(fn, 1) for _ in range(calls))
 
 
-def aot_executable(label, make, frames, want, export_path):
-    """Save ``make()``'s program at ``frames``' geometry as an executable
-    (``kind="executable"``: an AOTInductor package compiled on the card),
-    attach it to a fresh ``make()`` and hold one call against the live
+def aot_executable(label, make, frames, want, export_path, compiled):
+    """Take ``make()``'s program at ``frames``' geometry as an executable
+    (``kind="executable"``: an AOTInductor package compiled on the card;
+    ``compiled`` its path and compile seconds, from
+    ``compile_executables``), attach it to a fresh ``make()`` and hold one call against the live
     object: the same counted launches (``want``) per call, so the
     package launches the hand-written kernels; within the cascade
     contract (f32 0.25 px / 1e-3, bf16 nets the BF16_* criteria) and, on
@@ -2340,10 +2484,7 @@ def aot_executable(label, make, frames, want, export_path):
     b = frames.shape[0]
     planar = live_obj._layout == "planar"
     h, w = frames.shape[2:] if planar else frames.shape[1:3]
-    t0 = time.perf_counter()
-    path = aot.save(live_obj, AOT_DIR / f"{label}.exe.aot", batch=b,
-                    height=h, width=w, kind="executable")
-    save_s = time.perf_counter() - t0
+    path, save_s = compiled
     served = make()
     t0 = time.perf_counter()
     prog = aot.attach(served, path)
@@ -2385,30 +2526,107 @@ def aot_executable(label, make, frames, want, export_path):
     return row, path
 
 
+def compile_one(label, batch, height, width):
+    """The child of ``compile_executables``: save the program ``label``
+    names (a cascade of ``cascade_makers`` or a tracker of ``TRACKERS``)
+    at the geometry given as an executable in AOT_DIR, and write its
+    compile seconds beside it.  Returns the exit code."""
+    make = {**cascade_makers(), **TRACKERS}[label]
+    path = AOT_DIR / f"{label}.exe.aot"
+    obj = make()
+    t0 = time.perf_counter()
+    with eager_calls():
+        aot.save(obj, path, batch=batch, height=height, width=width,
+                 kind="executable")
+    save_s = time.perf_counter() - t0
+    path.with_suffix(".json").write_text(json.dumps({"save_s": save_s}))
+    return 0
+
+
+def compile_executables(geometry):
+    """Compile each program of ``geometry`` ({label: (batch, height,
+    width)}) as an executable, one child process of this script each
+    (``--compile-executable``), all started together: each compile is
+    mostly one process's host work, one to three minutes on the card's
+    host, so together they take less than one after another.
+    Each child's output goes to AOT_DIR/<label>.compile.log; a child
+    that fails or outlasts COMPILE_TIMEOUT_S raises, and every child is
+    stopped.  Returns {label: (path, its compile seconds)}."""
+    t0 = time.perf_counter()
+    procs, logs = {}, {}
+    try:
+        for label, (b, h, w) in geometry.items():
+            logs[label] = open(AOT_DIR / f"{label}.compile.log", "w")
+            procs[label] = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--compile-executable", label, str(b), str(h), str(w)],
+                stdout=logs[label], stderr=subprocess.STDOUT, cwd=ROOT)
+        for label, proc in procs.items():
+            left = COMPILE_TIMEOUT_S - (time.perf_counter() - t0)
+            rc = proc.wait(timeout=max(left, 1.0))
+            if rc != 0:
+                tail = (AOT_DIR / f"{label}.compile.log").read_text()[-6000:]
+                raise RuntimeError(f"compiling {label} exited {rc}:\n{tail}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs.values():
+            log.close()
+    out = {}
+    for label in geometry:
+        path = AOT_DIR / f"{label}.exe.aot"
+        save_s = json.loads(path.with_suffix(".json").read_text())["save_s"]
+        out[label] = (path, save_s)
+    print(f"{len(out)} executables compiled in as many child processes "
+          f"at once in {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{k} {v[1]:.2f} s" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+COMPILE_TIMEOUT_S = 600
+
+
 def phase_aot_executable(cases, export_cold):
     """The serving programs as executables on the card, the counts set to
     0 before and read after: the three FaceCascade cases of ``aot_cases``
-    (f32 and bf16 at 540x360 batch 8, f32 at 1920x1080 planar batch 4),
-    each compiled, attached and held against the live object by
-    ``aot_executable``; then the cold start of the f32 540x360 b8
-    executable (construction, ``attach`` and a first call; ``aot.load``
-    and a first call) beside the export's (``export_cold``).  Left out,
-    to keep the script within half its time limit (each program compiles
-    in about a minute on the card, a tracker's three in three): the
-    EmbedCascade and FaceTracker executables, which
-    tests/test_torch_aot_executable.py compiles and checks on the CPU
-    (its ``slow`` tests).  Returns (launches, numbers)."""
+    (f32 and bf16 at 540x360 batch 8, f32 at 1920x1080 planar batch 4)
+    and the FaceTracker step program at 8 streams of 540x360, compiled
+    together (``compile_executables``); each cascade attached and held
+    against the live object by ``aot_executable``; the tracker's step in
+    every branch (``aot_tracker``: the cascade contract on the result
+    and the next ROIs, launches and lock states equal, its host reads
+    and ms); then the cold start of the f32 540x360 b8 cascade
+    (construction, ``attach`` and a first call; ``aot.load`` and a first
+    call) beside the export's (``export_cold``).  Left out, to keep the script
+    within its time limit: the EmbedCascade and MultiFaceTracker
+    executables, which tests/test_torch_aot_executable.py compiles and
+    checks on the CPU (its ``slow`` tests).  Returns (launches,
+    numbers)."""
     phase("aot_executable")
     numbers = {}
+    geometry = {}
+    for label, (_, x, _) in cases.items():
+        h, w = x.shape[2:] if "planar" in label else x.shape[1:3]
+        geometry[label] = (x.shape[0], h, w)
+    geometry["face_tracker"] = (8, 360, 540)
+    compiled = compile_executables(geometry)
     reset_counts()
-    paths = {}
     for label, (make, x, want) in cases.items():
-        numbers[f"aot_executable_{label}"], paths[label] = aot_executable(
-            label, make, x, want, AOT_DIR / f"{label}.aot")
+        numbers[f"aot_executable_{label}"], _ = aot_executable(
+            label, make, x, want, AOT_DIR / f"{label}.aot", compiled[label])
+    track = load_image(ROT / TRACK_SEQ[2])
+    x = torch.from_numpy(np.stack([np.roll(track, 4 * s, axis=1)
+                                   for s in range(8)])).cuda()
+    numbers["aot_executable_face_tracker_540p_b8"], _ = aot_tracker(
+        "face_tracker", TRACKERS["face_tracker"], x,
+        compiled["face_tracker"])
     launches = launch_counts()
     print(f"launches of the executables' path: {launches}", flush=True)
 
-    path = paths["cascade_f32_540p_b8"]
+    path = compiled["cascade_f32_540p_b8"][0]
     frames = cases["cascade_f32_540p_b8"][1]
 
     def attached():
@@ -2443,9 +2661,17 @@ def phase_sharded():
     2e-3, flags equal; 2 warp and the detector's fused launches per
     shard); then track_sharded of FaceTracker() over both meshes, 8
     streams over three steps (full, locked, repair: stream 2 blanked, on
-    the second shard of two), against the unsharded tracker step by step.
-    Then frames/s of each sharded call beside the unsharded one (host
-    clock, every card synchronized).  Returns (launches, numbers)."""
+    the second shard of two), against the unsharded tracker step by step;
+    then FaceTracker and MultiFaceTracker (K=2) with repair_batch=2 over
+    [cuda:0, cuda:0] in every branch (``branch_cases``), each entered
+    with the same state as the unsharded tracker, after a first step that
+    captures the shards' programs, under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read), each
+    within 2e-3 of the unsharded step with the flags and lock states
+    equal, and its steps/s beside the unsharded tracker's (host clock).
+    Then frames/s of each sharded cascade call beside the unsharded one
+    (host clock, every card synchronized).  The trackers run their cached
+    programs (``eager_calls(False)``).  Returns (launches, numbers)."""
     phase("sharded")
     meshes = {"visible": data_parallel_mesh(),
               "cuda0_x2": data_parallel_mesh(["cuda:0", "cuda:0"])}
@@ -2457,7 +2683,8 @@ def phase_sharded():
     cascade = FaceCascade()
     fused = cascade._det_net.fused_launches()
     track = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
-    steps = [tracker_frames(track, i, 8, (2,) if i == 2 else ())
+    steps = [torch.from_numpy(tracker_frames(track, i, 8,
+                                             (2,) if i == 2 else ())).cuda()
              for i in range(3)]
     reset_counts()
     ref = cascade(batch)
@@ -2469,12 +2696,13 @@ def phase_sharded():
         diff = close(out, ref, SHARD_TOL, f"infer_sharded {label}")
         single, sharded = tracking.FaceTracker(), tracking.FaceTracker()
         worst = 0.0
-        for i, x in enumerate(steps):
-            ru = single.step(x)
-            rs = track_sharded(sharded, x, mesh)
-            worst = max(worst, close(rs, ru, SHARD_TOL,
-                                     f"track_sharded {label} step {i}"))
-            assert (sharded.tracking == single.tracking).all(), (label, i)
+        with eager_calls(False):
+            for i, x in enumerate(steps):
+                ru = single.step(x)
+                rs = track_sharded(sharded, x, mesh)
+                worst = max(worst, close(rs, ru, SHARD_TOL,
+                                         f"track_sharded {label} step {i}"))
+                assert (sharded.tracking == single.tracking).all(), (label, i)
         assert list(sharded.tracking) == [True, True, False] + [True] * 5
         numbers[f"sharded_{label}"] = {
             "devices": [str(d) for d in mesh], "max_abs_diff": diff,
@@ -2482,6 +2710,56 @@ def phase_sharded():
         print(f"infer_sharded over {[str(d) for d in mesh]}: vs unsharded "
               f"max |diff| {diff:.3g}; track_sharded 3 steps (full, "
               f"locked, repair) max |diff| {worst:.3g}", flush=True)
+
+    # every branch over two shards, after the shards' programs are
+    # captured: no host read
+    mesh = meshes["cuda0_x2"]
+    x = torch.from_numpy(np.stack([np.roll(track[TRACK_SEQ[2]], 4 * s,
+                                           axis=1)
+                                   for s in range(8)])).cuda()
+    blank = x.clone()
+    blank[2] = 0
+    with eager_calls(False):
+        for label, make in TRACKERS.items():
+            single, sharded = make(), make()
+            track_sharded(sharded, x, mesh)
+            rows = {}
+            for branch, (frames, state, n) in branch_cases(
+                    single, x, blank).items():
+                want, want_state = entered_step(single, state, n, frames)
+
+                def step():
+                    sharded._shards = None
+                    entered(sharded, state, n)
+                    sharded._state_hw = tuple(frames.shape[1:3])
+                    return track_sharded(sharded, frames, mesh)
+
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = step()
+                    got_state = sharded._held_state()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                diff = max(close(got, want, SHARD_TOL,
+                                 f"track_sharded {label} {branch}"),
+                           close(got_state, want_state, SHARD_TOL,
+                                 f"track_sharded {label} {branch} state"))
+                ms = {"sharded": host_call_ms(step, 10),
+                      "unsharded": host_call_ms(lambda: entered_step(
+                          single, state, n, frames), 10)}
+                rows[branch] = {"max_abs_diff": diff, "host_ms": ms,
+                                "steps_per_s": 1e3 / ms["sharded"],
+                                "unsharded_steps_per_s":
+                                    1e3 / ms["unsharded"]}
+                print(f"track_sharded {label} over {[str(d) for d in mesh]}"
+                      f" {branch}: no host read; vs unsharded max |diff| "
+                      f"{diff:.3g}; {1e3 / ms['sharded']:.1f} steps/s "
+                      f"beside the unsharded tracker's "
+                      f"{1e3 / ms['unsharded']:.1f}", flush=True)
+            assert [k[0] for k in sharded.cascade._cache.entries] == [
+                "shard_stage", "shard_finish"], label
+            numbers[f"track_sharded_{label}_cuda0_x2_b8"] = rows
     launches = launch_counts()
     print(f"launches of the sharded path: {launches}", flush=True)
 
@@ -2938,21 +3216,23 @@ EAGER = False      # inside eager_calls
 
 
 @contextlib.contextmanager
-def eager_calls():
+def eager_calls(eager=True):
     """Inside the block the objects' calls run their eager functions
     (``_forward``, the trackers' and the models' passes) and not the
     CUDA graphs their program caches hold: for the phases that count
-    each call's kernel launches, which a graph replay does not make."""
+    each call's kernel launches, which a graph replay does not make.
+    ``eager_calls(False)`` turns the caches back on inside such a
+    block."""
     global EAGER
-    cached = programs.ProgramCache.__call__
+    saved = (programs.ProgramCache.__call__, EAGER)
     programs.ProgramCache.__call__ = (
-        lambda self, name, fn, *inputs: fn(*inputs))
-    EAGER = True
+        (lambda self, name, fn, *inputs: fn(*inputs)) if eager
+        else CACHED_CALL)
+    EAGER = eager
     try:
         yield
     finally:
-        programs.ProgramCache.__call__ = cached
-        EAGER = False
+        programs.ProgramCache.__call__, EAGER = saved
 
 
 def capture_runs():
@@ -3245,18 +3525,16 @@ def phase_graphs(trace, exec_numbers):
 
 
 def host_step(tracker, frames):
-    """One step of ``tracker`` with its decisions taken on the host: the
-    step ``_step_shards`` takes over one shard (its full, tracked and
-    repair stages the cascade's cached programs), as ``step`` runs it
-    with an attached artifact."""
+    """One step of ``tracker`` with its decisions taken on the host: its
+    ``_step_fn`` called eagerly, each cond reading its predicate (the
+    step an eager call on the card takes)."""
     images, hw = tracker._frames(frames)
     if tracker._fresh(images.shape[0], hw):
         tracker._state = tracker._empty_state(images.shape[0])
-    force = tracker.next_step_forced
+    force = tracking._force_flags(tracker.device)[tracker.next_step_forced]
     with torch.inference_mode(), exact_f32():
-        (res,) = tracker._step_shards([(tracker, images)], force,
-                                      (hw[1], hw[0]),
-                                      tracker._repair_n(images.shape[0]))
+        res, tracker._state = tracker._step_fn(images, *tracker._state,
+                                               force, (hw[1], hw[0]))
     tracker._steps += 1
     return res
 
@@ -3446,16 +3724,19 @@ def phase_tracker_program(trace):
                 row = {"program_host_ms": host_call_ms(program, 10),
                        "program_device_ms": queued_ms(program),
                        "program_span_ms": span_ms(program, 5),
-                       "host_branch_host_ms": host_call_ms(host, 10),
-                       "host_branch_span_ms": span_ms(host, 5)}
+                       "host_branch_host_ms": host_call_ms(host, 5),
+                       "host_branch_span_ms": span_ms(host, 3)}
                 if branch == "locked":
                     roi, valid = state[:2]
                     if roi.dim() == 2:          # FaceTracker: one face each
                         roi, valid = roi[:, None], valid[:, None]
+                    c = tracker.cascade
                     with torch.inference_mode(), exact_f32():
                         row["tracked_device_ms"] = queued_ms(
-                            lambda: tracker._run_tracked(x, roi, valid,
-                                                         (540, 360)))
+                            lambda: c._cache(
+                                "tracked",
+                                lambda *a: tracking._tracked_stages(
+                                    c, *a, (540, 360)), x, roi, valid))
                 if b == 8:
                     names = step_kernels(
                         program, f"{kind[:4]}_{name}_{branch}", trace)
@@ -3488,10 +3769,10 @@ def phase_tracker_program(trace):
             pools[label] = entries[steps_keyed[0]].nbytes
             print(f"{label}: one step program, capture "
                   f"{entries[steps_keyed[0]].capture_s:.3f} s, "
-                  f"{pools[label] / 2**20:.1f} MiB of pool (the host-branch "
-                  f"step's programs " + ", ".join(
-                      f"{k[0]} b{k[1][0][0]} {p.nbytes / 2**20:.1f} MiB"
-                      for k, p in entries.items() if k[0] != "step")
+                  f"{pools[label] / 2**20:.1f} MiB of pool (the tracked "
+                  f"stages' program alone " + ", ".join(
+                      f"b{k[1][0][0]} {p.nbytes / 2**20:.1f} MiB"
+                      for k, p in entries.items() if k[0] == "tracked")
                   + ")", flush=True)
     launches = launch_counts()
     print(f"launches of the tracker_program phase (the warm-ups and "
@@ -3558,7 +3839,7 @@ def import_port():
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
     global track_sharded, bench, median_ms, queued_ms, window_ms
-    global programs, Rect
+    global programs, Rect, CACHED_CALL
     global H100_BYTES_PER_S, H100_F32_FLOPS, H100_BF16_FLOPS
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
@@ -3580,6 +3861,7 @@ def import_port():
     from tpu_face_torch.types import Rect
     from tpu_face_torch.utils import native_loader
     from tpu_face_torch.utils.image_io import load_image
+    CACHED_CALL = programs.ProgramCache.__call__
 
 
 def main(argv=None):
@@ -3590,6 +3872,11 @@ def main(argv=None):
     parser.add_argument("--sweep", action="store_true",
                         help="time the fused kernel at every tiling of "
                         "each residual run of the BACK detector")
+    parser.add_argument("--compile-executable", nargs=4,
+                        metavar=("LABEL", "BATCH", "HEIGHT", "WIDTH"),
+                        help="compile one program of == aot_executable "
+                        "as an executable and exit (the phase starts "
+                        "one such process per program)")
     args = parser.parse_args(argv)
     # end CUPTI's session with each profile: left subscribed, it kept
     # recording the later CUDA-graph replays (slowing their launches) and
@@ -3600,6 +3887,9 @@ def main(argv=None):
               "needs a CUDA card", file=sys.stderr)
         return 1
     import_port()
+    if args.compile_executable:
+        label, *geometry = args.compile_executable
+        return compile_one(label, *map(int, geometry))
 
     t_start = time.perf_counter()
     phase("device")

@@ -25,9 +25,9 @@ executable cases.
   ``pad_batch``) and ``tpu_face``'s cascade within the cascade contract
   (0.25 px, 1e-3 rad, 1e-3), an ``EmbedCascade`` (demo graph) executable
   against the live port, and ``FaceTracker`` and
-  ``MultiFaceTracker(max_faces=2)`` executables ("full", "repair" and
-  "tracked") over full, tracked and repair steps against the live
-  trackers.
+  ``MultiFaceTracker(max_faces=2)`` executables (one "step" program each,
+  its two ``torch.cond`` nodes compiled) over full, tracked and repair
+  steps against the live trackers.
 """
 
 import contextlib
@@ -342,8 +342,7 @@ def test_tracker_executable(tmp_path, frames, cls, kw):
                  kind="executable")
     fresh = cls(warp_method="pallas", device="cpu", **kw)
     prog = aot.attach(fresh, p)
-    assert sorted(q["name"] for q in prog.meta["programs"]) == [
-        "full", "repair", "tracked"]
+    assert [q["name"] for q in prog.meta["programs"]] == ["step"]
     for i, x in enumerate(_steps(frames)):
         _compare(fresh.step(x), live_obj.step(x), SIZE)
         assert (fresh.tracking == live_obj.tracking).all(), i

@@ -260,12 +260,16 @@ def test_attached_programs_take_precedence(img, cached):
 
     tracker = ttrack.FaceTracker(device="cpu")
     cache = cached(tracker)
-    full = []
-    tracker._programs[(360, 540)] = ttrack.TrackerPrograms(
-        1, {1: lambda images: full.append(images)
-            or tracker.cascade._full(images, SIZE)}, None)
+    calls = []
+
+    def step(images, *state_force):
+        calls.append(images)
+        return tracker._step_fn(images, *state_force, SIZE)
+
+    step.batch = 1
+    tracker._programs[(360, 540)] = step
     tracker.step(x)
-    assert len(full) == 1 and cache.entries == {}
+    assert len(calls) == 1 and cache.entries == {}
 
 
 def test_cpu_objects_make_no_entry(img, monkeypatch):

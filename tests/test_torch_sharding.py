@@ -24,6 +24,18 @@ the merge are tested here; ``chip_smoke.py`` runs the same on the card.
   after the sharded ones (it comes back).  Results within 2e-3 with the
   flags equal, ``tracking`` and ``face_count`` over all four streams
   equal.
+* ``track_sharded`` from a set state in every branch (``repair_batch=2``,
+  four streams over two shards, ``CASES``): forced, mass loss (three
+  streams unlocked), locked, a repair of a lost stream in each shard, and
+  three lost streams across the shards (stream 0 unlocked, stream 2
+  blanked, stream 3 unlocked on a blank... see ``CASES``), where the
+  repair takes the first two lost streams of all four, not the first of
+  each shard: the unsharded step's result (within 2e-3, flags equal) and
+  lock flags.
+* Outside its two cached programs per shard (each cond run on both
+  sides, as a capture's warm-up runs it), a sharded step after the first
+  reads nothing back to the host (tests/test_torch_bench.py's
+  ``_HostValues``).
 """
 
 from pathlib import Path
@@ -33,6 +45,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_bench import _HostValues
+from test_torch_programs import _EagerProgram
 from test_torch_threads import share_cores  # noqa: F401
 import tpu_face
 from test_rotation_e2e import ROT
@@ -40,6 +54,7 @@ from tpu_face.models.face_detection import FaceDetectionModel as JaxModel
 from tpu_face.parallel import data_parallel_mesh as jax_mesh
 from tpu_face.parallel import infer_sharded as jax_infer_sharded
 from tpu_face.pipeline import FaceCascade as JaxFaceCascade
+from tpu_face_torch import programs
 from tpu_face_torch.models.face_detection import FaceDetectionModel
 from tpu_face_torch.parallel import (data_parallel_mesh, infer_sharded,
                                      shard_batch, track_sharded)
@@ -169,3 +184,70 @@ def test_track_sharded_matches_unsharded(cls, kw, first):
     _close(sharded.step(steps[2]), single.step(steps[2]))
     assert sharded._shards is None
     assert (sharded.tracking == single.tracking).all()
+
+
+# case: (streams entering unlocked, streams blanked, forced, the lock
+# flags after the step); repair_batch=2, streams 0-1 on the first shard
+CASES = {
+    "forced": ((), (1,), True, [True, False, True, True]),
+    "mass_loss": ((0, 2, 3), (), False, [True] * 4),
+    "locked": ((), (), False, [True] * 4),
+    "repair_in_both_shards": ((1,), (3,), False, [True, True, True, False]),
+    # lost: 0 and 3 (unlocked, their faces there) and 2 (blanked); the
+    # repair takes 0 and 2, the first two of all four streams, so stream
+    # 3 stays lost although its shard repairs two rows
+    "first_r_of_all_streams": ((0, 3), (2,), False,
+                               [True, True, False, False]),
+}
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("cls,kw", [(FaceTracker, {}),
+                                    (MultiFaceTracker, {"max_faces": 2})])
+def test_track_sharded_matches_unsharded_in_every_branch(cls, kw, case):
+    unlocked, blank, forced, want = CASES[case]
+    steps = _steps()
+    batch = steps[2]
+    batch[list(blank)] = 0
+    single = cls(device="cpu", repair_batch=2, redetect_every=3, **kw)
+    sharded = cls(device="cpu", repair_batch=2, redetect_every=3, **kw)
+    single.step(steps[0])
+    state = single._state
+    flags = state[-1].clone()
+    flags[list(unlocked)] = False
+    state = state._replace(**{state._fields[-1]: flags})
+    for t in (single, sharded):
+        t._state, t._state_hw = state, (360, 540)
+        t._steps = 3 if forced else 1
+    assert sharded.next_step_forced == forced
+    rs = track_sharded(sharded, batch, data_parallel_mesh(["cpu"] * 2))
+    _close(rs, single.step(batch))
+    assert list(single.tracking) == want
+    assert (sharded.tracking == single.tracking).all()
+    if cls is MultiFaceTracker:
+        assert (sharded.face_count == single.face_count).all()
+
+
+class _BothBranches(_EagerProgram):
+    """The eager stand-in with each cond run on both sides."""
+
+    def replay(self):
+        with programs.both_branches():
+            super().replay()
+
+
+@pytest.mark.parametrize("cls,kw", [(FaceTracker, {}),
+                                    (MultiFaceTracker, {"max_faces": 2})])
+def test_track_sharded_reads_nothing_back(monkeypatch, cls, kw):
+    monkeypatch.setattr(programs, "Program", _BothBranches)
+    tracker = cls(device="cpu", repair_batch=2, **kw)
+    tracker.cascade._cache.on_card = True
+    mesh = data_parallel_mesh(["cpu"] * 2)
+    steps = [torch.from_numpy(x) for x in _steps()]
+    track_sharded(tracker, steps[0], mesh)
+    with _HostValues() as mode:
+        for batch in steps[1:]:
+            track_sharded(tracker, batch, mesh)
+    assert mode.seen == [], mode.seen
+    assert [k[0] for k in tracker.cascade._cache.entries] == [
+        "shard_stage", "shard_finish"]

@@ -6,15 +6,21 @@
   mode a capture's warm-ups run, which records each cond's output spec in
   the order the conds are entered), nesting in both modes, and the
   ``ValueError`` on branches whose outputs differ in shape, type or tree.
+  Its export mode: under ``torch.export`` a ``torch.cond`` node, with an
+  identity branch (cloned), NamedTuple operands and outputs, and branches
+  that close over a parameter, a buffer, a cached constant and an outer
+  result (lifted as inputs), both branches of the exported program
+  equal to the eager call; mismatched branches raise ``ValueError``
+  there too.
 * ``FaceTracker`` and ``MultiFaceTracker(max_faces=2)`` (``repair_batch=1``,
   ``redetect_every=3``, two streams of the rotated 540p sequence) over
   nine steps that take the full path (the first step, forced redetects,
   mass loss), locked steps, repairs that find no face and one that
   re-locks, and an unrepaired lost stream: at each step, from the same
   state, ``step`` (the one-program step, eager here), ``_step_fn`` with
-  both sides of each cond run, and the host-branch step (``_step_shards``,
-  what attached programs and ``track_sharded`` run) are bit-identical,
-  result and next state.
+  both sides of each cond run, and the host-branch step (``_step_fn``
+  called eagerly, each branch taken by reading its predicate) are
+  bit-identical, result and next state.
 * With both sides of each cond run the step makes no host read
   (tests/test_torch_bench.py's ``_HostValues``); the host-branch step
   makes them.
@@ -132,6 +138,62 @@ def test_cond_mismatched_outputs_raise(case):
         programs.cond(torch.tensor(True), lambda x: (x,), other, (x,))
 
 
+_CONST = torch.linspace(-1.0, 1.0, 4)     # a cached constant
+
+
+class _Conds(torch.nn.Module):
+    """Two conds: a ``TrackerState`` through a branch that closes over a
+    parameter, a buffer, ``_CONST`` and an outer result, or through an
+    identity branch; then a tensor through two branches."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.linspace(0.5, 2.0, 16)
+                                    .reshape(4, 4), requires_grad=False)
+        self.register_buffer("b", torch.arange(4.0))
+
+    def forward(self, x, p, q):
+        y = x * 3.0
+        state = ttrack.TrackerState(x, x > 0)
+
+        def mixed(state, scale):
+            return state._replace(roi=state.roi @ self.w + self.b + _CONST
+                                  + y * scale)
+
+        state = programs.cond(p, mixed, lambda state, scale: state,
+                              (state, x[0, :1]))
+        (z,) = programs.cond(q, lambda m: (m.sum(0) - 1.0,),
+                             lambda m: (m.amax(0),), (state.roi,))
+        return state.roi, state.valid, z
+
+
+def test_cond_exports_as_torch_cond():
+    mod = _Conds()
+    x = torch.linspace(-2.0, 2.0, 12).reshape(3, 4)
+    with torch.no_grad():
+        ep = torch.export.export(mod, (x, torch.tensor(True),
+                                       torch.tensor(True)), strict=False)
+    conds = [n for n in ep.graph.nodes
+             if n.target is torch.ops.higher_order.cond]
+    assert len(conds) == 2
+    run = ep.module()
+    for p, q in ((True, True), (True, False), (False, True),
+                 (False, False)):
+        args = (x, torch.tensor(p), torch.tensor(q))
+        _same(run(*args), mod(*args), (p, q))
+
+
+def test_cond_export_refuses_mismatched_branches():
+    class Odd(torch.nn.Module):
+        def forward(self, x, p):
+            return programs.cond(p, lambda x: (x,), lambda x: (x.double(),),
+                                 (x,))
+
+    with pytest.raises(ValueError, match="differ"):
+        torch.export.export(Odd(), (torch.zeros(3), torch.tensor(True)),
+                            strict=False)
+
+
 @pytest.fixture(scope="module")
 def frames():
     return {n: load_image(ROT / n) for n in set(SEQ)}
@@ -161,13 +223,10 @@ def _same(a, b, label):
 
 
 def _host_step(tracker, images):
-    """The host-branch step over one shard, as ``step`` takes it with
-    attached programs."""
-    force = tracker.next_step_forced
+    """``_step_fn`` called eagerly: each cond reads its predicate."""
+    force = ttrack._force_flags(tracker.device)[tracker.next_step_forced]
     with torch.inference_mode(), exact_f32():
-        (res,) = tracker._step_shards([(tracker, images)], force, SIZE,
-                                      tracker._repair_n(images.shape[0]))
-    return res, tracker._state
+        return tracker._step_fn(images, *tracker._state, force, SIZE)
 
 
 def _both_step(tracker, images):
@@ -188,7 +247,6 @@ def test_one_program_step_matches_the_host_branch_step(frames, kind):
             mine._state_hw = SIZE[::-1]
         entry = (mine._state, mine._steps)
         host = _host_step(mine, images)
-        mine._state = entry[0]
         both = _both_step(mine, images)
         res = mine.step(images)
         assert mine._steps == entry[1] + 1
@@ -211,7 +269,7 @@ def test_step_makes_no_host_read_with_both_branches(frames, kind):
         assert mode.seen == [], kind
     with _HostValues() as mode:
         _host_step(tracker, images)
-    assert "aten.item.default" in mode.seen, mode.seen
+    assert mode.seen == ["aten.is_nonzero.default"] * 2, mode.seen
 
 
 @pytest.fixture

@@ -12,11 +12,16 @@ its Python stages.  The kernels are registered operators
 launches the same kernels as the live cascade, one operator node per
 warp launch and per fused residual run.
 
-A cascade's artifact holds one program, its ``_forward``.  The port's
-tracker step takes its two branches on the host (``tracking.py``), so a
-tracker's artifact holds the programs those branches call: the full
-cascade at the step's batch B ("full") and at the repair batch ("repair",
-where it differs from B), and the tracked stages at B ("tracked").
+A cascade's artifact holds one program, its ``_forward``.  A tracker's
+holds one program, "step": its whole ``_step_fn``, the two decisions
+``torch.cond`` nodes (``programs.cond`` while ``torch.export`` traces),
+as the JAX package exports the jitted step.  It takes JAX's inputs in
+JAX's order, (images, roi [B, 5], valid [B], force []) for a
+``FaceTracker`` and (images, rois [B, K, 5], valid [B, K], locked [B],
+force []) for a ``MultiFaceTracker``, and returns (result, next state).
+Both kinds read each predicate on the host when they run (an export's
+graph runs ``torch.cond`` eagerly, an executable's compiled wrapper
+branches on it), as XLA's GPU conditional does: two reads a step.
 
 Kinds:
 
@@ -67,15 +72,16 @@ from . import exact_f32
 # (importing the pipeline registers the kernels' operators, which the
 # programs call)
 from .pipeline import CascadeResult, EmbedCascade, EmbedResult, _DetectorBase
-from .tracking import TrackerPrograms, _TrackerBase
+from .tracking import MultiTrackerState, TrackerState, _TrackerBase
 
-_FORMAT = "tpu-face-torch-aot-v1"
+_FORMAT = "tpu-face-torch-aot-v2"
 # pickle-free container: magic, u64-be header length, JSON header, payload
 _MAGIC = b"TPUFACE-TORCH-AOT\x00"
 KINDS = ("export", "executable")
 _META_KEYS = {"cls", "batch", "height", "width", "layout", "device",
               "max_faces", "programs", "tensors"}
-_RESULTS = {cls.__name__: cls for cls in (CascadeResult, EmbedResult)}
+_RESULTS = {cls.__name__: cls for cls in (CascadeResult, EmbedResult,
+                                          TrackerState, MultiTrackerState)}
 _DTYPES = {str(t): t for t in (torch.float32, torch.bfloat16, torch.float16,
                                torch.float64, torch.uint8, torch.int8,
                                torch.int16, torch.int32, torch.int64,
@@ -126,11 +132,18 @@ def _compile(ep) -> bytes:
     """The AOTInductor package of exported program ``ep``, compiled under
     ``no_grad`` and full f32 (the package's matmuls and convolutions
     read the TF32 flags when they run, and ``_Program`` calls it under
-    ``exact_f32`` too); a failed compile raises."""
+    ``exact_f32`` too); a failed compile raises.  A program with
+    ``torch.cond`` nodes (a tracker's step) is compiled without buffer
+    reuse: torch 2.11's wrapper planning indexed past its table of lines
+    when it weighed reusing a buffer across a cond's subgraphs
+    (``segmented_tree.summarize_range``, an H100 build)."""
+    configs = dict(_INDUCTOR)
+    if any(n.target is torch.ops.higher_order.cond for n in ep.graph.nodes):
+        configs["allow_buffer_reuse"] = False
     buf = io.BytesIO()
     with torch.no_grad(), exact_f32():
         torch._inductor.aoti_compile_and_package(
-            ep, package_path=buf, inductor_configs=_INDUCTOR)
+            ep, package_path=buf, inductor_configs=configs)
     return buf.getvalue()
 
 
@@ -221,6 +234,9 @@ def save(obj, path, batch: int, height: int, width: int,
                 "inputs": [[str(a.dtype), list(a.shape)] for a in args],
                 "result": ("EmbedResult" if isinstance(obj, EmbedCascade)
                            else "CascadeResult")}
+        if isinstance(obj, _TrackerBase):
+            # the step returns (result, next state)
+            prog["state"] = obj._State.__name__
         if kind == "executable":
             blobs.append(_compile(ep))
             prog["package_bytes"] = len(blobs[-1])
@@ -265,13 +281,20 @@ class _Program:
     """One loaded program: ``__call__(*tensors)`` checks its inputs
     against the saved ones, runs ``module`` (an exported program's
     module or a loaded AOTInductor package) under ``inference_mode`` and
-    full f32 and returns the result NamedTuple."""
+    full f32 and returns the result NamedTuple, or (result, state) where
+    the program returns a tracker's next state too."""
 
-    def __init__(self, name, module, inputs, result):
+    def __init__(self, name, module, inputs, result, state=None):
         self.name = name
         self.module = module
         self.inputs = inputs
         self.result = result
+        self.state = state
+
+    @property
+    def batch(self):
+        """The saved batch: the first input's leading dimension."""
+        return self.inputs[0][1][0]
 
     def __call__(self, *args):
         got = [[str(a.dtype), list(a.shape)] for a in args]
@@ -279,14 +302,27 @@ class _Program:
             raise ValueError(f"the artifact's {self.name} program takes "
                              f"{self.inputs} (dtype, shape); got {got}")
         with torch.inference_mode(), exact_f32():
-            return self.result(*self.module(*args))
+            out = self.module(*args)
+        if self.state is None:
+            return self.result(*out)
+        n = len(self.result._fields)
+        return self.result(*out[:n]), self.state(*out[n:])
+
+
+def _returns(prog):
+    """(result type, state type or None) of header entry ``prog``; an
+    unknown name raises ``KeyError``."""
+    state = prog.get("state")
+    return (_RESULTS[prog["result"]],
+            None if state is None else _RESULTS[state])
 
 
 class LoadedProgram:
     """A deserialized artifact: ``meta`` (the JSON header) and
-    ``programs`` {name: callable}.  Calling it runs the first program
-    (a cascade's ``forward``, a tracker's ``full``) on exactly the
-    tensors it was saved with."""
+    ``programs`` {name: callable}.  Calling it runs the first program on
+    exactly the tensors it was saved with: a cascade's ``forward`` on
+    the frames, a tracker's ``step`` on (images, roi, valid, force) or
+    (images, rois, valid, locked, force), returning (result, state)."""
 
     def __init__(self, meta, programs):
         self.meta = meta
@@ -331,8 +367,12 @@ def _read(path):
         except (UnicodeDecodeError, json.JSONDecodeError) as e:
             raise _not_artifact(path, "bad header") from e
         payload = memoryview(f.read())
-    if not isinstance(meta, dict) or meta.get("format") != _FORMAT \
-            or meta.get("kind") not in KINDS or not _META_KEYS <= set(meta):
+    if not isinstance(meta, dict):
+        raise _not_artifact(path, "bad header")
+    if meta.get("format") != _FORMAT:
+        raise _not_artifact(path, f"format {meta.get('format')!r}; save it "
+                            f"again")
+    if meta.get("kind") not in KINDS or not _META_KEYS <= set(meta):
         raise _not_artifact(path, "bad format")
     return meta, payload
 
@@ -362,8 +402,7 @@ def _programs(path, meta, payload, device):
             ep = serde.deserialize(serde.SerializedArtifact(
                 graph, state, consts, b""))
             programs[prog["name"]] = _Program(
-                prog["name"], ep.module(), prog["inputs"],
-                _RESULTS[prog["result"]])
+                prog["name"], ep.module(), prog["inputs"], *_returns(prog))
     except Exception as e:   # untrusted input: any failure is a bad file
         raise _not_artifact(path, f"{type(e).__name__}: {e}") from e
     return programs
@@ -383,18 +422,18 @@ def _packages(path, meta, payload, device):
     _check_target(meta, device)
     try:
         sizes = [int(prog["package_bytes"]) for prog in meta["programs"]]
-        results = [_RESULTS[prog["result"]] for prog in meta["programs"]]
+        returns = [_returns(prog) for prog in meta["programs"]]
     except (KeyError, TypeError, ValueError) as e:
         raise _not_artifact(path, "bad program table") from e
     if min(sizes, default=0) <= 0 or sum(sizes) != len(payload):
         raise _not_artifact(path, f"{len(payload)} payload bytes, the "
                             f"header gives {sum(sizes)}: truncated")
     programs, start = {}, 0
-    for prog, n, result in zip(meta["programs"], sizes, results):
+    for prog, n, ret in zip(meta["programs"], sizes, returns):
         module = _load_package(bytes(payload[start:start + n]), device)
         start += n
         programs[prog["name"]] = _Program(prog["name"], module,
-                                          prog["inputs"], result)
+                                          prog["inputs"], *ret)
     return programs
 
 
@@ -453,11 +492,7 @@ def attach(obj, path, pad_batch: bool = False) -> LoadedProgram:
                          f"tracker repair batch {obj._repair_n(saved)}")
     prog = LoadedProgram(meta, _programs(path, meta, payload, obj.device))
     if isinstance(obj, _TrackerBase):
-        full = prog.programs["full"]
-        obj._programs[hw] = TrackerPrograms(
-            saved, {saved: full, meta["repair_batch"]:
-                    prog.programs.get("repair", full)},
-            prog.programs["tracked"])
+        obj._programs[hw] = prog.programs["step"]
         return prog
     forward = prog.programs["forward"]
 

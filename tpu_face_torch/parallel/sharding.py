@@ -12,10 +12,16 @@ any result is read.  Nothing crosses between devices but the chunks and
 the results: there are no collectives.
 
 Trackers shard their streams the same way: one replica tracker per shard
-holds its streams' state on its device, and each step's decisions are
-taken over all B streams (``FaceTracker._sharded_step``), as the JAX
-tracker takes them with the global predicates of one partitioned
-program.
+holds its streams' state on its device.  Each step's decisions are taken
+over all B streams (``FaceTracker._sharded_step``), as the JAX tracker
+takes them with the global predicates of one partitioned program, and
+without a host read: where JAX all-reduces each predicate, the shards'
+flags are copied device to device to the tracker's device, the entry
+decision and the repair's selection are computed there, and each shard
+gets its part back the same way.  Each shard runs two cached programs a
+step (its stages under the entry decision; its repair over a fixed
+number of rows, then its next state), so a step's repair runs on every
+shard that holds a repaired stream, at the repair batch each.
 
 A mesh may name a device more than once: that is how a single card (or
 the CPU, in tests) runs several shards.

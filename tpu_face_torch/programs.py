@@ -20,7 +20,8 @@ callable as the objects' ``_forward`` (or their ``device="cpu"``).
 ``cond`` is the counterpart of ``lax.cond`` and the one place where the
 package takes a branch on device data: inside a capture both branches
 become CUDA-graph conditional (IF) nodes, so a replay runs the branch
-its predicate picks without a read to the host.
+its predicate picks without a read to the host; while ``torch.export``
+traces, it becomes a ``torch.cond`` node of the exported program.
 """
 
 import collections
@@ -31,6 +32,7 @@ import time
 import weakref
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
 
 from . import exact_f32
@@ -105,8 +107,10 @@ def cond(pred, true_fn, false_fn, operands=()):
     """``true_fn(*operands)`` where the bool scalar tensor ``pred`` holds,
     else ``false_fn(*operands)`` (``jax.lax.cond``).  Both branches return
     the same tree of tensors with the same shapes and types, else
-    ``ValueError``.  Three modes:
+    ``ValueError``.  Four modes:
 
+    * while ``torch.export`` traces, a ``torch.cond`` node
+      (``_exported``);
     * under a CUDA-graph capture (``Program``), each branch is captured
       into an IF node, on ``pred`` and on its negation; each writes its
       outputs into buffers allocated before both, so neither body can
@@ -115,6 +119,8 @@ def cond(pred, true_fn, false_fn, operands=()):
     * inside ``both_branches``, both run and ``torch.where`` picks;
     * otherwise (the CPU, an eager call on the card) the branch is taken
       by reading ``pred``."""
+    if torch.compiler.is_exporting():
+        return _exported(pred, true_fn, false_fn, operands)
     specs = getattr(_BRANCH, "specs", None)
     if specs is not None:
         slot = len(specs)
@@ -130,6 +136,90 @@ def cond(pred, true_fn, false_fn, operands=()):
     if pred.is_cuda and torch.cuda.is_current_stream_capturing():
         return _if_nodes(pred, true_fn, false_fn, operands)
     return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
+class _FreeTensors(TorchFunctionMode):
+    """Inside the block, the tensors that torch functions read and that
+    are neither in ``known`` (a branch's operands) nor made in the block:
+    the weights, cached constants and outer results a branch closes over.
+    ``found`` collects them by identity; with ``lifted`` ({id: tensor})
+    each is replaced by its tensor instead, and an unlisted one raises."""
+
+    def __init__(self, known, lifted=None):
+        super().__init__()
+        self.known = {id(t) for t in known}
+        # every tensor of ``known`` and made here, so no id is reused
+        self.held = list(known)
+        self.found = {}
+        self.lifted = lifted
+
+    def _read(self, t, func):
+        if id(t) in self.known:
+            return t
+        if self.lifted is None:
+            self.found.setdefault(id(t), t)
+            return t
+        if id(t) not in self.lifted:
+            # e.g. a lazy cache filled by the first run: fill it before
+            # the export
+            raise RuntimeError(
+                f"cond: under export, a branch's {func} read a "
+                f"{t.dtype} {tuple(t.shape)} tensor that its first run "
+                f"did not read")
+        return self.lifted[id(t)]
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        args, kwargs = pytree.tree_map_only(
+            torch.Tensor, lambda t: self._read(t, func),
+            (args, kwargs or {}))
+        out = func(*args, **kwargs)
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.known.add(id(t))
+                self.held.append(t)
+        return out
+
+
+def _exported(pred, true_fn, false_fn, operands):
+    """``cond`` while ``torch.export`` traces: one ``torch.cond`` node
+    (the higher-order operator itself, whose branches ``make_fx``
+    traces, not ``torch.cond``'s Dynamo front end).  The operands go in
+    as a flat tuple and each branch rebuilds their tree.  A branch's
+    graph may read no tensor it does not take, so a first run of each
+    branch, not traced, finds the tensors it closes over (the nets'
+    weights, cached constants, outer results): they go in after the
+    operands, and inside the traced branches each read of one reads its
+    input instead.  Every output is a clone: ``torch.cond`` refuses a
+    branch whose output aliases an input or another output, and a
+    branch may return an operand (an identity branch) or a view of one
+    (the tracked stages pass their ``valid`` through)."""
+    from torch.fx.experimental.proxy_tensor import \
+        disable_proxy_modes_tracing
+
+    leaves, tree = pytree.tree_flatten(operands)
+    found, specs = {}, []
+    with disable_proxy_modes_tracing():
+        for fn in (true_fn, false_fn):
+            with _FreeTensors(leaves) as mode:
+                specs.append(_spec(fn(*pytree.tree_unflatten(leaves, tree))))
+            found.update(mode.found)
+    _check_same(specs[0], specs[1], "exported")
+    free = list(found.values())
+    n = len(leaves)
+
+    def traced(fn):
+        def branch(*flat):
+            mine = list(flat[:n])
+            lifted = {id(a): b for a, b in zip(free, flat[n:])}
+            with _FreeTensors(mine, lifted):
+                out = pytree.tree_leaves(fn(*pytree.tree_unflatten(mine,
+                                                                   tree)))
+            return tuple(t.clone() for t in out)
+        return branch
+
+    out = torch.ops.higher_order.cond(pred, traced(true_fn),
+                                      traced(false_fn), (*leaves, *free))
+    return pytree.tree_unflatten(list(out), specs[0][0])
 
 
 def _if_nodes(pred, true_fn, false_fn, operands):

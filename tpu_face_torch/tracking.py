@@ -28,15 +28,24 @@ under the CUDA 12.8 driver, the end of the tracked body's capture
 crashed inside the driver whenever both bodies ran the iris net;
 ``programs.cond`` itself nests.)
 
-An exported tracker (``tpu_face_torch.aot``) holds the programs the
-branches call: the full cascade at the step's batch B and at the repair
-batch, and the tracked stages at B.  With such programs attached, and
-over ``tpu_face_torch.parallel.track_sharded``'s shards (one replica
-tracker per device of a mesh, each holding its streams' state there), a
-step takes its decisions on the host over all B streams
-(``_step_shards``, one device-to-host read for each decision), and its
-branches call the attached programs or the cascade's three cached
-sub-programs.
+An exported tracker (``tpu_face_torch.aot``) is the same ``_step_fn`` as
+one program, "step", with JAX's inputs in JAX's order ((images, roi,
+valid, force), or (images, rois, valid, locked, force)), its two
+decisions ``torch.cond`` nodes; attached, ``step`` calls it with the
+held state.  Such a program reads each predicate on the host when it
+runs (as XLA's GPU conditional does).
+
+``tpu_face_torch.parallel.track_sharded`` splits the streams over
+replica trackers, one per device of a mesh, each holding its streams'
+state there.  A sharded step (``_sharded_step``) takes the unsharded
+step's decisions over all B streams without a host read: the entry
+decision and the repair's selection are computed on the tracker's
+device from each shard's flags, copied there device to device; each
+shard runs its cached "shard_stage" program (the first cond) and its
+"shard_finish" program (the repair's cond over a fixed ``r`` rows, the
+rows another shard owns masked off, then the next state).  Each shard
+that holds a repaired stream repairs ``r`` frames, where the unsharded
+step repairs ``r`` in all.
 """
 
 import copy
@@ -45,6 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from . import exact_f32, programs
 from .models.face_detection import FaceDetectionModel, frames_on
@@ -130,57 +140,35 @@ def _lost_first(lost, r):
     return torch.argsort((~lost).to(torch.int8), stable=True)[:r]
 
 
-def _repairs(lost, r):
-    """The repair of a tracked step over shards whose lost flags are
-    ``lost`` (one [B_i] tensor each, the streams in shard order): the
-    first ``r`` streams of the whole batch with the lost ones first
-    (``_lost_first``), as [(shard, local indices, their lost flags)], one
-    entry per shard that holds any of them; [] when no stream is lost.
-    One host read, and a second one of the indices with several
-    shards."""
-    whole = torch.cat([flags.to(lost[0].device) for flags in lost])
-    if not bool(whole.any()):
-        return []
-    sel = _lost_first(whole, r)
-    if len(lost) == 1:
-        return [(0, sel, whole[sel])]
-    sel = sel.cpu()
-    parts, first = [], 0
-    for i, flags in enumerate(lost):
-        mine = sel[(sel >= first) & (sel < first + flags.shape[0])] - first
-        if mine.numel():
-            mine = mine.to(flags.device)
-            parts.append((i, mine, flags[mine]))
-        first += flags.shape[0]
-    return parts
-
-
 def _cat_state(states, device):
     """Per-shard states (one NamedTuple each) as one on ``device``."""
     return type(states[0])(*(torch.cat([f.to(device) for f in fields])
                              for fields in zip(*states)))
 
 
-class TrackerPrograms(NamedTuple):
-    """The installed programs of an attached artifact
-    (``tpu_face_torch.aot.attach``) for one frame size: ``full`` {batch:
-    the full cascade with its face axis} at the step's batch and the
-    repair batch, ``tracked`` the tracked stages at the step's batch."""
+def _use_full(unlocked, force, r):
+    """The entry decision over B streams whose unlocked flags are
+    ``unlocked`` [B]: a forced redetect, or mass loss (more unlocked
+    streams than one repair pass of ``r`` covers, or every stream, as on
+    the first step)."""
+    n = unlocked.sum()
+    return force | (n > r) | (n == unlocked.shape[0])
 
-    batch: int
-    full: dict
-    tracked: object
+
+def _put(a, sel, take, b):
+    """``a`` with rows ``sel`` set to ``b``'s where ``take`` [len(sel)]
+    holds.  The rows not taken are written to a spare row past the end,
+    which is dropped: ``sel`` may repeat a row it does not take (a
+    shard's padding)."""
+    spare = torch.cat([a, a[:1]])
+    spare[torch.where(take, sel, a.shape[0])] = b
+    return spare[:-1]
 
 
 def _merge(cur, sub, sel, take):
     """``cur`` with rows ``sel`` replaced by ``sub``'s where ``take``
-    [len(sel)] holds, field by field."""
-    def one(a, b):
-        mask = take.reshape((-1,) + (1,) * (b.dim() - 1))
-        a = a.clone()
-        a[sel] = torch.where(mask, b, a[sel])
-        return a
-    return type(cur)(*(one(a, b) for a, b in zip(cur, sub)))
+    [len(sel)] holds, field by field (``_put``)."""
+    return type(cur)(*(_put(a, sel, take, b) for a, b in zip(cur, sub)))
 
 
 def _one_face(res):
@@ -212,7 +200,7 @@ class _TrackerBase:
         self._state = None
         self._state_hw: Optional[Tuple[int, int]] = None
         self._steps = 0
-        # (h, w) -> TrackerPrograms (aot.attach)
+        # (h, w) -> the attached "step" program (aot.attach)
         self._programs = {}
         # (mesh, [replica trackers]) while track_sharded holds the streams'
         # state in shards (``_state`` is then None)
@@ -293,64 +281,29 @@ class _TrackerBase:
         return rep
 
     def export_modules(self, image_size, batch):
-        """{name: (module torch.export traces, example inputs)} of the
-        programs a step at ``batch`` streams of ``image_size`` (w, h)
-        frames calls: "full" and, where the repair batch differs,
-        "repair" (the full cascade with its face axis), and "tracked"."""
+        """{"step": (module torch.export traces, example inputs)}:
+        ``_step_fn`` at ``batch`` streams of ``image_size`` (w, h) frames,
+        taking JAX's inputs in JAX's order (the frames, the state's
+        fields, ``force`` a bool scalar) and returning the fields of the
+        result and of the next state."""
         c = self.cascade
         w, h = image_size
-        k = c.max_faces
         shape = ((3, h, w) if c._layout == "planar" else (h, w, 3))
-
-        def images(n):
-            return torch.zeros((n,) + shape, dtype=torch.uint8,
-                               device=self.device)
-
-        full = c._traced(lambda x: c._full(x, image_size), image_size)
-        tracked = c._traced(
-            lambda x, roi, valid: _tracked_stages(c, x, roi, valid,
-                                                  image_size), image_size)
-        rois = torch.zeros(batch, k, 5, device=self.device)
-        _dummy_roi(image_size, rois.device)    # made outside the trace
-        out = {"full": (full, (images(batch),)),
-               "tracked": (tracked, (
-                   images(batch), rois,
-                   torch.zeros(batch, k, dtype=torch.bool,
-                               device=self.device)))}
-        r = self._repair_n(batch)
-        if r != batch:
-            out["repair"] = (full, (images(r),))
-        return out
+        images = torch.zeros((batch,) + shape, dtype=torch.uint8,
+                             device=self.device)
+        # made outside the trace, keyed by the device the stages see
+        # ("cuda:0", where the tracker's may be "cuda")
+        _dummy_roi(image_size, images.device)
+        step = c._traced(lambda x, *args: pytree.tree_leaves(
+            self._step_fn(x, *args, image_size)), image_size)
+        return {"step": (step, (images, *self._empty_state(batch),
+                                _force_flags(self.device)[0]))}
 
     def _replica_at(self, i, device):
         """Shard ``i``'s replica tracker on ``device``, made once."""
         if (i, device) not in self._replicas:
             self._replicas[i, device] = self.replica(device)
         return self._replicas[i, device]
-
-    def _run_full(self, images, image_size):
-        """The full cascade over ``images`` with its face axis: the
-        installed program where there is one (at the step's batch or the
-        repair batch), else ``FaceCascade._full`` through the cascade's
-        program cache."""
-        progs = self._programs.get((image_size[1], image_size[0]))
-        if progs is not None:
-            return progs.full[images.shape[0]](images)
-        c = self.cascade
-        return c._cache("full", lambda x: c._full(x, image_size), images)
-
-    def _run_tracked(self, images, rois, valid, image_size):
-        """The tracked stages over faces [B, K] (``_tracked_stages``): the
-        installed program where there is one, else the cascade's program
-        cache."""
-        progs = self._programs.get((image_size[1], image_size[0]))
-        if progs is not None:
-            return progs.tracked(images, rois, valid)
-        c = self.cascade
-        return c._cache("tracked",
-                        lambda x, r, v: _tracked_stages(c, x, r, v,
-                                                        image_size),
-                        images, rois, valid)
 
     def _held_state(self):
         """The state of all streams (gathered from ``track_sharded``'s
@@ -373,39 +326,77 @@ class _TrackerBase:
         """One tracked step over a frame batch [B, ...].  ``dt``: seconds
         since the previous frame, read only by the optional smoother.  The
         step is ``_step_fn`` through the cascade's program cache (one CUDA
-        graph per frame size and batch on the card), or with attached
-        programs ``_step_shards`` over this one shard."""
+        graph per frame size and batch on the card), or the attached
+        "step" program."""
         images, hw = self._frames(images)
         b = images.shape[0]
-        progs = self._programs.get(hw)
-        if progs is not None and b != progs.batch:
-            raise ValueError(f"the attached artifact's programs take "
-                             f"{progs.batch} streams (its saved batch), "
+        program = self._programs.get(hw)
+        if program is not None and b != program.batch:
+            raise ValueError(f"the attached artifact's step program takes "
+                             f"{program.batch} streams (its saved batch), "
                              f"got {b}")
         # the streams come back from track_sharded's shards, if it has them
         self._state, self._shards = self._held_state(), None
         if self._fresh(b, hw):
             self._state = self._empty_state(b)
-        force, size = self.next_step_forced, (hw[1], hw[0])
+        force = _force_flags(self.device)[self.next_step_forced]
+        size = (hw[1], hw[0])
         with torch.inference_mode(), exact_f32():
-            if progs is not None:
-                (res,) = self._step_shards([(self, images)], force, size,
-                                           self._repair_n(b))
+            if program is not None:
+                res, self._state = program(images, *self._state, force)
             else:
                 res, self._state = self.cascade._cache(
                     "step", lambda x, *state: self._step_fn(x, *state, size),
-                    images, *self._state, _force_flags(self.device)[force])
+                    images, *self._state, force)
         self._steps += 1
         return self._smooth_result(res, dt)
+
+    def _step_fn(self, images, *args):
+        """One step over all B streams (``tpu_face.tracking``'s
+        ``FaceTracker._step_fn`` and ``MultiFaceTracker._step_fn``):
+        ``args`` the state's fields, ``force`` (a bool scalar) and the
+        frame size (w, h).  The full cascade for every stream on a forced
+        redetect or mass loss of lock (``_use_full``), else the tracked
+        stages (``_stage``); then, if a tracked stream is lost, the full
+        cascade over the first ``r`` streams with the lost ones first,
+        merged back (``_finish``).  Both decisions are ``programs.cond``.
+        Returns (result, next state)."""
+        *state, force, image_size = args
+        state = self._State(*state)
+        r = self._repair_n(images.shape[0])
+        use_full = _use_full(self._unlocked(state), force, r)
+        staged, lost = self._stage(images, state, use_full, image_size)
+        sel = _lost_first(lost, r)
+        return self._finish(images, state, staged, sel, lost[sel],
+                            image_size)
+
+    def _shard_stage(self, image_size, images, *args):
+        """``_stage`` on a shard's tensors: its frames, its state's fields
+        and the entry decision of all streams (the "shard_stage"
+        program)."""
+        *state, use_full = args
+        return self._stage(images, self._State(*state), use_full,
+                           image_size)
+
+    def _shard_finish(self, image_size, tree, images, *args):
+        """``_finish`` on a shard's tensors: its frames, its state's
+        fields, the leaves of its ``_stage`` output (tree ``tree``), its
+        ``r`` repair rows and their take flags (the "shard_finish"
+        program)."""
+        k = len(self._State._fields)
+        staged = pytree.tree_unflatten(list(args[k:-2]), tree)
+        return self._finish(images, self._State(*args[:k]), staged,
+                            *args[-2:], image_size)
 
     def _sharded_step(self, chunks, mesh) -> CascadeResult:
         """``step`` over a batch split into ``chunks``, chunk i on device
         ``mesh[i]`` (``tpu_face_torch.parallel.track_sharded``): each
         shard's streams are stepped by a replica tracker on its device,
-        which holds their state there; the decisions (a forced step, mass
-        loss, which streams the repair takes) are taken over all B
-        streams, as ``step`` takes them.  Returns the result of all B
-        streams on the tracker's device."""
+        which holds their state there.  The decisions (a forced step,
+        mass loss, which streams the repair takes) are taken over all B
+        streams, as ``step`` takes them, on the tracker's device and
+        without a host read (the module docstring says how).  Returns the
+        result of all B streams on the tracker's device."""
         key = tuple(str(torch.device(d)) for d in mesh)
         if self._shards is not None and self._shards[0] != key:
             self._state, self._shards = self._held_state(), None
@@ -425,10 +416,31 @@ class _TrackerBase:
                 rep._state = type(self._state)(*(p[i].to(rep.device)
                                                  for p in parts))
         self._state, self._shards = None, (key, reps)
-        force = self.next_step_forced
+        force = _force_flags(self.device)[self.next_step_forced]
+        size, r = (hw[1], hw[0]), self._repair_n(b)
         with torch.inference_mode(), exact_f32():
-            parts = self._step_shards(list(zip(reps, frames)), force,
-                                      (hw[1], hw[0]), self._repair_n(b))
+            use_full = _use_full(torch.cat([
+                self._unlocked(rep._state).to(self.device) for rep in reps]),
+                force, r)
+            staged = [rep.cascade._cache(
+                "shard_stage", functools.partial(rep._shard_stage, size), x,
+                *rep._state, use_full.to(rep.device))
+                for rep, x in zip(reps, frames)]
+            lost = torch.cat([flags.to(self.device) for _, flags in staged])
+            sel = _lost_first(lost, r)
+            take = lost[sel]
+            parts, first = [], 0
+            for rep, x, (out, _) in zip(reps, frames, staged):
+                mine = (sel >= first) & (sel < first + x.shape[0])
+                leaves, tree = pytree.tree_flatten(out)
+                res, rep._state = rep.cascade._cache(
+                    "shard_finish",
+                    functools.partial(rep._shard_finish, size, tree), x,
+                    *rep._state, *leaves,
+                    torch.where(mine, sel - first, 0).to(rep.device),
+                    (mine & take).to(rep.device))
+                parts.append(res)
+                first += x.shape[0]
         self._steps += 1
         res = type(parts[0])(*(torch.cat([f.to(self.device) for f in fields])
                                for fields in zip(*parts)))
@@ -461,35 +473,29 @@ class FaceTracker(_TrackerBase):
                            warp_method, 1, input_layout, warp_profile,
                            device, redetect_every, repair_batch, smoothing)
 
+    _State = TrackerState
+
     def _empty_state(self, b):
         return TrackerState(
             torch.zeros(b, 5, dtype=torch.float32, device=self.device),
             torch.zeros(b, dtype=torch.bool, device=self.device))
 
-    def _tracked(self, images, roi, valid, image_size):
-        """The mesh and iris stages from the state's ROIs [B, 5], for
-        every stream (``_run_tracked`` with one face a stream)."""
-        return _one_face(self._run_tracked(images, roi[:, None],
-                                           valid[:, None], image_size))
+    @staticmethod
+    def _unlocked(state):
+        return ~state.valid
 
     @staticmethod
     def _next_state(res, image_size):
         return TrackerState(roi_from_mesh(res.mesh, image_size),
                             res.mesh_valid)
 
-    def _step_fn(self, images, roi, valid, force, image_size):
-        """One step over all B streams (``tpu_face.tracking.FaceTracker.
-        _step_fn``): the full cascade for every stream on a forced
-        redetect or mass entry loss (beyond one repair pass, or every
-        stream: the first step), else the tracked stages; then, if a
-        tracked stream is lost, the full cascade over the first ``r``
-        streams with the lost ones first, merged back.  Both decisions are
-        ``programs.cond``.  Returns (result, next state)."""
+    def _stage(self, images, state, use_full, image_size):
+        """The first decision over a batch of streams: the full cascade
+        where ``use_full`` holds, else the tracked stages from the
+        state's ROIs.  Returns (result, lost [B]): the streams whose
+        tracked output is unusable (no entry ROI, or presence lost; none
+        after the full path)."""
         c = self.cascade
-        b = images.shape[0]
-        r = self._repair_n(b)
-        n_lost = (~valid).sum()
-        use_full = force | (n_lost > r) | (n_lost == b)
 
         def full(images, roi, valid):
             return _one_face(c._full(images, image_size))
@@ -498,43 +504,24 @@ class FaceTracker(_TrackerBase):
             return _one_face(_tracked_stages(c, images, roi[:, None],
                                              valid[:, None], image_size))
 
-        def repair(res, lost):
-            sel = _lost_first(lost, r)
+        res = programs.cond(use_full, full, tracked, (images, *state))
+        return res, ~(use_full | (state.valid & res.mesh_valid))
+
+    def _finish(self, images, state, res, sel, take, image_size):
+        """The repair's decision (the module docstring says why it follows
+        the first cond instead of lying inside it): where a stream of
+        ``take`` holds, the full cascade over the ``r`` streams ``sel``,
+        merged back where ``take`` holds.  Returns (result, next
+        state)."""
+        c = self.cascade
+
+        def repair(res, sel, take):
             sub = _one_face(c._full(images[sel], image_size))
-            return _merge(res, sub, sel, lost[sel])
+            return _merge(res, sub, sel, take)
 
-        res = programs.cond(use_full, full, tracked, (images, roi, valid))
-        # unusable tracked output: no entry ROI, or presence lost; the full
-        # path leaves nothing to repair (the module docstring says why the
-        # repair's cond follows the first instead of lying inside it)
-        lost = ~(use_full | (valid & res.mesh_valid))
-        res = programs.cond(lost.any(), repair, lambda res, _: res,
-                            (res, lost))
+        res = programs.cond(take.any(), repair, lambda res, *_: res,
+                            (res, sel, take))
         return res, self._next_state(res, image_size)
-
-    def _step_shards(self, shards, force, image_size, r):
-        """``_step_fn`` over ``shards`` [(tracker, frames)] (each tracker
-        holding its streams' state) with the decisions taken on the host
-        over all their streams and the stages run by ``_run_full`` and
-        ``_run_tracked``; ``r`` the repair batch of all streams.  Returns
-        each shard's result and updates each state."""
-        b = sum(x.shape[0] for _, x in shards)
-        n_lost = 0 if force else b - sum(int(t._state.valid.sum())
-                                         for t, _ in shards)
-        if force or n_lost > r or n_lost == b:
-            res = [_one_face(t._run_full(x, image_size)) for t, x in shards]
-        else:
-            res = [t._tracked(x, *t._state, image_size) for t, x in shards]
-            lost = [~(t._state.valid & out.mesh_valid)
-                    for (t, _), out in zip(shards, res)]
-            for i, sel, take in _repairs(lost, r):
-                t, x = shards[i]
-                res[i] = _merge(res[i],
-                                _one_face(t._run_full(x[sel], image_size)),
-                                sel, take)
-        for (t, _), out in zip(shards, res):
-            t._state = self._next_state(out, image_size)
-        return res
 
     @property
     def tracking(self) -> np.ndarray:
@@ -654,12 +641,18 @@ class MultiFaceTracker(_TrackerBase):
                            warp_profile, device, redetect_every,
                            repair_batch, smoothing)
 
+    _State = MultiTrackerState
+
     def _empty_state(self, b):
         k = self.max_faces
         return MultiTrackerState(
             torch.zeros(b, k, 5, dtype=torch.float32, device=self.device),
             torch.zeros(b, k, dtype=torch.bool, device=self.device),
             torch.zeros(b, dtype=torch.bool, device=self.device))
+
+    @staticmethod
+    def _unlocked(state):
+        return ~state.locked
 
     @staticmethod
     def _reordered(res, rois, valid, image_size):
@@ -677,12 +670,6 @@ class MultiFaceTracker(_TrackerBase):
                      .expand(perm.shape + f.shape[2:]))
             for f in res))
 
-    def _detected(self, images, rois, valid, image_size):
-        """The full cascade over ``images`` (``_run_full``), reordered
-        into the previous slots (``_reordered``)."""
-        return self._reordered(self._run_full(images, image_size), rois,
-                               valid, image_size)
-
     @staticmethod
     def _lost(locked, valid, res):
         """The streams whose tracked output ``res`` is unusable (entered
@@ -695,29 +682,21 @@ class MultiFaceTracker(_TrackerBase):
     def _repaired(res, locked, sub, sel, take):
         """``res`` and the lock flags ``locked`` with the repair's result
         ``sub`` of streams ``sel`` merged in where ``take`` holds."""
-        locked = locked.clone()
-        locked[sel] = torch.where(take, sub.mesh_valid.any(-1), locked[sel])
-        return _merge(res, sub, sel, take), locked
+        return (_merge(res, sub, sel, take),
+                _put(locked, sel, take, sub.mesh_valid.any(-1)))
 
     @staticmethod
     def _next_state(res, locked, image_size):
         return MultiTrackerState(roi_from_mesh(res.mesh, image_size),
                                  res.mesh_valid, locked)
 
-    def _step_fn(self, images, rois, valid, locked, force, image_size):
-        """One step over all B streams (``tpu_face.tracking.
-        MultiFaceTracker._step_fn``): the full cascade, its faces matched
-        to the slots, for every stream on a forced redetect or mass loss of
-        lock, else the tracked stages over the B*K slots; then, if a
-        tracked stream is lost, the matched full cascade over the first
-        ``r`` streams with the lost ones first, merged back.  Both
-        decisions are ``programs.cond`` (the second after the first, as
-        in ``FaceTracker._step_fn``).  Returns (result, next state)."""
+    def _stage(self, images, state, use_full, image_size):
+        """The first decision over a batch of streams: the full cascade,
+        its faces matched to the slots, where ``use_full`` holds, else the
+        tracked stages over the B*K slots.  Returns ((result, lock flags
+        of the streams it leaves usable), lost [B]: the streams whose
+        tracked output is unusable, none after the full path)."""
         c = self.cascade
-        b = images.shape[0]
-        r = self._repair_n(b)
-        n_unlocked = (~locked).sum()
-        use_full = force | (n_unlocked > r) | (n_unlocked == b)
 
         def full(images, rois, valid, locked):
             res = self._reordered(c._full(images, image_size), rois, valid,
@@ -728,48 +707,27 @@ class MultiFaceTracker(_TrackerBase):
             res = _tracked_stages(c, images, rois, valid, image_size)
             return res, self._lost(locked, valid, res)[1]
 
-        def repair(res, ok, lost):
-            sel = _lost_first(lost, r)
+        res, ok = programs.cond(use_full, full, tracked, (images, *state))
+        lost = ~use_full & self._lost(state.locked, state.valid, res)[0]
+        return (res, ok), lost
+
+    def _finish(self, images, state, staged, sel, take, image_size):
+        """The repair's decision (as ``FaceTracker._finish``): where a
+        stream of ``take`` holds, the matched full cascade over the ``r``
+        streams ``sel``, merged back with their lock flags where ``take``
+        holds.  Returns (result, next state)."""
+        c = self.cascade
+
+        def repair(res, ok, sel, take):
             sub = self._reordered(c._full(images[sel], image_size),
-                                  rois[sel], valid[sel], image_size)
-            return self._repaired(res, ok, sub, sel, lost[sel])
+                                  state.roi[sel], state.valid[sel],
+                                  image_size)
+            return self._repaired(res, ok, sub, sel, take)
 
-        res, ok = programs.cond(use_full, full, tracked,
-                                (images, rois, valid, locked))
-        lost = ~use_full & self._lost(locked, valid, res)[0]
-        res, next_locked = programs.cond(lost.any(), repair,
-                                         lambda res, ok, _: (res, ok),
-                                         (res, ok, lost))
-        return res, self._next_state(res, next_locked, image_size)
-
-    def _step_shards(self, shards, force, image_size, r):
-        """``_step_fn`` over ``shards`` [(tracker, frames)] (each tracker
-        holding its streams' state) with the decisions taken on the host
-        over all their streams and the stages run by ``_run_full`` and
-        ``_run_tracked``; ``r`` the repair batch of all streams.  Returns
-        each shard's result and updates each state."""
-        b = sum(x.shape[0] for _, x in shards)
-        n_unlocked = 0 if force else b - sum(int(t._state.locked.sum())
-                                             for t, _ in shards)
-        if force or n_unlocked > r or n_unlocked == b:
-            res = [t._detected(x, *t._state[:2], image_size)
-                   for t, x in shards]
-            next_locked = [out.mesh_valid.any(-1) for out in res]
-        else:
-            res = [t._run_tracked(x, *t._state[:2], image_size)
-                   for t, x in shards]
-            lost, next_locked = zip(*(
-                self._lost(t._state.locked, t._state.valid, out)
-                for (t, _), out in zip(shards, res)))
-            next_locked = list(next_locked)
-            for i, sel, take in _repairs(lost, r):
-                (t, x), (rois, valid, _) = shards[i], shards[i][0]._state
-                sub = t._detected(x[sel], rois[sel], valid[sel], image_size)
-                res[i], next_locked[i] = self._repaired(
-                    res[i], next_locked[i], sub, sel, take)
-        for (t, _), out, locked in zip(shards, res, next_locked):
-            t._state = self._next_state(out, locked, image_size)
-        return res
+        res, locked = programs.cond(take.any(), repair,
+                                    lambda res, ok, *_: (res, ok),
+                                    (*staged, sel, take))
+        return res, self._next_state(res, locked, image_size)
 
     @property
     def tracking(self) -> np.ndarray:
