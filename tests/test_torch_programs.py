@@ -52,6 +52,7 @@ from tpu_face_torch.models.face_detection import _DATA_DIR
 from tpu_face_torch.parallel import infer_sharded
 from tpu_face_torch.pipeline import EmbedCascade, FaceCascade
 from tpu_face_torch.types import Rect
+from tpu_face_torch.utils import profiling
 from tpu_face_torch.utils.image_io import load_image
 
 DEMO = str(_DATA_DIR / "demo")
@@ -228,6 +229,52 @@ def test_one_entry_per_key(img, cached):
         ((1, 180, 270, 3), torch.uint8), ((1, 360, 540, 3), torch.float32),
         ((1, 360, 540, 3), torch.uint8), ((2, 360, 540, 3), torch.uint8)}
     assert all(k[0] == "forward" for k in cache.entries)
+
+
+def test_captures_are_counted(img, cached):
+    cascade = FaceCascade(device="cpu")
+    cached(cascade)
+    one = torch.from_numpy(_frames(img, 1))
+    profiling.reset()
+    cascade(one)
+    cascade(one)
+    cascade(torch.from_numpy(_frames(img, 2)))
+    assert profiling.collect()["counters"] == {"programs.captures": 2}
+
+
+def test_tracing_keys_a_stamped_program_beside_the_untraced(img, cached):
+    """Turning tracing on makes exactly one new entry (the untraced key
+    with ``STAMPED`` last), whose calls record the program's host spans;
+    turning it off again reuses the untraced entry."""
+    cascade = FaceCascade(device="cpu")
+    cache = cached(cascade)
+    one = torch.from_numpy(_frames(img, 1))
+    off = cascade(one)
+    (key,) = cache.entries
+    plain = cache.entries[key]
+    profiling.reset()
+    profiling.enable()
+    try:
+        on = cascade(one)
+        cascade(one)
+    finally:
+        profiling.enable(False)
+    assert list(cache.entries) == [key, key + (programs.STAMPED,)]
+    for f in off._fields:
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    got = profiling.collect()
+    assert got["counters"] == {"programs.captures": 1}
+    names = [s["name"] for s in got["spans"] if s["parent"] is not None
+             and got["spans"][s["parent"]]["name"] == "programs.call"]
+    assert names == ["programs.copy_in", "programs.launch",
+                     "programs.clone_out"] * 2
+    calls = [s for s in got["spans"] if s["name"] == "programs.call"]
+    assert len(calls) == 2 and all(
+        got["spans"][s["parent"]]["name"] == "cascade.call" for s in calls)
+    cascade(one)
+    assert list(cache.entries) == [key, key + (programs.STAMPED,)]
+    assert cache.entries[key] is plain
+    assert profiling.collect()["counters"] == {}
 
 
 def test_cached_call_returns_fresh_results(img, cached):

@@ -11,7 +11,7 @@ with optional OneEuro smoothing (``tpu_face_torch.smoothing``);
 ``FaceLandmark``, ``IrisLandmark`` and ``FaceEmbeddings``, each with f32
 or bf16 nets (``compute_dtype``); ``tpu_face_torch.compiler`` lowers the
 TFLite graphs (``load_model_fn``, ``graph_flops``); ``render`` draws
-results, ``utils.profiling`` labels stages for torch.profiler and NVTX,
+results, ``utils.profiling`` traces stages on the host and the card,
 ``utils.native_loader`` decodes JPEG batches on the host, and
 ``python -m tpu_face_torch`` is the command line.  For serving,
 ``tpu_face_torch.aot`` saves a cascade's or a tracker's batched program

@@ -58,11 +58,22 @@ _STAGED_SIG = ((_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 _IF_BEGIN_SIG = ((_P, _I, _P, _P), _I)
 _IF_END_SIG = ((_P,), _I)
 
+# (ring, sequence number, slot, stream), (ring, slot, stream) and (stamp,
+# host int64[3], stream) -> cudaError_t: utils/profiling's device stamps,
+# the call's first (which takes its row of the ring), a later one, and the
+# clock pairing's
+_STAMP_OPEN_SIG = ((_P, _I64, _I, _P), _I)
+_STAMP_SIG = ((_P, _I, _P), _I)
+_STAMP_PAIR_SIG = ((_P, _P, _P), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
     "graph_cond": {"graph_if_begin": _IF_BEGIN_SIG,
                    "graph_if_end": _IF_END_SIG},
+    "stage_stamp": {"stage_stamp_open": _STAMP_OPEN_SIG,
+                    "stage_stamp": _STAMP_SIG,
+                    "stage_stamp_pair": _STAMP_PAIR_SIG},
     "warp_bilinear": {"warp_bilinear": _SEGMENT_WARP_SIG},
     "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
                              "warp_bilinear_strips_f32": _WARP_SIG},

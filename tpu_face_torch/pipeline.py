@@ -153,9 +153,10 @@ class _DetectorBase:
     detect stage, and the batched host API (``infer_batch`` /
     ``__call__``).  ``FaceCascade`` adds the mesh and iris stages,
     ``EmbedCascade`` the crop and embed stage; each defines ``_forward``
-    and a ``_profile_label``."""
+    and its spans' labels (``_profile_label``, ``_call_label``)."""
 
     _profile_label = "cascade.infer_batch"
+    _call_label = "cascade.call"
     _net_names = ("_det_net",)
 
     def _init_detection(self, detection_model, model_path, compute_dtype,
@@ -220,7 +221,8 @@ class _DetectorBase:
         else:
             _, h, w, _ = images.shape
         program = self._programs.get((h, w))
-        with torch.inference_mode(), exact_f32():
+        with (profiling.stage(self._call_label), torch.inference_mode(),
+              exact_f32()):
             if program is not None:
                 return program(images)
             return self._cache("forward",
@@ -620,6 +622,7 @@ class EmbedCascade(_DetectorBase):
     without one."""
 
     _profile_label = "embed_cascade.infer_batch"
+    _call_label = "embed_cascade.call"
 
     def __init__(self,
                  detection_model: FaceDetectionModel =

@@ -11,11 +11,15 @@ outputs, so that a result the caller holds does not change on the next
 call.
 
 A key is a name (the program and whatever static arguments select it)
-and the shape and type of every input.  The cache is unbounded, like
-``_jitted``; each graph has its own memory pool.  On a CPU device the
-function runs eagerly and no entry is made.  A capture or replay error
-raises: nothing falls back to the eager call.  The eager path stays
-callable as the objects' ``_forward`` (or their ``device="cpu"``).
+and the shape and type of every input, and while tracing is on
+(``utils.profiling``) a trailing ``STAMPED``: the program captured then
+carries the device stamps of its spans, beside the untraced one, and
+its calls record host spans (``Program.stamped_call``).  The cache is
+unbounded, like ``_jitted``; each graph has its own memory pool.  On a
+CPU device the function runs eagerly and no entry is made.  A capture or
+replay error raises: nothing falls back to the eager call.  The eager
+path stays callable as the objects' ``_forward`` (or their
+``device="cpu"``).
 
 ``cond`` is the counterpart of ``lax.cond`` and the one place where the
 package takes a branch on device data: inside a capture both branches
@@ -37,11 +41,15 @@ from torch.utils import _pytree as pytree
 
 from . import exact_f32
 from .ops import _build
+from .utils import profiling
 
 # eager calls on a side stream before the capture (lazy caches, cuBLAS
 # and cuDNN handles and workspaces are made outside the graph), each with
 # both sides of every ``cond`` run
 WARMUPS = 2
+
+# the last part of a traced program's key
+STAMPED = "stamped"
 
 # this thread's branch mode: ``specs`` is the list ``both_branches``
 # records into, ``capture`` the queue of output specs a capture's conds
@@ -287,10 +295,15 @@ class Program:
     types on ``device``: ``__call__`` copies its inputs in, replays and
     returns fresh outputs.  ``capture_s`` is the seconds the warm-up
     calls and the capture took, ``nbytes`` the bytes of the graph's
-    memory pool (its intermediates and static outputs)."""
+    memory pool (its intermediates and static outputs).  A ``stamped``
+    program's capture records its spans' device stamps (``table``, the
+    span table ``utils.profiling`` reads its rows by) for
+    ``stamped_call``."""
 
-    def __init__(self, fn, inputs, device):
+    def __init__(self, fn, inputs, device, stamped=False):
         self.device = device
+        self.stamped = stamped
+        self.table = None
         self._done = None
         t0 = time.perf_counter()
         with torch.inference_mode(), exact_f32():
@@ -315,12 +328,18 @@ class Program:
             torch.cuda.current_stream().wait_stream(side)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
+            index = self.index = torch.cuda.current_device()
+            if self.stamped:
+                profiling.prepare(index)
             before = torch.cuda.memory_reserved()
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph), _capturing(specs) as pools:
-                out = fn(*self.inputs)
-            weakref.finalize(self, _release_pools,
-                             torch.cuda.current_device(),
+                if self.stamped:
+                    with profiling.graph_spans(index) as self.table:
+                        out = fn(*self.inputs)
+                else:
+                    out = fn(*self.inputs)
+            weakref.finalize(self, _release_pools, index,
                              [tuple(p) for p in pools])
             torch.cuda.synchronize()
             return out, torch.cuda.memory_reserved() - before
@@ -348,6 +367,26 @@ class Program:
             out = [t.clone() for t in self.outputs]
         return pytree.tree_unflatten(out, self._spec)
 
+    def stamped_call(self, *inputs):
+        """``__call__`` in the spans ``programs.call``, ``programs.copy_in``
+        (also on the device, by eager stamps that take this call's row of
+        the ring), ``programs.launch`` and ``programs.clone_out``."""
+        index = self.index if self.table else None
+        with (torch.inference_mode(), self._serialized(),
+              profiling.stage("programs.call")):
+            with profiling.stage(profiling.COPY_IN):
+                if index is not None:
+                    profiling.open_copy_in(index, self.table)
+                for buf, x in zip(self.inputs, inputs):
+                    buf.copy_(x)
+                if index is not None:
+                    profiling.close_copy_in(index)
+            with profiling.stage("programs.launch"):
+                self.replay()
+            with profiling.stage("programs.clone_out"):
+                out = [t.clone() for t in self.outputs]
+        return pytree.tree_unflatten(out, self._spec)
+
 
 class ProgramCache:
     """{key: Program} of one object on its device (a replica on another
@@ -365,7 +404,15 @@ class ProgramCache:
         if not self.on_card:
             return fn(*inputs)
         key = (name,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+        if profiling.enabled():
+            return self._program(key + (STAMPED,), fn, inputs,
+                                 True).stamped_call(*inputs)
+        return self._program(key, fn, inputs, False)(*inputs)
+
+    def _program(self, key, fn, inputs, stamped):
         program = self.entries.get(key)
         if program is None:
-            program = self.entries[key] = Program(fn, inputs, self.device)
-        return program(*inputs)
+            program = self.entries[key] = Program(fn, inputs, self.device,
+                                                  stamped)
+            profiling.count("programs.captures")
+        return program

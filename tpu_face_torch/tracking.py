@@ -62,6 +62,7 @@ from .models.face_landmark import ROI_SCALE as MESH_ROI_SCALE
 from .pipeline import (CascadeResult, FaceCascade, _bbox_to_roi_abs,
                        _scale_xy)
 from .smoothing import OneEuroConfig, ResultSmoother
+from .utils import profiling
 
 # rotation keypoints of landmark-derived ROIs: the eye outer corners (the
 # pair the upstream tracking graph uses)
@@ -99,6 +100,15 @@ def _det_from_roi(roi_abs, image_size):
                         device=roi_abs.device)
     return torch.cat([(center - half)[..., None, :],
                       (center + half)[..., None, :], zeros], -2)
+
+
+def _labelled(name, fn):
+    """``fn`` in the span ``name`` (``utils.profiling``): a branch of the
+    step's conds, so that a traced step shows which ran."""
+    def run(*args):
+        with profiling.stage(name):
+            return fn(*args)
+    return run
 
 
 @functools.lru_cache(maxsize=None)
@@ -504,7 +514,9 @@ class FaceTracker(_TrackerBase):
             return _one_face(_tracked_stages(c, images, roi[:, None],
                                              valid[:, None], image_size))
 
-        res = programs.cond(use_full, full, tracked, (images, *state))
+        res = programs.cond(use_full, _labelled("track.full", full),
+                            _labelled("track.tracked", tracked),
+                            (images, *state))
         return res, ~(use_full | (state.valid & res.mesh_valid))
 
     def _finish(self, images, state, res, sel, take, image_size):
@@ -519,8 +531,8 @@ class FaceTracker(_TrackerBase):
             sub = _one_face(c._full(images[sel], image_size))
             return _merge(res, sub, sel, take)
 
-        res = programs.cond(take.any(), repair, lambda res, *_: res,
-                            (res, sel, take))
+        res = programs.cond(take.any(), _labelled("track.repair", repair),
+                            lambda res, *_: res, (res, sel, take))
         return res, self._next_state(res, image_size)
 
     @property
@@ -707,7 +719,9 @@ class MultiFaceTracker(_TrackerBase):
             res = _tracked_stages(c, images, rois, valid, image_size)
             return res, self._lost(locked, valid, res)[1]
 
-        res, ok = programs.cond(use_full, full, tracked, (images, *state))
+        res, ok = programs.cond(use_full, _labelled("track.full", full),
+                                _labelled("track.tracked", tracked),
+                                (images, *state))
         lost = ~use_full & self._lost(state.locked, state.valid, res)[0]
         return (res, ok), lost
 
@@ -724,7 +738,8 @@ class MultiFaceTracker(_TrackerBase):
                                   image_size)
             return self._repaired(res, ok, sub, sel, take)
 
-        res, locked = programs.cond(take.any(), repair,
+        res, locked = programs.cond(take.any(),
+                                    _labelled("track.repair", repair),
                                     lambda res, ok, *_: (res, ok),
                                     (*staged, sel, take))
         return res, self._next_state(res, locked, image_size)
