@@ -797,13 +797,27 @@ def launch_counts():
             "fused_dw_pw_block_f32": fused_block.LAUNCHES,
             "fused_dw_pw_block_bf16": fused_block.BF16_LAUNCHES,
             "warp_strips_staged_fused": warp.STAGED_LAUNCHES["fused"],
-            "warp_strips_staged_split": warp.STAGED_LAUNCHES["split"]}
+            "warp_strips_staged_split": warp.STAGED_LAUNCHES["split"],
+            "conv_epilogue": ce.LAUNCHES}
 
 
 def reset_counts():
     warp.LAUNCHES = warp.STRIP_LAUNCHES = 0
     fused_block.LAUNCHES = fused_block.BF16_LAUNCHES = 0
     warp.STAGED_LAUNCHES.update(fused=0, split=0)
+    ce.LAUNCHES = 0
+
+
+def epilogues(*nets):
+    """The convolution epilogue launches of one forward of each of
+    ``nets``: one a chain (a bf16 net has none)."""
+    return sum(len(net.chains) for net in nets)
+
+
+def cascade_epilogues(cascade):
+    """The epilogue launches of one call of ``cascade`` (a FaceCascade or
+    an EmbedCascade): one forward of each of its nets."""
+    return epilogues(*(getattr(cascade, n) for n in cascade._net_names))
 
 
 def only(**launches):
@@ -938,7 +952,80 @@ def phase_kernels(rng):
     assert n == only(warp_bilinear_strips=1), n
     del planes, frames
     errs.update(phase_fused_blocks())
+    for label, args in epilogue_cases(rng):
+        check_epilogue(label, *args)
     return errs
+
+
+def epilogue_cases(rng):
+    """The convolution epilogue's operands at the main path's shapes:
+    [(label, (y, bias, skip, alpha, act, skip_first))], normal noise on
+    the card: the iris net's 256x64x32x32 NCHW (a flat pass over planes),
+    the mesh net's 128x16x96x96 channels_last (over pixels), and the iris
+    net's mixed chain (y channels_last from cuDNN's 1x1, the skip NCHW
+    and half as wide, the skip the ADD's first operand: the tiled
+    kernel), each with a skip and PRELU."""
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda()
+
+    cl = torch.channels_last
+    cases = []
+    for label, (b, c, cs, h), y_cl, s_cl, first in (
+            ("iris 256x64x32x32 NCHW", (256, 64, 64, 32), False, False,
+             False),
+            ("mesh 128x16x96x96 channels_last", (128, 16, 16, 96), True,
+             True, False),
+            ("iris 256x64x32x32 y channels_last, skip NCHW 32 wide",
+             (256, 64, 32, 32), True, False, True)):
+        y, skip = normal(b, c, h, h), normal(b, cs, h, h)
+        if y_cl:
+            y = y.contiguous(memory_format=cl)
+        if s_cl:
+            skip = skip.contiguous(memory_format=cl)
+        cases.append((label, (y, normal(c), skip, normal(c), "PRELU",
+                              first)))
+    return cases
+
+
+def check_epilogue(label, y, bias, skip, alpha, act, first):
+    """The convolution epilogue kernel against its plain version (ATen's
+    op-by-op sequence on the card) on one case: one launch, bit-equal
+    values and the same strides."""
+    got, n = counted(lambda: ce.conv_epilogue(y, bias, skip, alpha, act,
+                                              first))
+    assert n == only(conv_epilogue=1), (label, n)
+    want = ce.conv_epilogue_plain(y, bias, skip, alpha, ce.ACTS[act], first)
+    equal = bool(torch.equal(got, want))
+    print(f"conv_epilogue {label}: bit-equal with the op-by-op sequence "
+          f"{equal}, strides {got.stride()}", flush=True)
+    assert equal and got.stride() == want.stride(), label
+
+
+def time_epilogue(cases):
+    """The convolution epilogue over ``cases`` (``epilogue_cases``), all in
+    one timed call: its time, the plain version's (ATen's op-by-op
+    sequence) and its bound, the bytes of y and the skip read and the
+    output written once at the card's bandwidth."""
+    def kernel():
+        for _, args in cases:
+            ce.conv_epilogue(*args)
+
+    def plain():
+        for _, (y, bias, skip, alpha, act, first) in cases:
+            ce.conv_epilogue_plain(y, bias, skip, alpha, ce.ACTS[act], first)
+
+    kernel_ms, _ = median_ms(kernel, reps=20)
+    plain_ms, _ = median_ms(plain, reps=5)
+    kernel_dev = queued_ms(kernel)
+    # y, bias, skip and alpha read once, the output (y's size) written
+    nbytes = sum(4 * (2 * y.numel() + bias.numel() + skip.numel()
+                      + alpha.numel())
+                 for _, (y, bias, skip, alpha, _, _) in cases)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "device_ms": kernel_dev, "library_device_ms": None,
+            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bound_bytes": nbytes}
 
 
 def fused_entry(dtype):
@@ -1248,7 +1335,8 @@ def phase_cascade(dtype=torch.float32):
     # the detector's residual runs: one fused launch per layer chunk of
     # the wrapper's tiling plan (for the nets' type), per infer_batch, on
     # the entry point of that type
-    fused = {fused_entry(dtype): cascade._det_net.fused_launches()}
+    fused = {fused_entry(dtype): cascade._det_net.fused_launches(),
+             "conv_epilogue": cascade_epilogues(cascade)}
     canvases = {"a": (canvas_1080p(load_image), 1,
                       only(warp_bilinear_strips=2, **fused)),
                 "b": (canvas_two_faces(load_image), 2,
@@ -1271,7 +1359,7 @@ def phase_cascade(dtype=torch.float32):
           f"rotated-frame and {len(canvases)} canvas infer_batch calls, "
           f"each a first call at its geometry ({capture_runs()} runs of "
           f"_forward: the warm-ups and the capture; {fused} fused-block "
-          f"launches planned per run)")
+          f"and epilogue launches planned per run)")
 
     cpu = {k: FaceCascade(device="cpu", max_faces=k, compute_dtype=dtype)
            for k in cascades}
@@ -1313,7 +1401,8 @@ def phase_cascade_gather():
     gather = FaceCascade(warp_method="gather")
     kernels = FaceCascade()
     assert (gather.warp_method, kernels.warp_method) == ("gather", "pallas")
-    fused = only(fused_dw_pw_block_f32=gather._det_net.fused_launches())
+    fused = only(fused_dw_pw_block_f32=gather._det_net.fused_launches(),
+                 conv_epilogue=cascade_epilogues(gather))
     reset_counts()
     results = {size: run_cascade(gather, batch, fused)
                for size, batch in batches.items()}
@@ -1411,7 +1500,9 @@ def phase_models(dtype=torch.float32):
     cpu = (tmodels.FaceDetection(back, device="cpu", compute_dtype=dtype),
            tmodels.FaceLandmark(device="cpu", compute_dtype=dtype),
            tmodels.IrisLandmark(device="cpu", compute_dtype=dtype))
-    fused = {fused_entry(dtype): card[0]._net.fused_launches()}
+    fused = {fused_entry(dtype): card[0]._net.fused_launches(),
+             "conv_epilogue": epilogues(card[0]._net, card[1]._net,
+                                        card[2]._net, card[2]._net)}
     frames = {name: load_image(ROT / name) for name in GT}
     canvas = canvas_1080p(load_image)
     strip_types = []
@@ -1526,13 +1617,17 @@ def phase_full_detectors():
                 warps = int(image_ops.letterbox_two_stage_params(
                     size, (det.in_w, det.in_h)) is None)
                 found[m, name], n = counted(lambda: det.infer(img))
-                assert n == only(warp_bilinear=warps), (m, name, n)
+                assert n == only(warp_bilinear=warps,
+                                 conv_epilogue=epilogues(det._net)), (
+                    m, name, n)
     cards = {label: FaceCascade(m, max_faces=k)
              for label, (m, k, _) in cascades.items()}
     results = {}
     for label, (_, _, images) in cascades.items():
-        results[label] = run_cascade(cards[label], images,
-                                     only(warp_bilinear=2))
+        results[label] = run_cascade(
+            cards[label], images,
+            only(warp_bilinear=2,
+                 conv_epilogue=cascade_epilogues(cards[label])))
     launches = launch_counts()
     print(f"launches of the full-range detectors: {launches} for "
           f"{len(card) * len(frames)} FaceDetection.infer calls and "
@@ -1580,6 +1675,8 @@ def phase_mxu():
             tmodels.IrisLandmark(warp_method="mxu"))
     cascade = FaceCascade(warp_method="mxu")
     fused = card[0]._net.fused_launches()
+    chained = epilogues(card[0]._net, card[1]._net, card[2]._net,
+                        card[2]._net)
     frames = {name: load_image(ROT / name) for name in GT
               if name != "man_closeup_rotp30.png"}
     batch = np.stack([frames[n] for n in FRAMES_540])
@@ -1589,8 +1686,11 @@ def phase_mxu():
         for name, img in frames.items():
             chains[name], n = counted(lambda: chain(card, img,
                                                     GT[name]["size"]))
-            assert n == only(fused_dw_pw_block_f32=fused), (name, n)
-    res = run_cascade(cascade, batch, only(fused_dw_pw_block_f32=fused))
+            assert n == only(fused_dw_pw_block_f32=fused,
+                             conv_epilogue=chained), (name, n)
+    res = run_cascade(cascade, batch, only(
+        fused_dw_pw_block_f32=fused,
+        conv_epilogue=cascade_epilogues(cascade)))
     launches = launch_counts()
     print(f"launches of the mxu paths: {launches} for {len(frames)} "
           f"standalone chains and one cascade call", flush=True)
@@ -1896,7 +1996,8 @@ def phase_embed(trace):
     reset_counts()
     res = {}
     for dt in (f32, bf16):
-        want = only(**{fused_entry(dt): fused[dt]})
+        want = only(**{fused_entry(dt): fused[dt]},
+                    conv_epilogue=cascade_epilogues(cas[dt]))
         for size, batch in batches.items():
             res[dt, size], n = counted(
                 lambda: cas[dt].infer_batch(batch))
@@ -1905,15 +2006,18 @@ def phase_embed(trace):
         assert n == want, (str(dt), "canvas (c)", n, want)
         res[dt, "infer_batch"], n = counted(
             lambda: emb[dt].infer_batch(four, boxes))
-        assert n == only(), (str(dt), "infer_batch", n)
+        assert n == only(conv_epilogue=epilogues(emb[dt]._net)), (
+            str(dt), "infer_batch", n)
     res["embed_boxes"], n = counted(
         lambda: emb[f32].embed_boxes(four, meshes, as_numpy=False))
-    assert n == only(), ("embed_boxes", n)
+    assert n == only(conv_epilogue=epilogues(emb[f32]._net)), (
+        "embed_boxes", n)
     launches = launch_counts()
     print(f"launches of the identification path: {launches} for "
           f"{len(batches) + 1} EmbedCascade calls per dtype ({fused[f32]} "
           f"f32 and {fused[bf16]} bf16 fused launches per call, no warp "
-          f"kernel) and 3 FaceEmbeddings calls (none)", flush=True)
+          f"kernel) and 3 FaceEmbeddings calls (the f32 embedding net's "
+          f"epilogues only)", flush=True)
 
     cpu = EmbedCascade(embed_model_path=demo, device="cpu")
     cpu4 = EmbedCascade(embed_model_path=demo, device="cpu", max_faces=4)
@@ -2005,11 +2109,13 @@ def phase_embed(trace):
     numbers = {}
     for key, dt in (("", f32), ("_bf16", bf16)):
         want = {fused_entry(dt): fused[dt]}
+        face = FaceCascade(compute_dtype=dt)
         numbers[f"embed_cascade{key}_b{b}"] = {
-            **throughput(cas[dt], batch, only(**want), reps=10),
-            "face_cascade": throughput(FaceCascade(compute_dtype=dt), batch,
-                                       only(warp_bilinear=2, **want),
-                                       reps=10)}
+            **throughput(cas[dt], batch, only(
+                **want, conv_epilogue=cascade_epilogues(cas[dt])), reps=10),
+            "face_cascade": throughput(face, batch, only(
+                warp_bilinear=2, **want,
+                conv_epilogue=cascade_epilogues(face)), reps=10)}
     for key in ("", "_bf16"):
         row = numbers[f"embed_cascade{key}_b{b}"]
         print(f"EmbedCascade{key} 540x360 b{b}: "
@@ -2071,9 +2177,13 @@ def phase_tracker():
     frames = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
     card = tracking.FaceTracker()
     fused = card.cascade._det_net.fused_launches()
-    full = only(warp_bilinear=2, fused_dw_pw_block_f32=fused)
-    locked = only(warp_bilinear=2)
-    repair = only(warp_bilinear=4, fused_dw_pw_block_f32=fused)
+    chained = cascade_epilogues(card.cascade)
+    tracked = epilogues(card.cascade._mesh_net, card.cascade._iris_net)
+    full = only(warp_bilinear=2, fused_dw_pw_block_f32=fused,
+                conv_epilogue=chained)
+    locked = only(warp_bilinear=2, conv_epilogue=tracked)
+    repair = only(warp_bilinear=4, fused_dw_pw_block_f32=fused,
+                  conv_epilogue=chained + tracked)
     steps = [(tracker_frames(frames, i, 8, (2,) if i == 2 else ()), want)
              for i, want in enumerate((full, locked, repair, repair,
                                        locked))]
@@ -2081,9 +2191,10 @@ def phase_tracker():
     hires = [(np.stack([np.roll(canvas, 8 * i + 4 * s, axis=1)
                         for s in range(2)]), want)
              for i, want in enumerate((
-                 only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused),
-                 only(warp_bilinear_strips=2),
-                 only(warp_bilinear_strips=2)))]
+                 only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused,
+                      conv_epilogue=chained),
+                 only(warp_bilinear_strips=2, conv_epilogue=tracked),
+                 only(warp_bilinear_strips=2, conv_epilogue=tracked)))]
     cards = (card, tracking.FaceTracker())
     reset_counts()
     cpu = tracking.FaceTracker(device="cpu")
@@ -2152,15 +2263,17 @@ def close(got, want, tol, label):
     return worst
 
 
-# the kernels line's entry of each warp operator
+# the kernels line's entry of each warp and epilogue operator
 GRAPH_OPS = {"warp_bilinear_segments": "warp_bilinear",
-             "warp_bilinear_strips": "warp_bilinear_strips"}
+             "warp_bilinear_strips": "warp_bilinear_strips",
+             "conv_epilogue": "conv_epilogue"}
 
 
 def graph_launches(prog):
     """The kernel launches one call of a loaded program makes, read from
     its graph: one per warp operator node, one per chunk of each fused
-    run operator node (by its activations' type); and the fused nodes."""
+    run operator node (by its activations' type), one per epilogue
+    operator node; and the fused nodes."""
     counts = dict.fromkeys(SOURCES, 0)
     runs = 0
     for program in prog.programs.values():
@@ -2236,18 +2349,27 @@ def aot_cases(frames, hires, fused):
     phases: FaceCascade f32 and bf16 at 540x360 batch 8 (``frames``), f32
     at 1920x1080 planar batch 4 (``hires``: the strip kernel) and
     EmbedCascade f32 (demo graph) at 540x360 batch 8; ``fused`` the BACK
-    detector's fused launches per forward by the nets' type."""
+    detector's fused launches per forward by the nets' type.  The f32
+    nets' epilogue launches are their chains' (81 for a FaceCascade: 5
+    detector, 23 mesh, 53 iris); the bf16 nets have none."""
     f32, bf16 = torch.float32, torch.bfloat16
     make = cascade_makers()
+    chained = {label: cascade_epilogues(make[label]())
+               for label in ("cascade_f32_540p_b8",
+                             "embed_cascade_f32_540p_b8")}
+    assert chained["cascade_f32_540p_b8"] == 81, chained
     want = {
         "cascade_f32_540p_b8": (frames, only(
-            warp_bilinear=2, fused_dw_pw_block_f32=fused[f32])),
+            warp_bilinear=2, fused_dw_pw_block_f32=fused[f32],
+            conv_epilogue=chained["cascade_f32_540p_b8"])),
         "cascade_bf16_540p_b8": (frames, only(
             warp_bilinear=2, fused_dw_pw_block_bf16=fused[bf16])),
         "cascade_f32_1080p_planar_b4": (hires, only(
-            warp_bilinear_strips=2, fused_dw_pw_block_f32=fused[f32])),
+            warp_bilinear_strips=2, fused_dw_pw_block_f32=fused[f32],
+            conv_epilogue=chained["cascade_f32_540p_b8"])),
         "embed_cascade_f32_540p_b8": (frames, only(
-            fused_dw_pw_block_f32=fused[f32]))}
+            fused_dw_pw_block_f32=fused[f32],
+            conv_epilogue=chained["embed_cascade_f32_540p_b8"]))}
     return {label: (make[label], *v) for label, v in want.items()}
 
 
@@ -2682,6 +2804,7 @@ def phase_sharded():
     batch = torch.from_numpy(np.tile(four, (b // 4, 1, 1, 1))).cuda()
     cascade = FaceCascade()
     fused = cascade._det_net.fused_launches()
+    chained = cascade_epilogues(cascade)
     track = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
     steps = [torch.from_numpy(tracker_frames(track, i, 8,
                                              (2,) if i == 2 else ())).cuda()
@@ -2692,7 +2815,8 @@ def phase_sharded():
     for label, mesh in meshes.items():
         out, n = counted(lambda: infer_sharded(cascade, batch, mesh))
         assert n == only(warp_bilinear=2 * len(mesh),
-                         fused_dw_pw_block_f32=fused * len(mesh)), (label, n)
+                         fused_dw_pw_block_f32=fused * len(mesh),
+                         conv_epilogue=chained * len(mesh)), (label, n)
         diff = close(out, ref, SHARD_TOL, f"infer_sharded {label}")
         single, sharded = tracking.FaceTracker(), tracking.FaceTracker()
         worst = 0.0
@@ -3002,9 +3126,24 @@ def phase_numbers(rng, trace, sweep=False):
     size = (540, 360)
     cascade = FaceCascade()
     fused = cascade._det_net.fused_launches()
+    chained = cascade_epilogues(cascade)
     bf16 = torch.bfloat16
     cascade16 = FaceCascade(compute_dtype=bf16)
     fused16 = cascade16._det_net.fused_launches()
+
+    # the convolution epilogue at the main path's shapes, together and
+    # one by one
+    cases = epilogue_cases(rng)
+    timed["conv_epilogue"] = time_epilogue(cases)
+    numbers["conv_epilogue"] = {"all": timed["conv_epilogue"],
+                                **{label: time_epilogue([(label, args)])
+                                   for label, args in cases}}
+    for label, row in numbers["conv_epilogue"].items():
+        print(f"conv_epilogue {label}: {row['device_ms']:.4f} ms device, "
+              f"{row['bound_ms']:.4f} ms bytes bound "
+              f"({100 * row['bound_ms'] / row['device_ms']:.1f}%), op by "
+              f"op {row['plain_ms']:.4f} ms", flush=True)
+    del cases
 
     # the fused block at the main path's shapes (the BACK detector's four
     # runs at batch 64, together and one by one; the bf16 detector's in
@@ -3125,8 +3264,8 @@ def phase_numbers(rng, trace, sweep=False):
         hbatch = hires_batch(canvas, b, rng)
         numbers[f"cascade_{label}_b{b}"] = throughput(
             planar, hbatch,
-            only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused),
-            reps=5)
+            only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused,
+                 conv_epilogue=chained), reps=5)
         numbers[f"cascade_bf16_{label}_b{b}"] = throughput(
             planar16, hbatch,
             only(warp_bilinear_strips=2, fused_dw_pw_block_bf16=fused16),
@@ -3163,7 +3302,8 @@ def phase_numbers(rng, trace, sweep=False):
     multi = FaceCascade(max_faces=4)
     grid = torch.from_numpy(np.stack([canvas_grid(load_image)] * b)).cuda()
     res, n = counted(lambda: multi(grid))
-    assert n == only(warp_bilinear=2, fused_dw_pw_block_f32=fused), n
+    assert n == only(warp_bilinear=2, fused_dw_pw_block_f32=fused,
+                     conv_epilogue=chained), n
     faces = int(res.mesh_valid.sum())
     assert faces == 4 * b, faces
     ms, windows = median_ms(lambda: multi(grid), reps=5)
@@ -3336,7 +3476,9 @@ GRAPH_BATCHES = (1, 8, 64, 128)
 KERNEL_FUNCS = {"warp_bilinear": "warp_bilinear_kernel",
                 "warp_bilinear_strips": "warp_bilinear_strips_kernel",
                 "fused_dw_pw_block_f32": "fused_blocks_kernel",
-                "fused_dw_pw_block_bf16": "fused_blocks_bf16_kernel"}
+                "fused_dw_pw_block_bf16": "fused_blocks_bf16_kernel",
+                # epilogue_kernel and epilogue_kernel_tiled
+                "conv_epilogue": "epilogue_kernel"}
 
 
 def kernels_in(names):
@@ -3498,13 +3640,17 @@ def phase_graphs(trace, exec_numbers):
     found = {}
     for label, obj, x, want in (
             ("f32_540p_b8", f32_cascade, x8,
-             {"warp_bilinear", "fused_dw_pw_block_f32"}),
+             {"warp_bilinear", "fused_dw_pw_block_f32", "conv_epilogue"}),
             ("bf16_540p_b8", FaceCascade(compute_dtype=torch.bfloat16), x8,
              {"warp_bilinear", "fused_dw_pw_block_bf16"}),
-            ("f32_1080p_b64", planar, hires, {"warp_bilinear_strips"})):
+            ("f32_1080p_b64", planar, hires,
+             {"warp_bilinear_strips", "conv_epilogue"})):
         names = replay_kernels(obj, x, label, trace)
         found[label] = kernels_in(names)
         assert want <= set(found[label]), (label, want, sorted(names))
+        # one epilogue launch a chain of the f32 nets, none in bf16
+        assert found[label].get("conv_epilogue", 0) == cascade_epilogues(
+            obj), (label, found[label])
         print(f"replay {label}: {sum(names.values())} kernel launches "
               f"({len(names)} kernels by name), the hand-written ones "
               f"{found[label]}", flush=True)
@@ -3744,6 +3890,14 @@ def phase_tracker_program(trace):
                     warps, detector = STEP_KERNELS[branch]
                     assert found.get("warp_bilinear") == warps, (
                         label, branch, found)
+                    # the mesh and iris nets once per two warps, the
+                    # detector where it runs
+                    nets = tracker.cascade
+                    chained = (warps // 2 * epilogues(nets._mesh_net,
+                                                      nets._iris_net)
+                               + detector * epilogues(nets._det_net))
+                    assert found.get("conv_epilogue", 0) == chained, (
+                        label, branch, found)
                     want = (tracker.cascade._det_net.fused_launches()
                             if detector else None)
                     assert found.get(fused) == want, (label, branch, found)
@@ -3813,7 +3967,8 @@ BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
          "fused": 64, "k3": 256, "strip_dma": 64, "track": 64}
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
-           "fused_dw_pw_block_bf16", "warp_strips_staged", "graph_cond")
+           "fused_dw_pw_block_bf16", "warp_strips_staged", "graph_cond",
+           "conv_epilogue")
 # the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
@@ -3828,13 +3983,17 @@ SOURCES = {
                                  "tpu_face/ops/pallas_warp.py:249"),
     "warp_strips_staged_split": ("tpu_face_torch/csrc/warp_strips_staged.cu",
                                  "tools/tpu_strip_dma_probe.py:59"),
+    # no Pallas kernel: XLA fuses the bias, ADD and PReLU into the
+    # convolution on the TPU
+    "conv_epilogue": ("tpu_face_torch/csrc/conv_epilogue.cu",
+                      "tpu_face/compiler/lowering.py:232"),
 }
 
 
 def import_port():
     """The port's modules as this module's globals, once the repository
     is on sys.path (the helpers above use them)."""
-    global _build, image_ops, warp, fused_block, FaceCascade, exact_f32
+    global _build, image_ops, warp, fused_block, ce, FaceCascade, exact_f32
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
@@ -3852,6 +4011,7 @@ def import_port():
     from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
     from tpu_face_torch.models.face_embeddings import l2_normalize
     from tpu_face_torch.ops import _build, fused_block, geometry
+    from tpu_face_torch.ops import conv_epilogue as ce
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
     from tpu_face_torch.parallel import (data_parallel_mesh, infer_sharded,
@@ -3943,35 +4103,41 @@ def main(argv=None):
     numbers.update(more_numbers)
     timed.update(more_timed)
     paths["bench"], numbers["bench"] = phase_bench(smi)
-    # the bf16 paths run the bf16 kernel and never the f32 one
+    # the bf16 paths run the bf16 kernel and never the f32 one, and no
+    # epilogue
     for counts in (paths["cascade_bf16"], models["bf16"]):
         assert counts["fused_dw_pw_block_f32"] == 0, counts
         assert counts["fused_dw_pw_block_bf16"] > 0, counts
+        assert counts["conv_epilogue"] == 0, counts
     for name in ("warp_bilinear", "warp_bilinear_strips",
-                 "fused_dw_pw_block_f32"):
+                 "fused_dw_pw_block_f32", "conv_epilogue"):
         assert models["f32"][name] > 0, (name, models["f32"])
         assert paths["tracker"][name] > 0, (name, paths["tracker"])
     # the step programs' captures launch the f32 and the bf16 path's
     # kernels
     for name in ("warp_bilinear", "fused_dw_pw_block_f32",
-                 "fused_dw_pw_block_bf16"):
+                 "fused_dw_pw_block_bf16", "conv_epilogue"):
         assert paths["tracker_program"][name] > 0, (name, paths)
-    # the exported programs and the executables launch the four kernels
+    # the exported programs and the executables launch the five kernels
     # of the package's path
     for name in ("warp_bilinear", "warp_bilinear_strips",
-                 "fused_dw_pw_block_f32", "fused_dw_pw_block_bf16"):
+                 "fused_dw_pw_block_f32", "fused_dw_pw_block_bf16",
+                 "conv_epilogue"):
         for key in ("aot", "aot_executable"):
             assert paths[key][name] > 0, (name, key, paths[key])
     # the full-range nets have no fused run; mxu launches no warp kernel
-    assert paths["full_detectors"] == only(
-        warp_bilinear=paths["full_detectors"]["warp_bilinear"]), paths
+    full = paths["full_detectors"]
+    assert full == only(warp_bilinear=full["warp_bilinear"],
+                        conv_epilogue=full["conv_epilogue"]), paths
     assert paths["mxu"] == only(
-        fused_dw_pw_block_f32=paths["mxu"]["fused_dw_pw_block_f32"]), paths
-    # identification: the detector's fused kernels only, no warp kernel
+        fused_dw_pw_block_f32=paths["mxu"]["fused_dw_pw_block_f32"],
+        conv_epilogue=paths["mxu"]["conv_epilogue"]), paths
+    # identification: the detector's fused kernels and the f32 nets'
+    # epilogues only, no warp kernel
     assert paths["embed"] == only(
         fused_dw_pw_block_f32=paths["embed"]["fused_dw_pw_block_f32"],
-        fused_dw_pw_block_bf16=paths["embed"]["fused_dw_pw_block_bf16"]), \
-        paths
+        fused_dw_pw_block_bf16=paths["embed"]["fused_dw_pw_block_bf16"],
+        conv_epilogue=paths["embed"]["conv_epilogue"]), paths
     numbers["path_launches"] = paths
     numbers["models_launches"] = models
     numbers["device"] = smi

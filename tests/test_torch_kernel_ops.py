@@ -10,9 +10,11 @@ tpu_face_torch/ops/fused_block.py), on the CPU.
 * ``torch.export`` of a CPU ``FaceCascade(warp_method="pallas")`` holds
   the operator nodes the card's program launches: at 540x360 f32, 2 K1
   nodes and the BACK detector's 4 runs, whose ``chunks`` add up to its 13
-  fused launches; with bf16 nets, 4 runs adding up to 8; at 1920x1080
-  planar (bf16 planes), 2 K2 nodes.  The JAX package's numbers are its
-  own; these counts are the port's plan (``TFLiteNet.fused_launches``).
+  fused launches, and one convolution epilogue node for each of the f32
+  nets' 81 chains; with bf16 nets, 4 runs adding up to 8 and no
+  epilogue; at 1920x1080 planar (bf16 planes), 2 K2 nodes.  The JAX
+  package's numbers are its own; these counts are the port's plan
+  (``TFLiteNet.fused_launches``).
 * An export leaves the live cascade on the operators (the lowering's
   run bookkeeping survives the tracer's copies of its containers), and
   with the profiling labels on it neither fails nor leaves profiler
@@ -189,6 +191,12 @@ def cascades():
 def test_export_holds_the_kernel_operators_540p(cascades, dtype, launches):
     cascade = cascades[dtype]
     nodes = _kernel_nodes(_exported(cascade, (540, 360), batch=2))
+    # one epilogue a chain of the f32 nets (the detector's 5, the mesh's
+    # 23, the iris's 53); a bf16 net has none
+    epilogues = nodes.pop("conv_epilogue", [])
+    assert len(epilogues) == (81 if dtype == torch.float32 else 0)
+    assert len(epilogues) == sum(len(getattr(cascade, n).chains)
+                                 for n in cascade._net_names)
     assert set(nodes) == {"warp_bilinear_segments", "fused_blocks"}
     assert len(nodes["warp_bilinear_segments"]) == 2
     # the mesh grid as one segment, both iris grids as two
@@ -207,6 +215,7 @@ def test_export_holds_the_strip_operator_1080p_planar():
     nodes = _kernel_nodes(_exported(cascade, (1920, 1080)))
     assert len(nodes.pop("warp_bilinear_strips")) == 2
     assert sum(len(a[3]) for a in nodes.pop("fused_blocks")) == 13
+    assert len(nodes.pop("conv_epilogue")) == 81
     assert nodes == {}
 
 

@@ -29,6 +29,10 @@ Runs of identity-skip residual blocks (3x3 depthwise, C -> C 1x1, the
 skip ADD, RELU: the body of the BlazeFace detectors) are found once at
 construction (``_residual_runs``) and each runs as one call of
 ``ops.fused_block.fused_blocks``, a hand-written CUDA kernel on the card.
+In an f32 net every other dense convolution ends in one call of
+``ops.conv_epilogue.conv_epilogue``, which applies its bias, the residual
+ADD that follows it (the skip's channel PAD absorbed) and the activation
+in one pass (``_epilogue_chains``; a hand-written CUDA kernel on the card).
 
 ``compute_dtype=torch.bfloat16`` runs the net in bf16 as
 ``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
@@ -44,7 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import fused_block
+from ..ops import conv_epilogue, fused_block
+from ..utils import profiling
 
 # elementwise ops of two operands: {op: fn}
 _BINARY = {"ADD": torch.add, "SUB": torch.sub, "MUL": torch.mul,
@@ -347,6 +352,93 @@ def _chains(prev, block, users, graph_outputs):
             and len(users[t]) == 2)
 
 
+def _epilogue_at(conv, users, producers, consts, tensors, graph_outputs):
+    """The epilogue chain that starts at CONV_2D ``conv``, as {"ops":
+    [conv, ...], "conv", "skip", "skip_first", "act", "alpha", "output"}
+    ("skip_first": the skip is the ADD's first operand), or None where
+    the conv's own activation is none of NONE, RELU, RELU6 or where the
+    chain would hold the conv alone with no activation (its bias is left
+    to ``F.conv2d``: with such chains, Inductor's Triton 3.6 failed to
+    compile the f32 ``FaceCascade`` as an AOTInductor executable, at the
+    detector heads' decode).  The chain takes, while the tensor it ends at is no graph output and has exactly
+    one user: one ADD (activation NONE, RELU or RELU6) whose other operand
+    is an activation of the conv output's shape, or the output of a PAD
+    that only appends zero channels, has that ADD as its only user and is
+    absorbed (``skip`` is then the PAD's input); then one activation, the
+    conv's or the ADD's own RELU/RELU6, or a following PRELU (one alpha a
+    channel) or RELU op."""
+    o = conv["options"]
+    if conv["op"] != "CONV_2D" or o["activation"] not in ("NONE", "RELU",
+                                                          "RELU6"):
+        return None
+    c = np.shape(consts[conv["inputs"][1]])[0]
+    chain = {"ops": [conv], "conv": conv, "skip": None, "skip_first": False,
+             "act": o["activation"], "alpha": None,
+             "output": conv["outputs"][0]}
+
+    def only_user(t):
+        u = users.get(t, [])
+        return u[0] if len(u) == 1 and t not in graph_outputs else None
+
+    def shape(t):
+        return list(tensors[t]["shape"])
+
+    nxt = only_user(chain["output"]) if chain["act"] == "NONE" else None
+    if (nxt is not None and nxt["op"] == "ADD" and len(nxt["inputs"]) == 2
+            and nxt["options"]["activation"] in ("NONE", "RELU", "RELU6")
+            and nxt["inputs"].count(chain["output"]) == 1):
+        (other,) = [t for t in nxt["inputs"] if t != chain["output"]]
+        out_shape = shape(chain["output"])
+        if (other not in consts and len(out_shape) == 4
+                and shape(other) == out_shape):
+            pad = producers.get(other)
+            if pad is not None and pad["op"] == "PAD" and only_user(
+                    other) is nxt and pad["inputs"][1] in consts:
+                spec = np.asarray(consts[pad["inputs"][1]]).tolist()
+                narrow = shape(pad["inputs"][0])
+                if (spec[:3] == [[0, 0]] * 3 and spec[3][0] == 0
+                        and spec[3][1] > 0
+                        and narrow == out_shape[:3] + [c - spec[3][1]]):
+                    chain["ops"].append(pad)
+                    other = pad["inputs"][0]
+            chain["ops"].append(nxt)
+            chain.update(skip=other, act=nxt["options"]["activation"],
+                         output=nxt["outputs"][0],
+                         skip_first=nxt["inputs"][0] != chain["output"])
+    if chain["act"] == "NONE":
+        nxt = only_user(chain["output"])
+        if (nxt is not None and nxt["op"] == "PRELU"
+                and nxt["inputs"][1] in consts
+                and np.size(consts[nxt["inputs"][1]]) == c):
+            chain.update(act="PRELU", alpha=nxt["inputs"][1])
+        elif nxt is not None and nxt["op"] == "RELU":
+            chain["act"] = "RELU"
+        else:
+            return chain if len(chain["ops"]) > 1 else None
+        chain["ops"].append(nxt)
+        chain["output"] = nxt["outputs"][0]
+    return chain
+
+
+def _epilogue_chains(ops, consts, tensors, graph_outputs, taken=()):
+    """The epilogue chain (``_epilogue_at``) of every CONV_2D of ``ops``
+    whose position is not in ``taken`` (the ops of the residual runs) and
+    whose chain holds no op of ``taken``, in op order."""
+    users = _consumers(ops)
+    producers = {t: node for node in ops for t in node["outputs"]}
+    pos = {id(node): i for i, node in enumerate(ops)}
+    chains = []
+    for i, node in enumerate(ops):
+        if node["op"] != "CONV_2D" or i in taken:
+            continue
+        chain = _epilogue_at(node, users, producers, consts, tensors,
+                             graph_outputs)
+        if chain is not None and not any(pos[id(n)] in taken
+                                         for n in chain["ops"]):
+            chains.append(chain)
+    return chains
+
+
 def params_from_consts(ops, consts):
     """The graph's float constants as the module's tensors: conv weights
     OHWI -> OIHW, depthwise ``[1, kh, kw, C]`` -> ``[C, 1, kh, kw]``
@@ -522,10 +614,25 @@ class TFLiteNet(nn.Module):
     sum is rounded twice, as in JAX (``F.conv2d`` with the bias would
     round once on some backends and twice on others).  The residual runs
     get bf16 activations: the kernel's bf16 entry point on the card.  The
-    f32 path is unchanged by the option."""
+    f32 path is unchanged by the option.
+
+    With ``fuse_epilogues`` (the default) an f32 net runs each chain that
+    starts at a CONV_2D outside the residual runs (``_epilogue_chains``:
+    the conv's bias, a residual ADD whose skip may be a channel PAD, an
+    activation) as the convolution without its bias and one call of
+    ``ops.conv_epilogue.conv_epilogue``: the CUDA kernel on the card,
+    equal bit for bit to the op-by-op sequence there; on the CPU the same
+    ops, the bias added after the convolution (oneDNN adds it inside, so
+    the two paths differ there by the bias add's f32 rounding).  The
+    chain runs where its last op stands.  ``epilogue_counts`` counts the
+    graph ops the chains hold, by op (``CONV_2D``: the chains), and the
+    counters ``nets.epilogue_chains`` and ``nets.epilogue_ops`` (the ops
+    absorbed into the epilogues) add them up over the nets built.  A bf16
+    net has no chains (its double roundings are the JAX package's), and
+    ``fuse_epilogues=False`` runs them op by op."""
 
     def __init__(self, graph, params=None, fuse_blocks=True,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, fuse_epilogues=True):
         super().__init__()
         for node in graph.ops:
             if node["op"] not in _SUPPORTED:
@@ -564,6 +671,26 @@ class TFLiteNet(nn.Module):
         # each run's tiling, planned once for the net's activations
         self.run_tilings = [fused_block.plan(c, h, w, layers, itemsize)
                             for c, h, w, layers in self.run_shapes]
+        taken = self._in_run | set(self._run_start)
+        self.chains = (_epilogue_chains(graph.ops, graph.consts,
+                                        graph.tensors, set(graph.outputs),
+                                        taken)
+                       if fuse_epilogues and compute_dtype == torch.float32
+                       else [])
+        # op index -> chain index for each chain's last op; indices of the
+        # others
+        self._chain_end = {max(pos[id(n)] for n in chain["ops"]): k
+                           for k, chain in enumerate(self.chains)}
+        self._in_chain = {pos[id(n)] for chain in self.chains
+                          for n in chain["ops"]} - set(self._chain_end)
+        self.epilogue_counts = {}
+        for chain in self.chains:
+            for n in chain["ops"]:
+                self.epilogue_counts[n["op"]] = (
+                    self.epilogue_counts.get(n["op"], 0) + 1)
+        profiling.count("nets.epilogue_chains", len(self.chains))
+        profiling.count("nets.epilogue_ops",
+                        sum(len(chain["ops"]) - 1 for chain in self.chains))
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)
@@ -593,11 +720,31 @@ class TFLiteNet(nn.Module):
             tiling=self.run_tilings[k],
             weights=tuple(getattr(self, n) for n in self._run_weights[k]))
 
-    def _conv(self, x, node, depthwise):
+    def _bias(self, node):
+        ins = node["inputs"]
+        return (getattr(self, f"t{ins[2]}")
+                if len(ins) > 2 and ins[2] >= 0 else None)
+
+    def _chain(self, k, env):
+        """Chain ``k``'s output: its convolution without the bias, then
+        its epilogue.  Its skip is 4-D, so ``env`` holds it NCHW, as
+        every 4-D activation."""
+        chain = self.chains[k]
+        conv = chain["conv"]
+        y = self._conv(env[conv["inputs"][0]], conv, False, epilogue=True)
+        return conv_epilogue.conv_epilogue(
+            y, self._bias(conv),
+            None if chain["skip"] is None else env[chain["skip"]],
+            None if chain["alpha"] is None else getattr(
+                self, f"t{chain['alpha']}"), chain["act"],
+            chain["skip_first"])
+
+    def _conv(self, x, node, depthwise, epilogue=False):
+        """The convolution ``node`` of NCHW x with its bias and activation,
+        or (``epilogue``) without either, for its chain's epilogue."""
         o, ins = node["options"], node["inputs"]
         w = getattr(self, f"t{ins[1]}")
-        b = (getattr(self, f"t{ins[2]}")
-             if len(ins) > 2 and ins[2] >= 0 else None)
+        b = None if epilogue else self._bias(node)
         stride = tuple(o["stride"])
         dilation = tuple(o.get("dilation", (1, 1)))
         (pt, pb), (pl, pr) = _window_pads(o["padding"], x.shape[2:],
@@ -613,7 +760,7 @@ class TFLiteNet(nn.Module):
                      groups=x.shape[1] if depthwise else 1)
         if bf16 and b is not None:
             y = y + b[:, None, None]
-        return _act(y, o["activation"])
+        return y if epilogue else _act(y, o["activation"])
 
     @staticmethod
     def _max_pool(x, o):
@@ -670,7 +817,12 @@ class TFLiteNet(nn.Module):
             return self._const(i, as_nchw)
 
         for i, node in enumerate(self.ops):
-            if i in self._in_run:
+            if i in self._in_run or i in self._in_chain:
+                continue
+            if i in self._chain_end:
+                k = self._chain_end[i]
+                env[self.chains[k]["output"]] = self._chain(k, env)
+                nchw.add(self.chains[k]["output"])
                 continue
             if i in self._run_start:
                 run = self.runs[self._run_start[i]]

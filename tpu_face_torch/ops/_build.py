@@ -66,9 +66,14 @@ _STAMP_OPEN_SIG = ((_P, _I64, _I, _P), _I)
 _STAMP_SIG = ((_P, _I, _P), _I)
 _STAMP_PAIR_SIG = ((_P, _P, _P), _I)
 
+# (y, bias, skip, alpha, out, batch, c, c_skip, hw, channels_last, act,
+#  stream) -> cudaError_t, the convolution epilogue's entry point
+_EPILOGUE_SIG = ((_P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
+    "conv_epilogue": {"conv_epilogue_f32": _EPILOGUE_SIG},
     "graph_cond": {"graph_if_begin": _IF_BEGIN_SIG,
                    "graph_if_end": _IF_END_SIG},
     "stage_stamp": {"stage_stamp_open": _STAMP_OPEN_SIG,
