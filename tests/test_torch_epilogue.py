@@ -6,6 +6,11 @@
   of a residual run, and none is a convolution alone with its bias; ``fuse_blocks=False`` gives the runs' 1x1
   convolutions chains of their own;
 * bf16 nets and ``fuse_epilogues=False`` have none;
+* an ADD of two single-user convolutions (a downsampling unit's conv
+  and its 1x1 shortcut) ends one chain, the later conv's, and the net
+  equals the op-by-op one; the two benchmark configurations' nets hold
+  81 chains absorbing 136 ops (``back_f32``) and 123 absorbing 142
+  (``full_sparse_k4_f32``);
 * the fused forward of every bundled f32 graph equals the op-by-op one
   within the f32 rounding of the bias add (oneDNN adds a bias inside the
   convolution, the epilogue after it), in either input layout;
@@ -180,6 +185,61 @@ def test_chain_reads_a_skip_in_the_graph_layout(tmp_path, hwc, skip_first):
         (got,), (want,) = fused(x), plain(x)
     assert got.shape == want.shape == (3, *hwc)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _two_conv_add_graph(path, h, w, c):
+    """A downsampling unit's tail: x -> CONV_2D 3x3 (a) and x -> CONV_2D
+    1x1 stride 1 (b), each read by the ADD alone: ADD(a, b) -> RELU."""
+    rng = np.random.default_rng(c)
+    act = [1, h, w, c]
+    conv = {"stride": [1, 1], "dilation": [1, 1], "activation": "NONE"}
+    meta = {
+        "inputs": [0], "outputs": [8],
+        "tensors": [{"shape": s, "dtype": "float32"} for s in (
+            act, [c, 3, 3, c], [c], act, [c, 1, 1, c], [c], act, act,
+            act)],
+        "ops": [
+            {"op": "CONV_2D", "inputs": [0, 1, 2], "outputs": [3],
+             "options": dict(conv, padding="SAME")},
+            {"op": "CONV_2D", "inputs": [0, 4, 5], "outputs": [6],
+             "options": dict(conv, padding="VALID")},
+            {"op": "ADD", "inputs": [3, 6], "outputs": [7],
+             "options": {"activation": "NONE"}},
+            {"op": "RELU", "inputs": [7], "outputs": [8], "options": {}}]}
+    np.savez(path, __graph__=json.dumps(meta),
+             t1=rng.standard_normal((c, 3, 3, c), dtype=np.float32),
+             t2=rng.standard_normal(c, dtype=np.float32),
+             t4=rng.standard_normal((c, 1, 1, c), dtype=np.float32),
+             t5=rng.standard_normal(c, dtype=np.float32))
+    return Graph(path)
+
+
+def test_an_add_of_two_convs_ends_one_chain(tmp_path):
+    graph = _two_conv_add_graph(tmp_path / "g.npz", 6, 5, 8)
+    fused = TFLiteNet(graph).eval()
+    plain = TFLiteNet(graph, fuse_epilogues=False).eval()
+    # the ADD and its RELU go to the chain of the conv later in op order;
+    # the other conv runs with its bias and is the chain's skip
+    assert len(fused.chains) == 1
+    assert fused.chains[0]["conv"] is graph.ops[1]
+    assert fused.chains[0]["skip"] == 3
+    assert fused.epilogue_counts == {"CONV_2D": 1, "ADD": 1, "RELU": 1}
+    x = torch.randn(3, 6, 5, 8, generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        (got,), (want,) = fused(x), plain(x)
+    assert got.shape == want.shape == (3, 6, 5, 8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nets,chains,absorbed", [
+    (("face_detection_back", "face_landmark", "iris_landmark"), 81, 136),
+    (("face_detection_full_range_sparse", "face_landmark", "iris_landmark"),
+     123, 142)], ids=["back_f32", "full_sparse_k4_f32"])
+def test_benchmark_configurations_chains(nets, chains, absorbed):
+    # each configuration's three nets, as PERF.md counts them
+    got = [_graph_and_net(n)[1].chains for n in nets]
+    assert sum(len(c) for c in got) == chains
+    assert sum(len(ch["ops"]) - 1 for c in got for ch in c) == absorbed
 
 
 def _operands(seed, c=12, cs=8, cl=False):

@@ -1,0 +1,161 @@
+"""ArcFace's IR-ResNet-100 (``benchmark/models/iresnet.py``) on a CUDA card
+(each test skips without one; run on the card with ``python -m pytest
+tests/test_torch_iresnet_card.py -q``).
+
+* The full R100 graph gives bit-identical embeddings with its 99
+  epilogue chains on the kernel (one launch a chain) and op by op.
+* The f32 net at 64 and 128 crops a call stays within the
+  configuration's ``embedding_abs`` of the plain reference run in
+  blocks of 32 and of 128 crops (cuDNN picks its algorithms per shape);
+  the same net with TF32 allowed does not.
+* The benchmark's ``arcface_r100_k4_f32`` program (``EmbedCascade``,
+  FULL_SPARSE, K=4, f32) on gallery canvases is within every limit of
+  its configuration against the plain reference, and both controls, the
+  nets in bf16 and TF32 allowed in the f32 embedding net alone, fail
+  ``embedding_abs``.
+* Its stamped graph holds the ``detect``, ``nms``, ``embed_crop`` and
+  ``embed`` spans, which with the graph's self time sum to the graph's
+  span, and its results equal the untraced graph's.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from test_torch_threads import share_cores  # noqa: F401
+from tpu_face_torch import exact_f32
+from tpu_face_torch.compiler.lowering import Graph, TFLiteNet
+from tpu_face_torch.ops import conv_epilogue as ce
+from tpu_face_torch.utils import profiling
+
+ROOT = Path(__file__).resolve().parents[1]
+BENCH = ROOT / "benchmark"
+if str(BENCH) not in sys.path:
+    sys.path.append(str(BENCH))
+
+from entries import embed_cascade as entry  # noqa: E402
+from harness import frames  # noqa: E402
+from harness.core import Cell, compare  # noqa: E402
+from models import iresnet as gen  # noqa: E402
+from reference import iresnet as ref  # noqa: E402
+
+CELL = "arcface_r100_k4_f32.crowd720"
+SEED = 2**31 + 29
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    yield torch.device("cuda", 0)
+    profiling.enable(False)
+    profiling.reset()
+
+
+def _cell(batch=8):
+    cell = Cell(json.loads((ROOT / "BENCHMARK.json").read_text()), CELL,
+                here=BENCH)
+    cell.traffic.update(batch=batch, pool=1)
+    return cell
+
+
+def test_full_net_bit_identical_to_op_by_op(card, tmp_path):
+    made = gen.write(tmp_path, SEED)
+    graph = Graph(made / gen.GRAPH_FILE)
+    with exact_f32():
+        fused = TFLiteNet(graph).to(card).eval()
+        plain = TFLiteNet(graph, fuse_epilogues=False).to(card).eval()
+        assert len(fused.chains) == 99 and not plain.chains
+        x = torch.rand(3, 112, 112, 3, device=card,
+                       generator=torch.Generator(card).manual_seed(3))
+        before = ce.LAUNCHES
+        with torch.inference_mode():
+            (got,), (want,) = fused(x), plain(x)
+        torch.cuda.synchronize()
+    assert ce.LAUNCHES - before == 99
+    assert torch.equal(got, want)
+
+
+def test_net_within_limit_of_the_reference_at_other_blocks(card, tmp_path):
+    made = gen.write(tmp_path, SEED)
+    limit = _cell().config["limits"]["embedding_abs"]
+    levels = torch.randint(0, 256, (128, 112, 112, 3), device=card,
+                           generator=torch.Generator(card).manual_seed(7))
+    x = levels.float() / 255.0
+    w = ref.load(made / gen.WEIGHTS_FILE, card)
+    planes = x.permute(0, 3, 1, 2).contiguous()
+    want = [ref.embed(w, planes, block) for block in (32, 128)]
+    net = TFLiteNet(Graph(made / gen.GRAPH_FILE)).to(card).eval()
+
+    def embed(run, n):
+        with torch.inference_mode():
+            out = torch.cat([run(x[i:i + n])[0] for i in range(0, 128, n)])
+            return torch.nn.functional.normalize(out, dim=-1)
+
+    for n in (64, 128):
+        with exact_f32():
+            got = embed(net, n)
+        tf32 = embed(entry._TF32Net(net), n)
+        for r in want:
+            assert float((got - r).abs().max()) <= limit
+            assert float((tf32 - r).abs().max()) > limit
+
+
+def test_program_within_limits_and_controls_fail(card):
+    cell = _cell()
+    (batch,) = frames.make_pool(cell.traffic, BENCH / "traffic", SEED, card)
+    refs = cell.reference.run(cell.config, [batch], ROOT)
+    limits = cell.config["limits"]
+    readings = {}
+    for dtype in ("float32", "bfloat16", entry.TF32):
+        program = entry.build(dict(cell.config, compute_dtype=dtype), card)
+        kept = {0: [entry.call(program, batch) for _ in range(2)]}
+        readings[dtype] = {n: v for n, (v, _) in
+                           compare(cell, kept, refs).items()}
+        del program
+    assert sum(float(r["face_valid"].sum()) for r in refs) >= 24
+    for name, value in readings["float32"].items():
+        assert value <= limits[name], (name, value)
+    for dtype in ("bfloat16", entry.TF32):
+        assert readings[dtype]["embedding_abs"] > limits["embedding_abs"], (
+            dtype, readings[dtype])
+
+
+def _same(a, b):
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_stamped_graph_spans_sum_to_the_graph(card):
+    cell = _cell()
+    (batch,) = frames.make_pool(cell.traffic, BENCH / "traffic", SEED, card)
+    program = entry.build(cell.config, card)
+    off = program(batch)
+    profiling.reset()
+    profiling.enable()
+    on = [program(batch), program(batch)]
+    profiling.enable(False)
+    for res in on:
+        _same(res, off)
+    got = profiling.collect()
+    device = [s for s in got["spans"] if s["kind"] == "device"]
+    assert {s["name"] for s in device} == {
+        "programs.copy_in", "programs.graph", "detect", "nms", "embed_crop",
+        "embed"}
+    assert got["lost_calls"] == 0
+    assert got["counters"]["embed.crops"] == 2 * 8 * 4
+    graphs = [s for s in device if s["name"] == "programs.graph"]
+    assert len(graphs) == 2
+    for g in graphs:
+        stages = [s for s in device if s["call"] == g["call"]
+                  and s["name"] in ("detect", "nms", "embed_crop", "embed")]
+        assert len(stages) == 4
+        parts = sum(s["end_ns"] - s["start_ns"] for s in stages)
+        total = g["end_ns"] - g["start_ns"]
+        assert parts + g["self_ns"] == pytest.approx(total, rel=1e-3)
+        # the net is most of the call
+        embed = [s for s in stages if s["name"] == "embed"][0]
+        assert embed["end_ns"] - embed["start_ns"] > 0.5 * total

@@ -423,7 +423,11 @@ def _epilogue_at(conv, users, producers, consts, tensors, graph_outputs):
 def _epilogue_chains(ops, consts, tensors, graph_outputs, taken=()):
     """The epilogue chain (``_epilogue_at``) of every CONV_2D of ``ops``
     whose position is not in ``taken`` (the ops of the residual runs) and
-    whose chain holds no op of ``taken``, in op order."""
+    whose chain holds no op of ``taken``, in op order.  An ADD whose two
+    operands are both single-user convolutions (a downsampling residual
+    unit: the main path's last conv and the 1x1 shortcut) would end two
+    chains; it belongs to the chain of the conv later in op order, and
+    the earlier conv keeps its bias in ``F.conv2d``."""
     users = _consumers(ops)
     producers = {t: node for node in ops for t in node["outputs"]}
     pos = {id(node): i for i, node in enumerate(ops)}
@@ -435,6 +439,9 @@ def _epilogue_chains(ops, consts, tensors, graph_outputs, taken=()):
                              graph_outputs)
         if chain is not None and not any(pos[id(n)] in taken
                                          for n in chain["ops"]):
+            ends = {id(n) for n in chain["ops"][1:]}
+            chains = [c for c in chains
+                      if not ends & {id(n) for n in c["ops"][1:]}]
             chains.append(chain)
     return chains
 
