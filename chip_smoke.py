@@ -798,7 +798,8 @@ def launch_counts():
             "fused_dw_pw_block_bf16": fused_block.BF16_LAUNCHES,
             "warp_strips_staged_fused": warp.STAGED_LAUNCHES["fused"],
             "warp_strips_staged_split": warp.STAGED_LAUNCHES["split"],
-            "conv_epilogue": ce.LAUNCHES}
+            "conv_epilogue": ce.LAUNCHES,
+            "conv3x3_tc": ctc.LAUNCHES}
 
 
 def reset_counts():
@@ -806,6 +807,7 @@ def reset_counts():
     fused_block.LAUNCHES = fused_block.BF16_LAUNCHES = 0
     warp.STAGED_LAUNCHES.update(fused=0, split=0)
     ce.LAUNCHES = 0
+    ctc.LAUNCHES = 0
 
 
 def epilogues(*nets):
@@ -1000,6 +1002,101 @@ def check_epilogue(label, y, bias, skip, alpha, act, first):
     print(f"conv_epilogue {label}: bit-equal with the op-by-op sequence "
           f"{equal}, strides {got.stride()}", flush=True)
     assert equal and got.stride() == want.stride(), label
+
+
+# (side, Cin, Cout, stride) of each 3x3 convolution R100 routes to the
+# split-TF32 kernel (its 98 in 12 shapes; padding 1), at 128 crops a call
+CONV_TC_SHAPES = ((112, 64, 64, 1), (112, 64, 64, 2), (56, 64, 64, 1),
+                  (56, 64, 128, 1), (56, 128, 128, 2), (28, 128, 128, 1),
+                  (28, 128, 256, 1), (28, 256, 256, 2), (14, 256, 256, 1),
+                  (14, 256, 512, 1), (14, 512, 512, 2), (7, 512, 512, 1))
+CONV_TC_CROPS = 128
+# the kernel's largest error, over the f64 output's largest magnitude, at
+# most this many times cuDNN's f32 convolution's (TF32 off) at the shape
+CONV_TC_ERR_RATIO = 4.0
+H100_SPLIT_TF32_FLOPS = H100_TF32_FLOPS / 3
+# the seed of the R100 graph the identification path runs on
+# (benchmark/models/iresnet.py at its published widths)
+R100_SEED = 2**31 + 20
+# R100's embeddings on the card against the CPU's on the same crops: the
+# limit of the arcface_r100_k4_f32 configuration's embedding_abs
+R100_EMBED_TOL = 2e-5
+
+
+def conv_tc_cases(rng):
+    """The split-TF32 convolution's operands at R100's routed shapes:
+    (label, x channels_last, w, w_hi, w_lo, stride)."""
+    cases = []
+    for side, ci, co, stride in CONV_TC_SHAPES:
+        x = torch.from_numpy(rng.standard_normal(
+            (CONV_TC_CROPS, side, side, ci), dtype=np.float32)).cuda()
+        w = torch.from_numpy(rng.standard_normal(
+            (co, ci, 3, 3), dtype=np.float32) / (3 * ci ** 0.5)).cuda()
+        cases.append((f"{side}x{side}x{ci}->{co}/s{stride}",
+                      x.permute(0, 3, 1, 2), w, *ctc.kernel_weights(w),
+                      stride))
+    return cases
+
+
+def phase_conv_tc(rng):
+    """The split-TF32 convolution at R100's routed shapes against an f64
+    convolution, beside cuDNN's f32 one (TF32 off) and the kernel with
+    TF32 allowed (one product a step), which must fail the same bound;
+    returns the kernel's largest absolute error against the f64 output."""
+    phase("conv3x3_tc")
+    worst = 0.0
+    with torch.inference_mode(), exact_f32():
+        for label, x, w, hi, lo, stride in conv_tc_cases(rng):
+            want = torch.nn.functional.conv2d(x.double(), w.double(), None,
+                                              stride, 1)
+            got, n = counted(
+                lambda: ctc.conv3x3_tc(x, w, hi, lo, stride, 1))
+            assert n == only(conv3x3_tc=1), (label, n)
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            cudnn = torch.nn.functional.conv2d(x, w, None, stride, 1)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                tf32 = ctc.conv3x3_tc(x, w, hi, lo, stride, 1)
+            diff = {k: float((v.double() - want).abs().max())
+                    for k, v in (("kernel", got), ("cudnn_f32", cudnn),
+                                 ("tf32", tf32))}
+            top = float(want.abs().max())
+            errs = {k: v / top for k, v in diff.items()}
+            print(f"conv3x3_tc {label}: error / max |y| {errs}", flush=True)
+            bound = CONV_TC_ERR_RATIO * errs["cudnn_f32"]
+            assert errs["kernel"] <= bound < errs["tf32"], (label, errs)
+            worst = max(worst, diff["kernel"])
+            del want, got, cudnn, tf32
+    return worst
+
+
+def time_conv_tc(cases):
+    """The split-TF32 convolution over ``cases`` (``conv_tc_cases``), all
+    in one timed call: its time, cuDNN's f32 ``F.conv2d`` (TF32 off) as the
+    plain version and the library call (the port no longer calls it
+    there), and its bound, the operations at the split-TF32 rate."""
+    def kernel():
+        for _, x, w, hi, lo, stride in cases:
+            ctc.conv3x3_tc(x, w, hi, lo, stride, 1)
+
+    def library():
+        for _, x, w, _, _, stride in cases:
+            torch.nn.functional.conv2d(x, w, None, stride, 1)
+
+    with torch.inference_mode(), exact_f32():
+        kernel_ms, _ = median_ms(kernel, reps=10)
+        library_ms, _ = median_ms(library, reps=5)
+        kernel_dev = queued_ms(kernel)
+        library_dev = queued_ms(library)
+    flops = sum(2 * x.shape[0] * ctc.out_size(x.shape[2], stride, 1)
+                * ctc.out_size(x.shape[3], stride, 1) * w.numel()
+                for _, x, w, _, _, stride in cases)
+    bound_ms = flops / H100_SPLIT_TF32_FLOPS * 1e3
+    return {"ms": kernel_ms, "plain_ms": library_ms,
+            "library_ms": library_ms, "device_ms": kernel_dev,
+            "library_device_ms": library_dev, "bound_ms": bound_ms,
+            "bound_by": "operations", "bound_flops": flops,
+            "tflop_per_s": flops / kernel_dev / 1e9,
+            "library_tflop_per_s": flops / library_dev / 1e9}
 
 
 def time_epilogue(cases):
@@ -1956,6 +2053,72 @@ def cli_close(got, want, key=""):
         assert abs(got - want) <= tol, (key, got, want)
 
 
+def phase_embed_r100():
+    """A main path: the identification path on ArcFace's IR-ResNet-100
+    (``benchmark/models/iresnet.py`` at its published widths, the graph
+    written from R100_SEED into build/), EmbedCascade(FULL_SPARSE,
+    max_faces=4) through its cached call on canvas (c) eight times over
+    (32 crops a call), the counts set to 0 before it and read after.  One
+    eager run of ``_forward`` first gives each kernel's launches a run:
+    98 of the split-TF32 convolution (each routed conv once) and one
+    epilogue a chain.  The cached first call makes them once for each of
+    its runs (the warm-ups and the capture), its replays none, and its
+    result equals the eager call's; the first frame's result against the
+    port on the CPU (``check_embed``, ``hold_cascade_embeddings``: the nets
+    on the card's crops within R100_EMBED_TOL).  Returns the launches."""
+    import importlib.util
+    phase("embed r100")
+    spec = importlib.util.spec_from_file_location(
+        "iresnet", ROOT / "benchmark" / "models" / "iresnet.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    made = gen.write(ROOT / "build" / "chip_smoke" / "r100", R100_SEED,
+                     files=(gen.GRAPH_FILE,))
+    sparse = tmodels.FaceDetectionModel.FULL_SPARSE
+    canvas = canvas_grid(load_image)[None]
+    frames = np.tile(canvas, (8, 1, 1, 1))
+    cas = EmbedCascade(sparse, embed_model_path=str(made), max_faces=4)
+    assert len(cas._embed_net.tc_convs) == 98, len(cas._embed_net.tc_convs)
+    with eager_calls():
+        eager, per_run = counted(lambda: cas.infer_batch(frames))
+    assert per_run["conv3x3_tc"] == 98, per_run
+    assert per_run == only(
+        fused_dw_pw_block_f32=cas._det_net.fused_launches(),
+        warp_bilinear=per_run["warp_bilinear"],
+        conv_epilogue=cascade_epilogues(cas), conv3x3_tc=98), per_run
+    reset_counts()
+    res, n = counted(lambda: cas.infer_batch(frames))
+    runs = capture_runs()
+    assert n == {k: v * runs for k, v in per_run.items()}, (n, per_run)
+    launches = launch_counts()
+    again, n = counted(lambda: cas.infer_batch(frames))
+    assert n == only(), n
+    assert all(torch.equal(a, b) for a, b in
+               zip(result_arrays(again), result_arrays(res)))
+    hold_cached("EmbedCascade R100 1080x720 K=4 B=8", res, eager,
+                tol=R100_EMBED_TOL)
+    print(f"launches of the R100 identification path: {launches} for one "
+          f"cached infer_batch of 8 frames ({runs} runs of _forward: the "
+          f"warm-ups and the capture; {per_run['conv3x3_tc']} conv3x3_tc "
+          f"and {per_run['conv_epilogue']} epilogue launches a run)",
+          flush=True)
+
+    cpu = EmbedCascade(sparse, embed_model_path=str(made), max_faces=4,
+                       device="cpu")
+    ref = cpu.infer_batch(canvas)
+    first = type(res)(*(f[:1] for f in res))
+    px, sc = check_embed(first, ref, (1080, 720), "R100 canvas (c)")
+    e, flips, net = hold_cascade_embeddings(cas, cpu, first, ref, canvas,
+                                            "R100 canvas (c)")
+    assert net <= R100_EMBED_TOL, net
+    print(f"EmbedCascade R100 canvas (c) 1080x720 K=4: "
+          f"{int(first.face_valid.sum())} valid faces; f32 GPU vs CPU port "
+          f"{px:.4f} px, scores {sc:.2e}, embeddings {e:.2e} ({flips} crop "
+          f"levels one apart; R100 on the card's crops {net:.2e}, limit "
+          f"{R100_EMBED_TOL:g})", flush=True)
+    return launches
+
+
 def phase_embed(trace):
     """The identification path on the card, the counts set to 0 before
     and read after: EmbedCascade(BACK, the demo embedding graph) with f32
@@ -2266,7 +2429,8 @@ def close(got, want, tol, label):
 # the kernels line's entry of each warp and epilogue operator
 GRAPH_OPS = {"warp_bilinear_segments": "warp_bilinear",
              "warp_bilinear_strips": "warp_bilinear_strips",
-             "conv_epilogue": "conv_epilogue"}
+             "conv_epilogue": "conv_epilogue",
+             "conv3x3_tc": "conv3x3_tc"}
 
 
 def graph_launches(prog):
@@ -3145,6 +3309,25 @@ def phase_numbers(rng, trace, sweep=False):
               f"op {row['plain_ms']:.4f} ms", flush=True)
     del cases
 
+    # the split-TF32 convolution at R100's 12 routed shapes at 128 crops,
+    # together (one of each shape) and one by one, against cuDNN's f32
+    # convolution
+    cases = conv_tc_cases(rng)
+    timed["conv3x3_tc"] = time_conv_tc(cases)
+    numbers["conv3x3_tc"] = {"all": timed["conv3x3_tc"],
+                             **{case[0]: time_conv_tc([case])
+                                for case in cases}}
+    for label, row in numbers["conv3x3_tc"].items():
+        print(f"conv3x3_tc {label}: {row['device_ms']:.4f} ms device "
+              f"({row['tflop_per_s']:.1f} TFLOP/s), bound "
+              f"{row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['device_ms']:.1f}%), cuDNN "
+              f"f32 {row['library_device_ms']:.4f} ms "
+              f"({row['library_tflop_per_s']:.1f} TFLOP/s)", flush=True)
+        # the route takes no shape at which cuDNN's f32 choice is faster
+        assert row["device_ms"] < row["library_device_ms"], (label, row)
+    del cases
+
     # the fused block at the main path's shapes (the BACK detector's four
     # runs at batch 64, together and one by one; the bf16 detector's in
     # bf16) and at K3/K4's shape
@@ -3968,7 +4151,7 @@ BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
            "fused_dw_pw_block_bf16", "warp_strips_staged", "graph_cond",
-           "conv_epilogue")
+           "conv_epilogue", "conv3x3_tc")
 # the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
@@ -3987,6 +4170,10 @@ SOURCES = {
     # convolution on the TPU
     "conv_epilogue": ("tpu_face_torch/csrc/conv_epilogue.cu",
                       "tpu_face/compiler/lowering.py:232"),
+    # no Pallas kernel: XLA lowers the JAX package's convolutions
+    # (lax.conv_general_dilated) onto the TPU's matrix unit
+    "conv3x3_tc": ("tpu_face_torch/csrc/conv3x3_tc.cu",
+                   "tpu_face/compiler/lowering.py:328"),
 }
 
 
@@ -3998,7 +4185,7 @@ def import_port():
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
     global track_sharded, bench, median_ms, queued_ms, window_ms
-    global programs, Rect, CACHED_CALL
+    global programs, Rect, CACHED_CALL, ctc
     global H100_BYTES_PER_S, H100_F32_FLOPS, H100_BF16_FLOPS
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
@@ -4012,6 +4199,7 @@ def import_port():
     from tpu_face_torch.models.face_embeddings import l2_normalize
     from tpu_face_torch.ops import _build, fused_block, geometry
     from tpu_face_torch.ops import conv_epilogue as ce
+    from tpu_face_torch.ops import conv_tc as ctc
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
     from tpu_face_torch.parallel import (data_parallel_mesh, infer_sharded,
@@ -4065,6 +4253,7 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     phase_build()
     errs = phase_kernels(rng)
+    errs["conv3x3_tc"] = phase_conv_tc(rng)
     # the paths, each with the counts set to 0 before it and read after.
     # The cascades' main paths are the cached calls (their first call at
     # each geometry counted: the warm-ups and the capture); the phases
@@ -4078,6 +4267,7 @@ def main(argv=None):
                   "bf16": phase_models(torch.bfloat16)}
     paths["full_detectors"] = phase_full_detectors()
     paths["mxu"] = phase_mxu()
+    paths["embed_r100"] = phase_embed_r100()
     with eager_calls():
         paths["tracker"], tracker_numbers = phase_tracker()
         paths["embed"], embed_numbers = phase_embed(args.trace)
@@ -4138,6 +4328,11 @@ def main(argv=None):
         fused_dw_pw_block_f32=paths["embed"]["fused_dw_pw_block_f32"],
         fused_dw_pw_block_bf16=paths["embed"]["fused_dw_pw_block_bf16"],
         conv_epilogue=paths["embed"]["conv_epilogue"]), paths
+    # the split-TF32 convolution runs on R100's path alone: no bundled
+    # graph has a convolution it takes
+    for key, counts in {**paths, **models}.items():
+        if key != "embed_r100":
+            assert counts["conv3x3_tc"] == 0, (key, counts)
     numbers["path_launches"] = paths
     numbers["models_launches"] = models
     numbers["device"] = smi

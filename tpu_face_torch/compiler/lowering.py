@@ -33,6 +33,11 @@ In an f32 net every other dense convolution ends in one call of
 ``ops.conv_epilogue.conv_epilogue``, which applies its bias, the residual
 ADD that follows it (the skip's channel PAD absorbed) and the activation
 in one pass (``_epilogue_chains``; a hand-written CUDA kernel on the card).
+In an f32 net each dense 3x3 convolution that ``ops.conv_tc.routes``
+takes (stride 1 or 2, symmetric padding 0 or 1, Cin >= 64 a multiple of
+32, Cout a multiple of 64: ArcFace's IR-ResNet, no bundled graph) runs as
+``ops.conv_tc.conv3x3_tc``, a hand-written split-TF32 tensor-core kernel
+on the card; such a net holds its 4-D activations channels_last.
 
 ``compute_dtype=torch.bfloat16`` runs the net in bf16 as
 ``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
@@ -48,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv_epilogue, fused_block
+from ..ops import conv_epilogue, conv_tc, fused_block
 from ..utils import profiling
 
 # elementwise ops of two operands: {op: fn}
@@ -636,7 +641,18 @@ class TFLiteNet(nn.Module):
     counters ``nets.epilogue_chains`` and ``nets.epilogue_ops`` (the ops
     absorbed into the epilogues) add them up over the nets built.  A bf16
     net has no chains (its double roundings are the JAX package's), and
-    ``fuse_epilogues=False`` runs them op by op."""
+    ``fuse_epilogues=False`` runs them op by op.
+
+    In an f32 net every CONV_2D that ``ops.conv_tc.routes`` takes (by its
+    weights' shape, its input's channels, stride, dilation and padding
+    after the PAD folding) runs as ``ops.conv_tc.conv3x3_tc``: the
+    split-TF32 kernel on the card, on its weights split here, once, into
+    the kernel's hi and lo buffers (``tc<k>_hi``, ``tc<k>_lo``);
+    ``F.conv2d`` on the CPU.  ``tc_convs`` maps their op positions to k,
+    and the counter ``nets.tc_convs`` adds them up over the nets built.  A net
+    with one holds every 4-D activation channels_last, the kernel's
+    layout (the NHWC input's NCHW view already is); every other net keeps
+    the layouts its ops give."""
 
     def __init__(self, graph, params=None, fuse_blocks=True,
                  compute_dtype=torch.float32, fuse_epilogues=True):
@@ -698,6 +714,27 @@ class TFLiteNet(nn.Module):
         profiling.count("nets.epilogue_chains", len(self.chains))
         profiling.count("nets.epilogue_ops",
                         sum(len(chain["ops"]) - 1 for chain in self.chains))
+        # each chain's convolution's op position
+        self._chain_conv = [pos[id(chain["conv"])] for chain in self.chains]
+        # op position -> k for each convolution on conv_tc, its weights
+        # split into the buffers tc<k>_hi and tc<k>_lo
+        self.tc_convs = {}
+        for i, node in enumerate(graph.ops):
+            if node["op"] != "CONV_2D" or i in taken:
+                continue
+            o, ins = node["options"], node["inputs"]
+            wshape = np.shape(graph.consts.get(ins[1]))
+            xshape = graph.tensors[ins[0]]["shape"]
+            if (len(wshape) == 4 and len(xshape) == 4 and conv_tc.routes(
+                    wshape, xshape[3], o["stride"], o.get("dilation", (1, 1)),
+                    _window_pads(o["padding"], xshape[1:3], wshape[1:3],
+                                 o["stride"], o.get("dilation", (1, 1))),
+                    compute_dtype)):
+                k = self.tc_convs[i] = len(self.tc_convs)
+                hi, lo = conv_tc.kernel_weights(params[f"t{ins[1]}"])
+                self.register_buffer(f"tc{k}_hi", hi)
+                self.register_buffer(f"tc{k}_lo", lo)
+        profiling.count("nets.tc_convs", len(self.tc_convs))
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)
@@ -738,7 +775,8 @@ class TFLiteNet(nn.Module):
         every 4-D activation."""
         chain = self.chains[k]
         conv = chain["conv"]
-        y = self._conv(env[conv["inputs"][0]], conv, False, epilogue=True)
+        y = self._conv(env[conv["inputs"][0]], conv, False, epilogue=True,
+                       pos=self._chain_conv[k])
         return conv_epilogue.conv_epilogue(
             y, self._bias(conv),
             None if chain["skip"] is None else env[chain["skip"]],
@@ -746,9 +784,10 @@ class TFLiteNet(nn.Module):
                 self, f"t{chain['alpha']}"), chain["act"],
             chain["skip_first"])
 
-    def _conv(self, x, node, depthwise, epilogue=False):
-        """The convolution ``node`` of NCHW x with its bias and activation,
-        or (``epilogue``) without either, for its chain's epilogue."""
+    def _conv(self, x, node, depthwise, epilogue=False, pos=None):
+        """The convolution ``node`` (at op position ``pos``) of NCHW x with
+        its bias and activation, or (``epilogue``) without either, for its
+        chain's epilogue."""
         o, ins = node["options"], node["inputs"]
         w = getattr(self, f"t{ins[1]}")
         b = None if epilogue else self._bias(node)
@@ -756,6 +795,15 @@ class TFLiteNet(nn.Module):
         dilation = tuple(o.get("dilation", (1, 1)))
         (pt, pb), (pl, pr) = _window_pads(o["padding"], x.shape[2:],
                                           w.shape[2:], stride, dilation)
+        k = self.tc_convs.get(pos)
+        # a SAME padding's pads follow the input's size: where they come
+        # out uneven (a stride-2 conv on an even size), F.conv2d takes it
+        if k is not None and pt == pb == pl == pr:
+            y = conv_tc.conv3x3_tc(x, w, getattr(self, f"tc{k}_hi"),
+                                   getattr(self, f"tc{k}_lo"), stride[0], pt)
+            if b is not None:
+                y = y + b[:, None, None]
+            return y if epilogue else _act(y, o["activation"])
         if pt == pb and pl == pr:
             pad = (pt, pl)
         else:
@@ -806,10 +854,16 @@ class TFLiteNet(nn.Module):
 
     def forward(self, x):
         batch = x.shape[0]
-        # env holds 4-D activations NCHW (ids in `nchw`), anything else
-        # in the graph's own layout
+        # env holds 4-D activations NCHW (ids in `nchw`; channels_last in
+        # a net with a conv_tc convolution), anything else in the graph's
+        # own layout
+        cl = torch.channels_last if self.tc_convs else None
+
+        def held(y):
+            return y if cl is None else y.contiguous(memory_format=cl)
+
         env = {self.inputs[0]:
-               x.permute(0, 3, 1, 2).to(self.compute_dtype)}
+               held(x.permute(0, 3, 1, 2).to(self.compute_dtype))}
         nchw = {self.inputs[0]}
 
         def nhwc(i):
@@ -828,20 +882,20 @@ class TFLiteNet(nn.Module):
                 continue
             if i in self._chain_end:
                 k = self._chain_end[i]
-                env[self.chains[k]["output"]] = self._chain(k, env)
+                env[self.chains[k]["output"]] = held(self._chain(k, env))
                 nchw.add(self.chains[k]["output"])
                 continue
             if i in self._run_start:
                 run = self.runs[self._run_start[i]]
-                env[run[-1]["output"]] = self._run(self._run_start[i],
-                                                   env[run[0]["input"]])
+                env[run[-1]["output"]] = held(self._run(
+                    self._run_start[i], env[run[0]["input"]]))
                 nchw.add(run[-1]["output"])
                 continue
             op, ins, o = node["op"], node["inputs"], node["options"]
             layout_nchw = all(i in nchw for i in ins if i in env)
             if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
                 y = self._conv(env[ins[0]], node,
-                               op == "DEPTHWISE_CONV_2D")
+                               op == "DEPTHWISE_CONV_2D", pos=i)
             elif op == "MAX_POOL_2D":
                 y = self._max_pool(env[ins[0]], o)
             elif op == "AVERAGE_POOL_2D":
@@ -939,9 +993,10 @@ class TFLiteNet(nn.Module):
                 # the body holds every 4-D activation NCHW
                 y = y.permute(0, 3, 1, 2)
                 layout_nchw = True
-            env[node["outputs"][0]] = y
             if layout_nchw:
+                y = held(y) if y.dim() == 4 else y
                 nchw.add(node["outputs"][0])
+            env[node["outputs"][0]] = y
 
         return tuple(nhwc(i).contiguous().float() for i in self.outputs)
 

@@ -70,10 +70,17 @@ _STAMP_PAIR_SIG = ((_P, _P, _P), _I)
 #  stream) -> cudaError_t, the convolution epilogue's entry point
 _EPILOGUE_SIG = ((_P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P), _I)
 
+# (x, w_hi, w_lo, y, batch, h, w, cin, cout, stride, pad, N tile, CTAs,
+#  tf32, stream) -> cudaError_t, the split-TF32 3x3 convolution's entry
+#  point
+_CONV_TC_SIG = ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
     "conv_epilogue": {"conv_epilogue_f32": _EPILOGUE_SIG},
+    "conv3x3_tc": {"conv3x3_tc_f32": _CONV_TC_SIG},
     "graph_cond": {"graph_if_begin": _IF_BEGIN_SIG,
                    "graph_if_end": _IF_END_SIG},
     "stage_stamp": {"stage_stamp_open": _STAMP_OPEN_SIG,
