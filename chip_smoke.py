@@ -1,51 +1,54 @@
 #!/usr/bin/env python3
-"""Smoke run of tpu_face_torch on one CUDA card.
+"""Smoke run of tpu_face_torch on one CUDA card: checks, no timings.
 
     python3 chip_smoke.py
 
 Phases, each of which fails loudly (nonzero exit, no result line):
 
 1. device  -- the card's name and power limit (nvidia-smi), torch's name;
-2. build   -- compiles the five kernel sources from tpu_face_torch/csrc
-              (the gather warps warp_bilinear.cu and
-              warp_bilinear_strips.cu, the fused residual block in f32,
-              fused_dw_pw_block.cu, and in bf16,
-              fused_dw_pw_block_bf16.cu, the staged strip warp
-              warp_strips_staged.cu), one nvcc per source, started
-              together, and prints their ptxas lines;
-3. kernel  -- each kernel against its plain PyTorch version.  The warps
-              (max abs error <= 1e-3) on random ROIs to +-45 deg,
-              mirrored grids and taps past the frame edge, with the
-              cascade's grids (a 192x192 mesh grid, 64x64 left and
-              mirrored right iris grids): warp_bilinear_segments on f32
-              planes of 32 frames of 540x360, a 1280x720 and two 64x64
-              frames (two faces each), bit-exact, with the mesh grid,
-              both iris grids and all three as one, two and three
-              segments, a 37x37 grid cut from the mesh grid (not
-              contiguous, rows not a multiple of 4) and the one-segment
-              warp_bilinear on the concatenated coordinates; f32
-              warp_sample_multi takes it in one launch;
-              warp_bilinear_strips and both staged variants (one fused
-              copy per block, three per-channel copies) on the same calls
-              over bf16 and f32 planes of 8 frames of 1920x1080, 2 of
-              3840x2160 and 2 of 1281x723 (rows of bf16 planes start
-              off the 16-byte grid), with 1 and 4 faces per frame and ROIs
-              of one to three times the short side, whose blocks overflow
-              the staged kernel's window budget (the kernel counts those
-              blocks and the bytes its windows copied, the same for both
-              variants; the staged outputs' bit-exactness with the
-              gather's is printed).
-              The fused block (TF32 off): f32 and bf16 at each residual
-              run of the BACK detector (128x128x24, 64x64x24, 32x32x48,
-              16x16x96, seven blocks each, batch 64, the f32 and the bf16
-              detector's weights), f32 within 1e-4 * max(1, max|plain|),
-              bf16 within one bf16 ulp of max|plain| (the kernel rounds
-              where the plain version rounds), and f32 and bf16 at the
-              Pallas prototypes' shape (batch 256, 128x128x24, 7 blocks,
-              their seeded weights); the tiling
-              the wrapper chose for each run is printed, and for bf16 the
-              error of the f32-staged kernel it replaced on the same
-              inputs;
+2. build   -- compiles the kernel sources from tpu_face_torch/csrc, one
+              nvcc per source, started together, and prints their ptxas
+              lines;
+3. kernel  -- each warp and fused-block kernel against its plain PyTorch
+              version.  The warps (max abs error <= 1e-3) on random ROIs
+              to +-45 deg, mirrored grids and taps past the frame edge,
+              with the cascade's grids (a 192x192 mesh grid, 64x64 left
+              and mirrored right iris grids): warp_bilinear_segments on
+              f32 planes of 32 frames of 540x360, a 1280x720 and two 64x64
+              frames (two faces each), bit-exact, with the mesh grid, both
+              iris grids and all three as one, two and three segments, a
+              37x37 grid cut from the mesh grid (not contiguous, rows not
+              a multiple of 4) and the one-segment warp_bilinear on the
+              concatenated coordinates; f32 warp_sample_multi takes it in
+              one launch; warp_bilinear_strips and both staged variants
+              (one fused copy per block, three per-channel copies) on the
+              same calls over bf16 and f32 planes of 8 frames of
+              1920x1080, 2 of 3840x2160 and 2 of 1281x723 (rows of bf16
+              planes start off the 16-byte grid), with 1 and 4 faces per
+              frame and ROIs of one to three times the short side, whose
+              blocks overflow the staged kernel's window budget (the
+              kernel counts those blocks and the bytes its windows copied,
+              the same for both variants).  The fused block (TF32 off):
+              f32 and bf16 at each residual run of the BACK detector
+              (128x128x24, 64x64x24, 32x32x48, 16x16x96, seven blocks each,
+              batch 64, the f32 and the bf16 detector's weights), f32
+              within 1e-4 * max(1, max|plain|), bf16 within one bf16 ulp
+              of max|plain| (the kernel rounds where the plain version
+              rounds), and f32 and bf16 at the Pallas prototypes' shape
+              (batch 256, 128x128x24, 7 blocks, their seeded weights); the
+              tiling the wrapper chose for each run is printed.  The
+              convolution epilogue at the main path's shapes (the iris
+              net's 256x64x32x32 NCHW, the mesh net's 128x16x96x96
+              channels_last, and the iris net's mixed chain: y
+              channels_last, the skip NCHW and half as wide, first),
+              one launch each, bit-equal to ATen's op-by-op sequence with
+              the same strides.  The split-TF32 convolution at one of
+              R100's routed shapes (128 crops of 56x56x128 -> 128, stride
+              2) against an f64 convolution: one launch, within 4x cuDNN
+              f32's error, and its TF32 mode outside that bound.  The
+              card tests (tests/test_torch_epilogue_card.py,
+              tests/test_torch_conv_tc_card.py) hold both kernels over
+              more cases;
 4. cascade -- the main paths, with every launch count set to 0 before
               each and read after it.  Each call is a cascade's first at
               its geometry: on the card it runs ``_forward`` eagerly
@@ -53,8 +56,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               replays the captured CUDA graph, which launches the same
               kernels without a wrapper call; so each call counts three
               times the launches of one ``_forward`` (``capture_runs``),
-              and its result is the replay's.  f32: FaceCascade() on the seven
-              rotated frames of assets/rotated/ (one infer_batch per
+              and its result is the replay's.  f32: FaceCascade() on the
+              seven rotated frames of assets/rotated/ (one infer_batch per
               geometry; 2 warp_bilinear, 0 warp_bilinear_strips and the
               detector's planned f32 fused-block launches each), held
               against their ground truth (bbox IoU >= 0.99, landmarks <= 1
@@ -63,18 +66,18 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               warp_bilinear_strips launches each, and (c) at 1080x720
               (K=4), 2 warp_bilinear launches (the mesh grid as one
               segment, both iris grids as two, no coordinate
-              concatenation); every face valid and within
-              0.25 px / 1e-3 of the CPU port.  bf16:
-              FaceCascade(compute_dtype=torch.bfloat16) on the same frames
-              and canvases (a) and (c), the detector's residual runs on
-              fused_dw_pw_block_bf16 only (its planned launches per call,
-              none of the f32 kernel's), against the ground truth and the
-              CPU port's bf16 result (the BF16_* tolerances; with K=4 the
-              faces matched by position, since the score sort may swap
-              faces whose bf16 scores nearly tie: a swap passes only
-              where the CPU's two scores differ by at most
-              BF16_SCORE_TOL, and each side's slot scores are printed);
-              with K > 1 the card's valid faces must come in
+              concatenation); every face valid and within 0.25 px / 1e-3
+              of the CPU port; and canvas (c) at batch 32 with K=4, every
+              face valid.  bf16: FaceCascade(compute_dtype=torch.bfloat16)
+              on the same frames and canvases (a) and (c), the detector's
+              residual runs on fused_dw_pw_block_bf16 only (its planned
+              launches per call, none of the f32 kernel's), against the
+              ground truth and the CPU port's bf16 result (the BF16_*
+              tolerances; with K=4 the faces matched by position, since
+              the score sort may swap faces whose bf16 scores nearly tie: a
+              swap passes only where the CPU's two scores differ by at
+              most BF16_SCORE_TOL, and each side's slot scores are
+              printed); with K > 1 the card's valid faces must come in
               non-increasing score, and f32 faces match slot by slot.
               gather: FaceCascade(warp_method="gather") with f32 nets on the
               rotated frames, no warp kernel launched (only the detector's
@@ -82,7 +85,7 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               path's result within 0.25 px / 1e-3;
    The phases that check each call's launches from here on (models,
    the standalone detectors of full_detectors, the chain of mxu,
-   tracker, embed, aot, aot_executable, sharded, numbers) run the
+   tracker, embed, aot, aot_executable, sharded, batches) run the
    objects' eager calls (``eager_calls``: the program caches step
    aside), so every count is one ``_forward``'s; == graphs holds the
    cached calls against them;
@@ -112,7 +115,15 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               close-up (its mesh ROI overflows the band, in JAX too) and
               the cascade on the 540p frames, against the CPU port; no
               warp kernel launched, only the BACK detector's fused ones;
-8. tracker -- FaceTracker() with the published nets: 8 streams of a
+8. embed r100 -- EmbedCascade(FULL_SPARSE, max_faces=4) on ArcFace's
+              IR-ResNet-100 (benchmark/models/iresnet.py at its published
+              widths, the graph written from R100_SEED into build/) on
+              canvas (c) eight times over: 98 split-TF32 convolutions and
+              one epilogue a chain per run, the cached call equal to the
+              eager one and making no launch on a replay, the first
+              frame against the port on the CPU (the nets on the card's
+              crops within R100_EMBED_TOL);
+9. tracker -- FaceTracker() with the published nets: 8 streams of a
               five-step rotated 540p sequence (stream 2 blanked at step
               2), then 2 streams of canvas (a) at 1920x1080 over three
               steps, every step's launches checked (the first step the
@@ -121,11 +132,9 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               detector does not run; a repair step 4 warp launches and
               the fused launches of the one-stream repair cascade), each
               step against the port's CPU tracker entered with the card's
-              state (0.25 px / 1e-3, equal lock states); then locked
-              steps/s of 64 streams beside the cascade's frames/s on the
-              same frames and the step's stages timed without its two
-              host reads (printed, no limit);
-9. embed   -- the identification path, the counts set to 0 before and
+              state (0.25 px / 1e-3, equal lock states); then a locked
+              step of 64 streams, its launches;
+10. embed  -- the identification path, the counts set to 0 before and
               read after: EmbedCascade(BACK, the demo embedding graph
               tpu_face/data/demo) with f32 and with bf16 nets on the
               rotated frames (the 540p four x16 = batch 64, the close-up,
@@ -133,67 +142,52 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               13 fused launches (f32) or 8 (bf16) and no warp kernel (the
               crop is the separable hat matmuls); FaceEmbeddings
               .infer_batch (f32, bf16) and .embed_boxes of a FaceCascade
-              result's meshes (no kernel).  f32 against the port's CPU
-              result (crop_bbox equal, 0.25 px / 1e-3, embeddings within
-              1e-4), bf16 against the card's f32 result (crops within 1 px,
+              result's meshes.  f32 against the port's CPU result
+              (crop_bbox equal, 0.25 px / 1e-3, embeddings within 1e-4),
+              bf16 against the card's f32 result (crops within 1 px,
               cosine >= 0.99 against the f32 net on the same crop, 0.98
-              for crops under 112 px; the cosine against the f32 path
-              printed); then EmbedCascade's
-              frames/s at 540p b64 in f32 and bf16 beside FaceCascade's
-              (printed, no limit), ``python -m tpu_face_torch identify``
-              and ``cascade`` in subprocesses on the card against the
-              same commands with ``--device cpu``, and
+              for crops under 112 px); ``python -m tpu_face_torch
+              identify`` and ``cascade`` in subprocesses on the card
+              against the same commands with ``--device cpu``;
               native_loader.available() (where the loader builds: a JPEG
-              of a rotated frame decoded against Pillow);
-10. aot     -- the serving programs (tpu_face_torch.aot), the counts set
+              of a rotated frame decoded against Pillow); then one call
+              each of EmbedCascade and FaceCascade at 540p b64 in f32 and
+              bf16 (its launches, a face in every frame);
+11. aot     -- the serving programs (tpu_face_torch.aot), the counts set
               to 0 before and read after: FaceCascade with f32 and with
               bf16 nets at 540x360 batch 8, f32 at 1920x1080 planar batch
               4 (the strip kernel) and EmbedCascade f32 (demo graph) at
               540x360 batch 8, each saved, loaded and attached to a fresh
               object: the attached call within 1e-6 of the live one with
-              the flags equal (printed: bit-identical or not), the same
-              counted launches per call, and the loaded graph's kernel
-              operators giving those launches (2 warp nodes, 4 fused run
-              nodes whose chunks add up to 13 f32 or 8 bf16 launches);
-              then FaceTracker's and MultiFaceTracker's (K=2) artifacts at
-              8 streams of 540x360, each one "step" program (its exported
-              graph two torch.cond nodes), attached and held against the
-              live step in every branch (locked, repair, forced, mass
-              loss; within 1e-6, flags, lock states and launches equal),
-              the loaded program attach returns (aot.load's) called as
-              prog(images, *state, force) bit-identical with the
-              attached step; per branch the host reads of one attached
-              step (torch.profiler's stream synchronizations) and its
-              host-to-host ms beside the cached unattached step's; each
-              artifact's save, load and attach seconds and size, and
-              the cold start of a FaceCascade (construction and first
-              call against construction, attach and first call, and
-              aot.load and first call);
-11. aot_executable -- those three FaceCascade programs (f32 and bf16
-              nets at 540x360 batch 8, f32 at 1920x1080 planar batch 4)
-              and FaceTracker's step program at 8 streams of 540x360,
-              saved with kind="executable" (AOTInductor packages compiled
-              on the card, the four compiles in four child processes of
-              this script started together; the counts set to 0 before
-              and read after), each cascade attached to a fresh object
-              and held against the live one: the same counted launches
-              per call (the package calls the kernels' operators), f32
-              within 0.25 px / 1e-3 and bf16 nets within the BF16_*
-              criteria, the ground truth of the rotated
-              frames, one call on a side stream equal to the default
-              stream's; the largest difference against live and against
-              the export, each compile's seconds and bytes, one call's
-              host-to-host ms through the live object, the export and the
-              executable; then the tracker's step executable in every
-              branch (the cascade contract on the result and on the next
-              ROIs, flags, lock states and launches equal; its compile
-              seconds, host reads and ms); then the cold start of the f32
-              540x360 b8 cascade, executable beside export.  The
-              EmbedCascade and MultiFaceTracker executables are left out
-              (a compile costs one to three minutes on the card);
-              tests/test_torch_aot_executable.py compiles and checks both
-              on the CPU, under ``slow``;
-12. graphs -- the per-geometry CUDA-graph programs (tpu_face_torch.programs),
+              the flags equal, the same counted launches per call, and the
+              loaded graph's kernel operators giving those launches (2 warp
+              nodes, 4 fused run nodes whose chunks add up to 13 f32 or 8
+              bf16 launches); then FaceTracker's and MultiFaceTracker's
+              (K=2) artifacts at 8 streams of 540x360, each one "step"
+              program (its exported graph two torch.cond nodes), attached
+              and held against the live step in every branch (locked,
+              repair, forced, mass loss; within 1e-6, flags, lock states
+              and launches equal), the loaded program attach returns
+              (aot.load's) called as prog(images, *state, force)
+              bit-identical with the attached step;
+12. aot_executable -- those three FaceCascade programs and FaceTracker's
+              step program at 8 streams of 540x360, saved with
+              kind="executable" (AOTInductor packages compiled on the
+              card, the four compiles in four child processes of this
+              script started together; the counts set to 0 before and read
+              after), each cascade attached to a fresh object and held
+              against the live one: the same counted launches per call
+              (the package calls the kernels' operators), f32 within
+              0.25 px / 1e-3 and bf16 nets within the BF16_* criteria, the
+              ground truth of the rotated frames, one call on a side
+              stream equal to the default stream's; then the tracker's
+              step executable in every branch (the cascade contract on
+              the result and on the next ROIs, flags, lock states and
+              launches equal).  The EmbedCascade and MultiFaceTracker
+              executables are left out (a compile costs one to three
+              minutes on the card); tests/test_torch_aot_executable.py
+              compiles and checks both on the CPU, under ``slow``;
+13. graphs -- the per-geometry CUDA-graph programs (tpu_face_torch.programs),
               the counts set to 0 before and read after (the warm-ups and
               captures of first calls, and the eager references): every
               cached path against the eager call on the same input,
@@ -204,17 +198,13 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               MultiFaceTracker (K=2) over 8 streams and five steps with a
               two-stream repair and a forced redetect (each step from the
               same state, the lock states equal; their caches hold one
-              step program at 8 streams), the
-              four models' infer_batch at b8; two geometries interleaved
-              (540x360 b8, the close-up, 540x360 b8 again) with a held
-              result unchanged; one profiled replay each of f32 540x360
-              b8, bf16 540x360 b8 and f32 1080p planar b64 holding K1 and
-              K3, K4, and K2 among its kernels; each graph's capture
-              seconds and pool bytes; one call host to host, eager
-              against cached, and the cached call's device time, at
-              540x360 b1, b8, b64 and b128 in f32 and bf16, beside the
-              executable's at b8 (from aot_executable);
-13. tracker_program -- each tracker step as one captured program
+              step program at 8 streams), the four models' infer_batch at
+              b8; two geometries interleaved (540x360 b8, the close-up,
+              540x360 b8 again) with a held result unchanged; one profiled
+              replay each of f32 540x360 b8, bf16 540x360 b8 and f32 1080p
+              planar b64 holding K1 and K3, K4, and K2 among its kernels,
+              and one epilogue launch a chain of the f32 nets;
+14. tracker_program -- each tracker step as one captured program
               (programs.cond: the step's two decisions as CUDA-graph
               conditional nodes), the counts set to 0 before and read
               after (the warm-ups and captures): a nested cond (a cuBLAS
@@ -227,18 +217,13 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               with the host-branch step entered with the same state (its
               ``_step_fn`` called eagerly, each decision read to the
               host; NaN where both have NaN), one step program per
-              tracker; each branch's host-to-host ms, the program's
-              device ms (queued) and both steps' stream span, the locked
-              branch beside the tracked sub-program's device ms; at 8
-              streams two profiled replays of each branch: 2 K1 and no
-              fused launch locked, 4 K1 and the detector's 13 K3 (f32) or
-              8 K4 (bf16) on a repair, 2 K1 and the detector's on the full
-              path; each step program's capture seconds and pool bytes
-              beside the tracked stages' program's; then 12
-              steps over every branch with OneEuro smoothing and ``dt``,
-              after their capture, under
+              tracker; at 8 streams two profiled replays of each branch:
+              2 K1 and no fused launch locked, 4 K1 and the detector's 13
+              K3 (f32) or 8 K4 (bf16) on a repair, 2 K1 and the detector's
+              on the full path; then 12 steps over every branch with
+              OneEuro smoothing and ``dt``, after their capture, under
               ``torch.cuda.set_sync_debug_mode("error")``;
-14. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
+15. sharded -- tpu_face_torch.parallel, the counts set to 0 before and
               read after: infer_sharded of FaceCascade() at 540x360 batch
               64 over data_parallel_mesh() (every visible card; its size
               printed) and over [cuda:0, cuda:0] against the unsharded
@@ -250,73 +235,38 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               (locked, repair, forced, mass loss) from the unsharded
               tracker's state, after a first step, under
               torch.cuda.set_sync_debug_mode("error"), within 2e-3 of the
-              unsharded step with the lock states equal, each branch's
-              steps/s beside the unsharded tracker's; then each sharded
-              cascade call's frames/s beside the unsharded call's (host
-              clock, every card synchronized; printed, no limit);
-15. strip_dma -- K5's A/B on tools/tpu_strip_dma_probe.py's
-              configuration (batch 64 of 1920x1080 bf16 planes, 192x192
-              mesh grids of 350-640 px ROIs to +-0.3 rad): the gather
-              strip kernel and both staged variants once each (this
-              path's launches), bit-exact with each other, then timed in
-              turns against one bound, the bytes the staged windows copied
-              (counted by the kernel) printed beside those the gather's
-              bound counts;
-16. numbers -- cascade frames/s at 540x360 batch 64 (with the detector's
-              residual runs on the fused kernel and op by op), at 1080p
-              batch 64 and at 4K batch 8 (planar input), each with f32
-              and with bf16 nets; faces/s of canvas (c) at batch 32 with
-              K=4, per-stage times at 540x360, the BACK net at 540x360
-              batch 64 with and without the fused kernel in f32 and in
-              bf16, the cascade's two strip warp calls at 1080p and 4K on
-              the gather kernel and both staged variants in turns, and
-              each kernel's time at its path's shapes beside its bound,
-              its plain version and, for the warps,
-              torch.nn.functional.grid_sample (a yardstick only), and the
-              f32 fused kernel's two designs of the 1x1 (split TF32 on the
-              tensor cores, the path's; register-blocked FMAs, the
-              library's probe-only entry point) at the BACK runs R1 and
-              R4, each one's error and device time (k3_probe): the call
-              time (CUDA events over back-to-back calls, the host's
-              launch path included, ``median_ms``) and the device time
-              (the same calls queued behind a ``torch.cuda._sleep``,
-              ``queued_ms``); K1's
-              call time is through its registered operator, and its
-              ``direct_ms`` the same launches by the operator's CUDA
-              implementation called directly.  The f32 and the bf16 fused
-              kernel are timed on the same runs; and the card's launch
-              queue: the small launches the host enqueues behind a
-              sleeping card before one blocks (launch_queue_depth);
-17. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
+              unsharded step with the lock states equal;
+16. strip_dma -- K5's A/B configuration (tools/tpu_strip_dma_probe.py's:
+              batch 64 of 1920x1080 bf16 planes, 192x192 mesh grids of
+              350-640 px ROIs to +-0.3 rad): the gather strip kernel and
+              both staged variants once each (this path's launches), the
+              staged outputs bit-exact with the gather's, which is within
+              1e-3 of the plain version, and both variants' window counts
+              equal (printed);
+17. batches -- the main paths at the bench rows' batches, each call's
+              launches counted: K1 and K2 against their plain versions on
+              the grids of the cascade's own calls (540x360 b32, 1080p
+              planar b64); FaceCascade bf16 at 540x360 b64 and planar
+              1080p b64 and 4K b8 in f32 and bf16, a valid face in every
+              frame; the BACK detector at 540x360 b64 with its residual
+              runs fused and op by op, f32 within BLOCK_TOL_F32 and bf16
+              within BLOCK_TOL_BF16;
+18. bench  -- ``tpu_face_torch.bench.main`` (the port's bench, ``python -m
               tpu_face_torch.bench``) in this process at batch 64 with
-              short windows (BENCH_ARGS), every row on, with f32 and then
-              bf16 nets, the counts set to 0 before and read after: each
-              run's accuracy gate passed in the type asked for, every row
-              of ``bench.ROWS`` present and positive, the record naming
+              the shortest windows it takes (BENCH_ARGS), every row on,
+              with f32 and then bf16 nets, the counts set to 0 before and
+              read after: each run's accuracy gate passed in the type
+              asked for, every row of ``bench.ROWS`` present and positive,
+              the serving row through an executable, the record naming
               this card (its name and nvidia-smi line); each record is
-              printed.
+              printed (its numbers are from one short window: the port's
+              speed is measured by benchmark/run.py).
 
-The timing helpers ``median_ms``, ``window_ms`` and ``queued_ms``, the
-H100's memory rate and its f32 and bf16 peaks come from
-``tpu_face_torch.bench``.  Its last lines are the nvidia-smi
-line, a JSON line of numbers, the kernels' JSON line and {"ok": true,
-"device": {...}}.  Imports nothing of JAX or of the tpu_face package.
-
-    python3 chip_smoke.py --trace DIR
-
-adds torch.profiler windows over three cascade calls each at 540x360
-batch 64 (FaceCascade and EmbedCascade), 1080p batch 64 (f32 and bf16
-nets) and 4K batch 8 to the numbers (device busy share, kernel launches
-per call, the kernels that take the most device time) and writes each
-full table and Chrome trace into DIR.
-
-    python3 chip_smoke.py --sweep
-
-adds each fused kernel's device time (``queued_ms``) at each residual
-run of the BACK detector (batch 64) for every tiling that fits shared
-memory (tiles a multiple of 4, and the plan's), beside the plan's pick,
-and the staged kernel's device time and counts on strip_dma's grids at
-each block geometry and window budget of ``STAGED_GEOMETRIES``.
+Its last lines are the nvidia-smi line, a JSON line of each path's
+launches and the run's seconds, the kernels' JSON line (each kernel's
+source, the Pallas kernel it replaces, its launches and its largest
+error against its plain version here) and {"ok": true, "device":
+{...}}.  Imports nothing of JAX or of the tpu_face package.
 """
 
 import argparse
@@ -327,7 +277,6 @@ import itertools
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -338,8 +287,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ROT = ROOT / "assets" / "rotated"
-
-H100_TF32_FLOPS = 495e12        # TF32 tensor cores, f32 accumulation
 
 KERNEL_TOL = 1e-3               # 0-255 units, before rounding
 BLOCK_TOL_F32 = 1e-4            # fused block, x max(1, max|plain|)
@@ -662,24 +609,6 @@ def staged_blocks(gx):
     return gx[..., 0, 0].numel() * -(-gh // rt) * -(-gw // cw)
 
 
-def touched_bytes(planes, xs, ys):
-    """Bytes the warp must move for these coordinates: each distinct
-    in-frame tap pixel read once (3 channels of the planes' type), the
-    coordinates read once, the [P, 3] f32 samples written once."""
-    b, _, h, w = planes.shape
-    x0, y0 = torch.floor(xs).long(), torch.floor(ys).long()
-    seen = torch.zeros(b * h * w, dtype=torch.bool, device=xs.device)
-    frame = torch.arange(b, device=xs.device)[:, None] * (h * w)
-    for dy in (0, 1):
-        for dx in (0, 1):
-            yy, xx = y0 + dy, x0 + dx
-            ok = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
-            seen[(frame + yy * w + xx)[ok]] = True
-    pixels = int(seen.sum())
-    return (pixels * 3 * planes.element_size() + xs.numel() * 8
-            + xs.numel() * 12)
-
-
 def stage_coords(cascade, frames, size):
     """The planes and the two warp calls' grids (the mesh grid, then both
     iris grids; ``flat`` makes the kernels' [B, K*P] rows of them) that
@@ -696,53 +625,6 @@ def stage_coords(cascade, frames, size):
     return planes, [[(mx, my)], [(lx, ly), (rx, ry)]]
 
 
-def time_kernel(kernel, plain, planes, calls, coords=None):
-    """A warp kernel at the main path's shapes, ``kernel(planes, *args)``
-    for each ``args`` of ``calls`` (``coords``: each call's flat
-    coordinates (xs, ys) [B, P], by default the calls themselves): its
-    max abs error against its plain version, its time (call time from
-    CUDA events over back-to-back calls, ``median_ms``, and device time,
-    ``queued_ms``), the plain version's time,
-    torch.nn.functional.grid_sample's call and device times on an f32
-    copy of the planes (the copy is not timed), and its bound."""
-    coords = calls if coords is None else coords
-    err = 0.0
-    for args in calls:
-        err = max(err, float((kernel(planes, *args)
-                              - plain(planes, *args)).abs().max()))
-    assert err <= KERNEL_TOL, err
-    h, w = planes.shape[2:]
-    f32 = planes.float()
-    grids = [torch.stack([xs * (2.0 / (w - 1)) - 1.0,
-                          ys * (2.0 / (h - 1)) - 1.0], -1)[:, None]
-             for xs, ys in coords]                       # [B, 1, P, 2]
-
-    def run(fn):
-        return lambda: [fn(planes, *args) for args in calls]
-
-    def library():
-        return [torch.nn.functional.grid_sample(
-            f32, g, mode="bilinear", padding_mode="zeros",
-            align_corners=True) for g in grids]
-
-    kernel_ms, _ = median_ms(run(kernel), reps=50)
-    plain_ms, _ = median_ms(run(plain), reps=5)
-    library_ms, _ = median_ms(library, reps=20)
-    kernel_dev = queued_ms(run(kernel))
-    library_dev = queued_ms(library)
-    del f32
-    nbytes = sum(touched_bytes(planes, xs, ys) for xs, ys in coords)
-    flops = sum(xs.numel() * 3 * 9 for xs, _ in coords)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_F32_FLOPS * 1e3
-    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "device_ms": kernel_dev,
-            "library_device_ms": library_dev,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bound_bytes": nbytes, "bound_flops": flops}
-
-
 def hires_batch(canvas, batch, rng):
     """A planar uint8 batch on the card built like bench.py's 1080p/4K
     rows: the canvas, then copies rolled along x by up to a tenth of the
@@ -757,37 +639,6 @@ def hires_batch(canvas, batch, rng):
         frames.append(np.ascontiguousarray(f))
     return torch.from_numpy(np.ascontiguousarray(
         np.stack(frames).transpose(0, 3, 1, 2))).cuda()
-
-
-def trace_cascade(cascade, batch, out, label, calls=3, top=12):
-    """torch.profiler over ``calls`` cascade calls: wall time, summed
-    device kernel time, kernel launches per call and the kernels with
-    the most device time.  The table and the trace go into ``out`` as
-    ``<label>_kernels.txt`` and ``<label>_trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
-    cascade(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            cascade(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{label}_kernels.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
-    prof.export_chrome_trace(str(out / f"{label}_trace.json"))
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    return {
-        "calls": calls, "wall_ms": wall_ms, "device_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms,
-        "launches_per_call": sum(e.count for e in kernels) / calls,
-        "top": [[e.key[:80], e.self_device_time_total / 1e3 / calls,
-                 e.count // calls] for e in kernels[:top]]}
 
 
 def launch_counts():
@@ -851,10 +702,10 @@ def phase_build():
 
 
 def phase_kernels(rng):
-    """Each kernel against its plain version; returns the max abs errors
-    {kernel: err}."""
+    """Each warp, fused-block, epilogue and split-TF32 convolution kernel
+    against its plain version; returns the max abs errors {kernel: err}."""
     phase("kernel vs plain")
-    errs = {name: 0.0 for name in SOURCES}
+    errs = collections.defaultdict(float)
 
     def check(name, kernel, plain, planes, coords):
         xs, ys = flat(coords)
@@ -955,7 +806,9 @@ def phase_kernels(rng):
     del planes, frames
     errs.update(phase_fused_blocks())
     for label, args in epilogue_cases(rng):
-        check_epilogue(label, *args)
+        errs["conv_epilogue"] = max(errs["conv_epilogue"],
+                                    check_epilogue(label, *args))
+    errs["conv3x3_tc"] = check_conv_tc(rng)
     return errs
 
 
@@ -993,7 +846,7 @@ def epilogue_cases(rng):
 def check_epilogue(label, y, bias, skip, alpha, act, first):
     """The convolution epilogue kernel against its plain version (ATen's
     op-by-op sequence on the card) on one case: one launch, bit-equal
-    values and the same strides."""
+    values and the same strides.  Returns the max abs error (0)."""
     got, n = counted(lambda: ce.conv_epilogue(y, bias, skip, alpha, act,
                                               first))
     assert n == only(conv_epilogue=1), (label, n)
@@ -1002,127 +855,58 @@ def check_epilogue(label, y, bias, skip, alpha, act, first):
     print(f"conv_epilogue {label}: bit-equal with the op-by-op sequence "
           f"{equal}, strides {got.stride()}", flush=True)
     assert equal and got.stride() == want.stride(), label
+    return float((got - want).abs().max())
 
 
-# (side, Cin, Cout, stride) of each 3x3 convolution R100 routes to the
-# split-TF32 kernel (its 98 in 12 shapes; padding 1), at 128 crops a call
-CONV_TC_SHAPES = ((112, 64, 64, 1), (112, 64, 64, 2), (56, 64, 64, 1),
-                  (56, 64, 128, 1), (56, 128, 128, 2), (28, 128, 128, 1),
-                  (28, 128, 256, 1), (28, 256, 256, 2), (14, 256, 256, 1),
-                  (14, 256, 512, 1), (14, 512, 512, 2), (7, 512, 512, 1))
+def check_conv_tc(rng):
+    """The split-TF32 convolution against an f64 convolution at one of
+    R100's routed shapes (CONV_TC_SHAPE, CONV_TC_CROPS crops): one launch,
+    a channels_last result, its error within CONV_TC_ERR_RATIO times
+    cuDNN's f32 convolution's (TF32 off), and the kernel with TF32 allowed
+    (one product a step) failing that bound.  Returns the kernel's max
+    abs error against the f64 result."""
+    side, ci, co, stride = CONV_TC_SHAPE
+    label = f"{side}x{side}x{ci}->{co}/s{stride}"
+    x = torch.from_numpy(rng.standard_normal(
+        (CONV_TC_CROPS, side, side, ci), dtype=np.float32)).cuda()
+    x = x.permute(0, 3, 1, 2)
+    w = torch.from_numpy(rng.standard_normal(
+        (co, ci, 3, 3), dtype=np.float32) / (3 * ci ** 0.5)).cuda()
+    hi, lo = ctc.kernel_weights(w)
+    with torch.inference_mode(), exact_f32():
+        want = torch.nn.functional.conv2d(x.double(), w.double(), None,
+                                          stride, 1)
+        got, n = counted(lambda: ctc.conv3x3_tc(x, w, hi, lo, stride, 1))
+        assert n == only(conv3x3_tc=1), (label, n)
+        assert got.is_contiguous(memory_format=torch.channels_last), label
+        cudnn = torch.nn.functional.conv2d(x, w, None, stride, 1)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            tf32 = ctc.conv3x3_tc(x, w, hi, lo, stride, 1)
+    diff = {k: float((v.double() - want).abs().max())
+            for k, v in (("kernel", got), ("cudnn_f32", cudnn),
+                         ("tf32", tf32))}
+    top = float(want.abs().max())
+    rel = {k: v / top for k, v in diff.items()}
+    print(f"conv3x3_tc {label}: error / max |y| {rel}", flush=True)
+    bound = CONV_TC_ERR_RATIO * rel["cudnn_f32"]
+    assert rel["kernel"] <= bound < rel["tf32"], (label, rel)
+    return diff["kernel"]
+
+
+# one 3x3 convolution R100 routes to the split-TF32 kernel (side, Cin,
+# Cout, stride; padding 1) and its crops a call (the card tests,
+# tests/test_torch_conv_tc_card.py, hold all twelve routed shapes)
+CONV_TC_SHAPE = (56, 128, 128, 2)
 CONV_TC_CROPS = 128
 # the kernel's largest error, over the f64 output's largest magnitude, at
 # most this many times cuDNN's f32 convolution's (TF32 off) at the shape
 CONV_TC_ERR_RATIO = 4.0
-H100_SPLIT_TF32_FLOPS = H100_TF32_FLOPS / 3
 # the seed of the R100 graph the identification path runs on
 # (benchmark/models/iresnet.py at its published widths)
 R100_SEED = 2**31 + 20
 # R100's embeddings on the card against the CPU's on the same crops: the
 # limit of the arcface_r100_k4_f32 configuration's embedding_abs
 R100_EMBED_TOL = 2e-5
-
-
-def conv_tc_cases(rng):
-    """The split-TF32 convolution's operands at R100's routed shapes:
-    (label, x channels_last, w, w_hi, w_lo, stride)."""
-    cases = []
-    for side, ci, co, stride in CONV_TC_SHAPES:
-        x = torch.from_numpy(rng.standard_normal(
-            (CONV_TC_CROPS, side, side, ci), dtype=np.float32)).cuda()
-        w = torch.from_numpy(rng.standard_normal(
-            (co, ci, 3, 3), dtype=np.float32) / (3 * ci ** 0.5)).cuda()
-        cases.append((f"{side}x{side}x{ci}->{co}/s{stride}",
-                      x.permute(0, 3, 1, 2), w, *ctc.kernel_weights(w),
-                      stride))
-    return cases
-
-
-def phase_conv_tc(rng):
-    """The split-TF32 convolution at R100's routed shapes against an f64
-    convolution, beside cuDNN's f32 one (TF32 off) and the kernel with
-    TF32 allowed (one product a step), which must fail the same bound;
-    returns the kernel's largest absolute error against the f64 output."""
-    phase("conv3x3_tc")
-    worst = 0.0
-    with torch.inference_mode(), exact_f32():
-        for label, x, w, hi, lo, stride in conv_tc_cases(rng):
-            want = torch.nn.functional.conv2d(x.double(), w.double(), None,
-                                              stride, 1)
-            got, n = counted(
-                lambda: ctc.conv3x3_tc(x, w, hi, lo, stride, 1))
-            assert n == only(conv3x3_tc=1), (label, n)
-            assert got.is_contiguous(memory_format=torch.channels_last)
-            cudnn = torch.nn.functional.conv2d(x, w, None, stride, 1)
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
-                tf32 = ctc.conv3x3_tc(x, w, hi, lo, stride, 1)
-            diff = {k: float((v.double() - want).abs().max())
-                    for k, v in (("kernel", got), ("cudnn_f32", cudnn),
-                                 ("tf32", tf32))}
-            top = float(want.abs().max())
-            errs = {k: v / top for k, v in diff.items()}
-            print(f"conv3x3_tc {label}: error / max |y| {errs}", flush=True)
-            bound = CONV_TC_ERR_RATIO * errs["cudnn_f32"]
-            assert errs["kernel"] <= bound < errs["tf32"], (label, errs)
-            worst = max(worst, diff["kernel"])
-            del want, got, cudnn, tf32
-    return worst
-
-
-def time_conv_tc(cases):
-    """The split-TF32 convolution over ``cases`` (``conv_tc_cases``), all
-    in one timed call: its time, cuDNN's f32 ``F.conv2d`` (TF32 off) as the
-    plain version and the library call (the port no longer calls it
-    there), and its bound, the operations at the split-TF32 rate."""
-    def kernel():
-        for _, x, w, hi, lo, stride in cases:
-            ctc.conv3x3_tc(x, w, hi, lo, stride, 1)
-
-    def library():
-        for _, x, w, _, _, stride in cases:
-            torch.nn.functional.conv2d(x, w, None, stride, 1)
-
-    with torch.inference_mode(), exact_f32():
-        kernel_ms, _ = median_ms(kernel, reps=10)
-        library_ms, _ = median_ms(library, reps=5)
-        kernel_dev = queued_ms(kernel)
-        library_dev = queued_ms(library)
-    flops = sum(2 * x.shape[0] * ctc.out_size(x.shape[2], stride, 1)
-                * ctc.out_size(x.shape[3], stride, 1) * w.numel()
-                for _, x, w, _, _, stride in cases)
-    bound_ms = flops / H100_SPLIT_TF32_FLOPS * 1e3
-    return {"ms": kernel_ms, "plain_ms": library_ms,
-            "library_ms": library_ms, "device_ms": kernel_dev,
-            "library_device_ms": library_dev, "bound_ms": bound_ms,
-            "bound_by": "operations", "bound_flops": flops,
-            "tflop_per_s": flops / kernel_dev / 1e9,
-            "library_tflop_per_s": flops / library_dev / 1e9}
-
-
-def time_epilogue(cases):
-    """The convolution epilogue over ``cases`` (``epilogue_cases``), all in
-    one timed call: its time, the plain version's (ATen's op-by-op
-    sequence) and its bound, the bytes of y and the skip read and the
-    output written once at the card's bandwidth."""
-    def kernel():
-        for _, args in cases:
-            ce.conv_epilogue(*args)
-
-    def plain():
-        for _, (y, bias, skip, alpha, act, first) in cases:
-            ce.conv_epilogue_plain(y, bias, skip, alpha, ce.ACTS[act], first)
-
-    kernel_ms, _ = median_ms(kernel, reps=20)
-    plain_ms, _ = median_ms(plain, reps=5)
-    kernel_dev = queued_ms(kernel)
-    # y, bias, skip and alpha read once, the output (y's size) written
-    nbytes = sum(4 * (2 * y.numel() + bias.numel() + skip.numel()
-                      + alpha.numel())
-                 for _, (y, bias, skip, alpha, _, _) in cases)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-            "device_ms": kernel_dev, "library_device_ms": None,
-            "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "bound_bytes": nbytes}
 
 
 def fused_entry(dtype):
@@ -1175,13 +959,6 @@ def bf16_ulp(v):
     return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
-# max abs errors of the bf16 fused kernel that fused_dw_pw_block_bf16.cu
-# replaced (the f32 template with bf16 loads and stores) on
-# phase_fused_blocks' bf16 inputs, on an H100
-BF16_ERR_REPLACED = {"R1": 0.5, "R2": 0.156, "R3": 0.219, "R4": 0.281,
-                     "K4": 0.203}
-
-
 def check_fused(label, x, weights):
     """The fused kernel against its plain version on one run (TF32 off),
     with the weights in the kernel's form made once as the lowered nets
@@ -1200,12 +977,10 @@ def check_fused(label, x, weights):
     scale = float(ref.float().abs().max())
     tol = (BLOCK_TOL_F32 * max(1.0, scale) if x.dtype == torch.float32
            else bf16_ulp(scale))
-    before = ("" if x.dtype == torch.float32 else
-              f"; the replaced kernel's {BF16_ERR_REPLACED[label[:2]]:.3g}")
     print(f"fused_dw_pw_block {str(x.dtype)[6:]} {label} B={b}: tile "
           f"{tile}x{tile}, layers per launch {list(chunks)}; max abs err "
-          f"{err:.3g} (max |plain| {scale:.3g}, tolerance {tol:.3g}"
-          f"{before})", flush=True)
+          f"{err:.3g} (max |plain| {scale:.3g}, tolerance {tol:.3g})",
+          flush=True)
     assert err <= tol, (label, err, tol)
     return err
 
@@ -1226,154 +1001,6 @@ def phase_fused_blocks():
     err16 = max(err16, check_fused("K4 128x128x24 L=7", x.to(torch.bfloat16),
                                    w))
     return {"fused_dw_pw_block_f32": err32, "fused_dw_pw_block_bf16": err16}
-
-
-def fused_bound(runs, dtype):
-    """The fused kernel's bound on ``runs`` [(x, weights, packed, _)]: each
-    input and packed weight read once, each output written once, against
-    its operations at the card's peak for their type (bf16: all at the
-    bf16 tensor-core rate; f32: the 1x1's three split-TF32 products at the
-    TF32 tensor-core rate beside the rest at the f32 FMA rate, running
-    together).  Returns (bound ms, "bytes" or "operations", bound ms of
-    every operation at the f32 FMA rate, flops, bytes)."""
-    flops = pw = 0
-    for x, w, _, _ in runs:
-        n = x.shape[0] * x.shape[2] * x.shape[3] * w[0].shape[0]
-        flops += n * fused_block.block_flops(x.shape[1])
-        pw += n * 2 * x.shape[1] ** 2
-    nbytes = sum(2 * x.numel() * x.element_size()
-                 + sum(t.numel() * t.element_size() for t in packed)
-                 for x, _, packed, _ in runs)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    f32_ms = flops / H100_F32_FLOPS * 1e3
-    if dtype == torch.bfloat16:
-        ops_ms = flops / H100_BF16_FLOPS * 1e3
-    else:
-        ops_ms = max(3 * pw / H100_TF32_FLOPS,
-                     (flops - pw) / H100_F32_FLOPS) * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", f32_ms, flops,
-            nbytes)
-
-
-def time_fused(cases, dtype):
-    """The fused kernel over ``cases`` [(label, x, weights)], all in one
-    timed call, in ``dtype``: its time, the plain version's and its bound
-    (``fused_bound``)."""
-    runs = [(x.to(dtype), w, fused_block.kernel_weights(*w, dtype),
-             fused_block.plan(x.shape[1], x.shape[2], x.shape[3],
-                              w[0].shape[0], torch.finfo(dtype).bits // 8))
-            for _, x, w in cases]
-
-    def kernel():
-        for x, w, packed, tiling in runs:
-            fused_block.fused_blocks(x, *w, tiling=tiling, weights=packed)
-
-    def plain():
-        for x, w, _, _ in runs:
-            fused_block.fused_blocks_plain(x, *w)
-
-    with torch.inference_mode(), exact_f32():
-        kernel_ms, _ = median_ms(kernel, reps=10)
-        plain_ms, _ = median_ms(plain, reps=3)
-        kernel_dev = queued_ms(kernel)
-    bound_ms, bound_by, f32_ms, flops, nbytes = fused_bound(runs, dtype)
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-            "device_ms": kernel_dev, "library_device_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            **({} if dtype == torch.bfloat16 else
-               {"bound_f32_fma_ms": f32_ms}),
-            "bound_flops": flops, "bound_bytes": nbytes,
-            "tilings": [tiling for _, _, _, tiling in runs]}
-
-
-def fma_probe(x, packed, tiling):
-    """The f32 run on x at ``tiling`` with the 1x1 on the FMA units: the
-    library's probe-only entry point fused_dw_pw_block_f32_fma_probe (C
-    = 24 or 96), chunk by chunk as ``fused_block.fused_blocks`` launches
-    the path's entry point.  Counts no launch."""
-    fn = _build.entry("fused_dw_pw_block", "fused_dw_pw_block_f32_fma_probe")
-    b, c, h, w = x.shape
-    tile, chunks = tiling
-    first = 0
-    for k in chunks:
-        out = torch.empty_like(x)
-        _build.launch(fn, x.get_device(), x.data_ptr(), out.data_ptr(),
-                      packed[first].data_ptr(), b, c, h, w, k, tile)
-        x = out
-        first += k
-    return x
-
-
-def probe_f32_designs(cases):
-    """K3's two designs of the 1x1 on the same runs, each at the plan's
-    tiling: split TF32 on the tensor cores (the path's kernel,
-    ``fused_blocks``) and register-blocked FMAs (``fma_probe``); max abs
-    error against the plain version (and whether it meets BLOCK_TOL_F32)
-    and device time (``queued_ms``)."""
-    out = {}
-    with torch.inference_mode(), exact_f32():
-        for label, x, w in cases:
-            b, c, h, width = x.shape
-            (packed,) = fused_block.kernel_weights(*w, torch.float32)
-            tiling = fused_block.plan(c, h, width, w[0].shape[0])
-            ref = fused_block.fused_blocks_plain(x, *w)
-            tol = BLOCK_TOL_F32 * max(1.0, float(ref.abs().max()))
-            designs = {
-                "tf32x3": lambda: fused_block.fused_blocks(
-                    x, *w, tiling=tiling, weights=(packed,)),
-                "fma": lambda: fma_probe(x, packed, tiling)}
-            row = {}
-            for design, run in designs.items():
-                err = float((run() - ref).abs().max())
-                row[design] = {"max_abs_err": err, "meets_tol": err <= tol,
-                               "device_ms": queued_ms(run)}
-            print(f"probe f32 1x1 {label} B={b} tiling {tiling}: "
-                  + "; ".join(f"{k} {v['device_ms']:.4f} ms, err "
-                              f"{v['max_abs_err']:.3g}" for k, v in
-                              row.items()) + f" (tolerance {tol:.3g})",
-                  flush=True)
-            out[label] = dict(row, tolerance=tol)
-    return out
-
-
-def sweep_tilings(cases, dtype):
-    """The fused kernel for ``dtype``: its device time (``queued_ms``) at
-    each run for every tiling that fits shared memory (a tile that is a
-    multiple of 4, up to the run's side plus 4, any layers per launch;
-    and the plan's), beside the plan's pick and its modelled time."""
-    out = {}
-    itemsize = torch.finfo(dtype).bits // 8
-    with torch.inference_mode(), exact_f32():
-        for label, x, w in cases:
-            x = x.to(dtype)
-            _, c, h, width = x.shape
-            layers = w[0].shape[0]
-            packed = fused_block.kernel_weights(*w, dtype)
-            pick = fused_block.plan(c, h, width, layers, itemsize)
-
-            def fits(tile, per):
-                smem = (fused_block.smem_bytes_bf16 if itemsize == 2
-                        else fused_block.smem_bytes)
-                return smem(c, tile, per, h, width) <= fused_block.SMEM_LIMIT
-
-            times = {}
-            for per in range(1, layers + 1):
-                chunks = fused_block.split_layers(layers, per)
-                tiles = set(range(4, max(h, width) + 5, 4))
-                if chunks == pick[1]:
-                    tiles.add(pick[0])
-                for tile in sorted(t for t in tiles if fits(t, per)):
-                    times[f"L{per}_t{tile}"] = queued_ms(
-                        lambda: fused_block.fused_blocks(
-                            x, *w, tiling=(tile, chunks), weights=packed))
-            best = min(times, key=times.get)
-            mine = f"L{max(pick[1])}_t{pick[0]}"
-            print(f"sweep {str(dtype)[6:]} {label}: best {best} "
-                  f"{times[best]:.4f} ms; plan {mine} {times[mine]:.4f} ms",
-                  flush=True)
-            out[label] = {"best": best, "plan": mine, "ms": times}
-    return out
 
 
 def segment_calls(fn):
@@ -1424,7 +1051,8 @@ def rotated_batches():
 
 def phase_cascade(dtype=torch.float32):
     """A main path, FaceCascade(compute_dtype=dtype): returns the launches
-    of each kernel in it."""
+    of each kernel in it (canvas (c) at batch 32 with f32 nets, after the
+    count is read, not among them)."""
     bf16 = dtype == torch.bfloat16
     phase(f"cascade {str(dtype)[6:]}")
     groups, batches = rotated_batches()
@@ -1483,6 +1111,15 @@ def phase_cascade(dtype=torch.float32):
               f"{[round(float(v), 5) for v in res.score.flatten()]}, CPU "
               f"{[round(float(v), 5) for v in ref.score.flatten()]}",
               flush=True)
+    if not bf16:
+        # K=4 at batch BATCH["k4"]: the four faces of canvas (c) in each
+        # frame
+        b = BATCH["k4"]
+        res = run_cascade(cascades[4], np.stack([canvases["c"][0]] * b),
+                          only(warp_bilinear=2, **fused))
+        faces = int(res.mesh_valid.sum())
+        assert faces == 4 * b, faces
+        print(f"canvas (c) K=4 B={b}: {faces} valid faces", flush=True)
     return launches
 
 
@@ -2119,7 +1756,7 @@ def phase_embed_r100():
     return launches
 
 
-def phase_embed(trace):
+def phase_embed():
     """The identification path on the card, the counts set to 0 before
     and read after: EmbedCascade(BACK, the demo embedding graph) with f32
     and with bf16 nets on the rotated frames (the 540p four x16 = batch
@@ -2130,10 +1767,10 @@ def phase_embed(trace):
     and no warp kernel (the crop is the separable hat matmuls); the
     standalone model none.  f32 against the port's CPU result
     (``check_embed``), bf16 against the card's f32 result
-    (``check_embed_bf16``).  Then EmbedCascade's frames/s at 540p b64
-    beside FaceCascade's, the CLI's ``identify`` and ``cascade`` on the
-    card against the CPU (subprocesses), and the native JPEG loader
-    against Pillow where it builds.  Returns (launches, numbers)."""
+    (``check_embed_bf16``).  Then the CLI's ``identify`` and ``cascade``
+    on the card against the CPU (subprocesses), the native JPEG loader
+    against Pillow where it builds, and one call each of EmbedCascade and
+    FaceCascade at 540p b64 (``check_batch``).  Returns the launches."""
     phase("embed")
     f32, bf16 = torch.float32, torch.bfloat16
     demo = str(DATA_DIR / "demo")
@@ -2250,8 +1887,6 @@ def phase_embed(trace):
               flush=True)
 
     # the native JPEG loader against Pillow
-    import io
-
     from PIL import Image
     available = native_loader.available()
     print(f"native_loader.available(): {available}", flush=True)
@@ -2267,27 +1902,18 @@ def phase_embed(trace):
         print(f"native decode vs Pillow: mean {diff.mean():.4f}, max "
               f"{diff.max()} levels", flush=True)
 
-    # frames/s at 540p b64 beside FaceCascade's, the batch on the card
+    # EmbedCascade and FaceCascade at 540p b64, the batch on the card
     batch = torch.from_numpy(batches[(540, 360)]).cuda()
-    numbers = {}
-    for key, dt in (("", f32), ("_bf16", bf16)):
+    for dt in (f32, bf16):
         want = {fused_entry(dt): fused[dt]}
         face = FaceCascade(compute_dtype=dt)
-        numbers[f"embed_cascade{key}_b{b}"] = {
-            **throughput(cas[dt], batch, only(
-                **want, conv_epilogue=cascade_epilogues(cas[dt])), reps=10),
-            "face_cascade": throughput(face, batch, only(
-                warp_bilinear=2, **want,
-                conv_epilogue=cascade_epilogues(face)), reps=10)}
-    for key in ("", "_bf16"):
-        row = numbers[f"embed_cascade{key}_b{b}"]
-        print(f"EmbedCascade{key} 540x360 b{b}: "
-              f"{row['frames_per_s']:.1f} frames/s beside FaceCascade's "
-              f"{row['face_cascade']['frames_per_s']:.1f}", flush=True)
-    if trace is not None:
-        numbers[f"trace_embed_b{b}"] = trace_cascade(
-            cas[f32], batch, trace, f"embed_cascade_b{b}")
-    return launches, numbers
+        check_batch(cas[dt], batch, only(
+            **want, conv_epilogue=cascade_epilogues(cas[dt])))
+        check_batch(face, batch, only(
+            warp_bilinear=2, **want, conv_epilogue=cascade_epilogues(face)))
+    print(f"EmbedCascade and FaceCascade 540x360 b{b}, f32 and bf16: each "
+          f"call's launches, a face in every frame", flush=True)
+    return launches
 
 
 TRACK_SEQ = ["man_rotm30.png", "man_rotm15.png", "man_rotp15.png",
@@ -2333,9 +1959,8 @@ def phase_tracker():
     not run), a repair step 4 warp launches (the tracked stages and the
     one-stream repair cascade) and the fused launches of the sub-batch's
     detector; at 1080p the warps are warp_bilinear_strips.  Each step
-    against the port's CPU tracker entered with the card's state.  Then
-    locked steps/s of 64 streams against FaceCascade's frames/s on the
-    same frames.  Returns (launches, numbers)."""
+    against the port's CPU tracker entered with the card's state.  Then a
+    locked step of 64 streams, its launches.  Returns the launches."""
     phase("tracker")
     frames = {n: load_image(ROT / n) for n in set(TRACK_SEQ)}
     card = tracking.FaceTracker()
@@ -2373,37 +1998,18 @@ def phase_tracker():
     launches = launch_counts()
     print(f"launches of the tracker: {launches}", flush=True)
 
-    # locked steps of 64 streams against the cascade on the same frames
+    # a locked step of 64 streams
     b = BATCH["track"]
     batch = torch.from_numpy(np.tile(np.stack([frames[n] for n in
                                                FRAMES_540]),
                                      (b // 4, 1, 1, 1))).cuda()
-    timed = tracking.FaceTracker()
-    timed.step(batch)
-    _, n = counted(lambda: timed.step(batch))
-    assert n == locked and timed.tracking.all(), n
-    step_ms, windows = median_ms(lambda: timed.step(batch), reps=10)
-    assert timed.tracking.all()
-    cascade_ms, _ = median_ms(lambda: timed.cascade(batch), reps=10)
-    # the same step's stages and next ROIs without its two host reads
-    roi, valid = timed._state
-    with torch.inference_mode(), exact_f32():
-        stages_ms, _ = median_ms(lambda: tracking.roi_from_mesh(
-            tracking._tracked_stages(timed.cascade, batch, roi[:, None],
-                                     valid[:, None], (540, 360)).mesh,
-            (540, 360)), reps=10)
-    numbers = {f"tracker_locked_b{b}": {
-        "steps_per_s": 1e3 / step_ms, "frames_per_s": b * 1e3 / step_ms,
-        "ms_per_step": step_ms, "windows_ms": windows,
-        "stages_ms_without_host_reads": stages_ms,
-        "cascade_frames_per_s": b * 1e3 / cascade_ms,
-        "cascade_ms_per_batch": cascade_ms}}
-    print(f"tracker locked steps at 540x360, {b} streams: "
-          f"{1e3 / step_ms:.1f} steps/s ({b * 1e3 / step_ms:.1f} frames/s; "
-          f"the stages without the step's two host reads "
-          f"{stages_ms:.3f} ms) against the cascade's "
-          f"{b * 1e3 / cascade_ms:.1f} frames/s", flush=True)
-    return launches, numbers
+    big = tracking.FaceTracker()
+    big.step(batch)
+    _, n = counted(lambda: big.step(batch))
+    assert n == locked and big.tracking.all(), n
+    print(f"tracker 540x360 {b} streams: a locked step's launches {n}",
+          flush=True)
+    return launches
 
 
 # ---- serving: AOT programs and batch data parallelism ------------------
@@ -2461,38 +2067,25 @@ def aot_cascade(label, make, frames, want, runs):
     it to a fresh ``make()`` and hold one call against the live one: within
     1e-6 with the flags equal, the same counted launches (``want``) per
     call, and its graph's operators: ``want`` launches in ``runs`` fused
-    run nodes.  Returns the numbers (seconds, bytes, difference)."""
+    run nodes."""
     live_obj = make()
     live, n = counted(lambda: live_obj(frames))
     assert n == want, (label, "live", n, want)
     b = frames.shape[0]
     planar = live_obj._layout == "planar"
     h, w = frames.shape[2:] if planar else frames.shape[1:3]
-    t0 = time.perf_counter()
     path = aot.save(live_obj, AOT_DIR / f"{label}.aot", batch=b, height=h,
                     width=w)
-    save_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     prog = aot.load(path)
-    load_s = time.perf_counter() - t0
     assert graph_launches(prog) == (want, runs), (label, graph_launches(prog))
     fresh = make()
-    t0 = time.perf_counter()
     aot.attach(fresh, path)
-    attach_s = time.perf_counter() - t0
     out, n = counted(lambda: fresh(frames))
     assert n == want, (label, "attached", n, want)
     diff = close(out, live, 1e-6, label)
-    row = {"save_s": save_s, "load_s": load_s, "attach_s": attach_s,
-           "bytes": path.stat().st_size, "max_abs_diff": diff,
-           "bit_identical": diff == 0.0, "launches_per_call": {
-               k: v for k, v in want.items() if v}}
-    print(f"aot {label}: save {save_s:.2f} s, load {load_s:.2f} s, attach "
-          f"{attach_s:.2f} s, {row['bytes'] / 1e6:.2f} MB; attached vs live "
-          f"max |diff| {diff:.3g}, launches per call "
-          f"{row['launches_per_call']} (graph: {runs} fused run nodes)",
-          flush=True)
-    return row, path
+    print(f"aot {label}: attached vs live max |diff| {diff:.3g}, launches "
+          f"per call {({k: v for k, v in want.items() if v})} (graph: {runs} "
+          f"fused run nodes)", flush=True)
 
 
 def cascade_makers():
@@ -2547,13 +2140,9 @@ def phase_aot():
     streams of 540x360, each saved as one step program, attached and held
     against the live step in every branch (``aot_tracker``: within 1e-6,
     flags, lock states and launches equal; the loaded program
-    bit-identical with the attached step; host reads and host-to-host ms
-    per step beside the cached unattached step).  Then cold start: a
-    fresh cascade's
-    construction and first call against its construction, ``attach`` and
-    first call, and ``aot.load`` alone and a first call.  Returns
-    (launches, numbers, the three FaceCascade cases of ``aot_cases``,
-    whose export artifacts stay in AOT_DIR for ``phase_aot_executable``)."""
+    bit-identical with the attached step).  Returns (launches, the three
+    FaceCascade cases of ``aot_cases``, whose export artifacts stay in
+    AOT_DIR for ``phase_aot_executable``)."""
     phase("aot")
     AOT_DIR.mkdir(parents=True, exist_ok=True)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -2565,10 +2154,8 @@ def phase_aot():
     runs = 4                    # the BACK detector's residual runs
     cases = aot_cases(frames, hires, fused)
     reset_counts()
-    numbers = {}
     for label, (make, x, want) in cases.items():
-        numbers[f"aot_{label}"], path = aot_cascade(label, make, x, want,
-                                                    runs)
+        aot_cascade(label, make, x, want, runs)
     cases.pop("embed_cascade_f32_540p_b8")
     assert (fused[f32], fused[bf16]) == (13, 8), fused
 
@@ -2578,33 +2165,10 @@ def phase_aot():
                                            axis=1)
                                    for s in range(8)])).cuda()
     for label, make in TRACKERS.items():
-        numbers[f"aot_{label}_540p_b8"], _ = aot_tracker(label, make, x)
+        aot_tracker(label, make, x)
     launches = launch_counts()
     print(f"launches of the aot path: {launches}", flush=True)
-
-    # cold start of the f32 cascade at 540p b8 (in a warm process: the
-    # kernels built, cuDNN initialised)
-    path = AOT_DIR / "cascade_f32_540p_b8.aot"
-
-    def attached():
-        cascade = FaceCascade()
-        aot.attach(cascade, path)
-        return cascade
-
-    cold = {}
-    for key, start in (("construct_and_call", FaceCascade),
-                       ("construct_attach_and_call", attached),
-                       ("load_and_call", lambda: aot.load(path))):
-        t0 = time.perf_counter()
-        fn = start()
-        with torch.inference_mode():
-            fn(frames)
-        torch.cuda.synchronize()
-        cold[key + "_s"] = time.perf_counter() - t0
-    numbers["aot_cold_start_540p_b8"] = cold
-    print(f"cold start, FaceCascade f32 540x360 b8 (warm process): "
-          f"{ {k: round(v, 3) for k, v in cold.items()} }", flush=True)
-    return launches, numbers, cases
+    return launches, cases
 
 
 # the trackers of the aot phases: redetect_every and repair_batch as
@@ -2614,20 +2178,6 @@ TRACKERS = {
                                                  repair_batch=2),
     "multiface_tracker_k2": lambda: tracking.MultiFaceTracker(
         max_faces=2, redetect_every=3, repair_batch=2)}
-
-
-def host_reads(fn):
-    """The host reads of one call of ``fn``: the stream synchronizations
-    torch.profiler records (a read of a device value waits on its
-    stream; this sees the compiled wrapper of an executable too)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-    torch.cuda.synchronize()
-    return sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
-               for e in prof.events())
 
 
 def entered_step(tracker, state, steps, frames):
@@ -2659,41 +2209,30 @@ def next_rois(got, want, label):
 def aot_tracker(label, make, frames, compiled=None):
     """Save ``make()``'s step program at 8 streams of 540x360 (one
     "step" program, its exported graph two ``torch.cond`` nodes), or take
-    the executable ``compiled`` holds (its path and compile seconds, from
-    ``compile_executables``), attach it to a fresh ``make()`` and hold it
-    in every branch
+    the executable at ``compiled`` (from ``compile_executables``), attach
+    it to a fresh ``make()`` and hold it in every branch
     (``branch_cases``: locked, repair, forced, mass loss), each entered
     with the same state: the attached step against the live step (this
     phase's eager calls) with the same counted launches, the flags and
     next lock states equal and the numbers within 1e-6 (an export) or,
     the result and the next ROIs, the cascade contract (an executable:
-    ``next_rois``); the loaded program ``attach``
-    returns (``aot.load``'s), called as ``prog(images, *state, force)``,
-    bit-identical with the attached step.  Per branch, the host
-    reads of one attached step (``host_reads``) and one step's
-    host-to-host ms attached against the cached unattached step (the
-    CUDA-graph program, ``eager_calls(False)``).  Prints and returns the
-    numbers and the artifact's path."""
+    ``next_rois``); the loaded program ``attach`` returns (``aot.load``'s),
+    called as ``prog(images, *state, force)``, bit-identical with the
+    attached step."""
     blank = frames.clone()
     blank[2] = 0
-    live, attached, cached = make(), make(), make()
+    live, attached = make(), make()
     if compiled is None:
         kind, path = "export", AOT_DIR / f"{label}.aot"
-        t0 = time.perf_counter()
         aot.save(make(), path, batch=8, height=360, width=540)
-        save_s = time.perf_counter() - t0
     else:
-        kind, (path, save_s) = "executable", compiled
-    t0 = time.perf_counter()
+        kind, path = "executable", compiled
     prog = aot.attach(attached, path)
-    attach_s = time.perf_counter() - t0
     assert [q["name"] for q in prog.meta["programs"]] == ["step"], prog.meta
     if kind == "export":
         graph = prog.programs["step"].module.graph
         assert sum(n.target is torch.ops.higher_order.cond
                    for n in graph.nodes) == 2, label
-    row = {"kind": kind, "save_s": save_s, "attach_s": attach_s,
-           "bytes": path.stat().st_size, "branches": {}}
     cases = branch_cases(live, frames, blank)
     for branch, (x, state, n) in cases.items():
         (want, want_state), nl = counted(
@@ -2717,52 +2256,21 @@ def aot_tracker(label, make, frames, compiled=None):
         loaded = prog(x, *state, force)
         close(loaded[0], got, 0.0, f"{label} {branch} load")
         close(loaded[1], got_state, 0.0, f"{label} {branch} load state")
-        reads = host_reads(lambda: entered_step(attached, state, n, x))
-        with eager_calls(False):
-            ms = {"attached": host_call_ms(
-                      lambda: entered_step(attached, state, n, x), 10),
-                  "cached_unattached": host_call_ms(
-                      lambda: entered_step(cached, state, n, x), 10)}
-            reads_cached = host_reads(
-                lambda: entered_step(cached, state, n, x))
-        row["branches"][branch] = {
-            "diff": diff, "launches": {k: v for k, v in na.items() if v},
-            "host_reads": reads, "host_reads_cached": reads_cached,
-            "host_ms": ms}
         print(f"aot {label} ({kind}) {branch}: vs live {diff}, launches "
-              f"{row['branches'][branch]['launches']}; host reads of one "
-              f"attached step {reads} (the cached unattached step "
-              f"{reads_cached}); one step host to host: attached "
-              f"{ms['attached']:.3f} ms, cached unattached "
-              f"{ms['cached_unattached']:.3f} ms", flush=True)
-    print(f"aot {label} ({kind}) 540x360 8 streams: save "
-          f"{'(compile) ' if compiled else ''}{save_s:.2f} s, "
-          f"attach (the load included) {attach_s:.2f} s, "
-          f"{row['bytes'] / 1e6:.2f} MB", flush=True)
-    return row, path
-
-
-def host_call_ms(fn, calls=20):
-    """Median host-clock ms of one call of ``fn``, the card synchronized
-    before and after each (``window_ms`` over one call)."""
-    fn()
-    return statistics.median(window_ms(fn, 1) for _ in range(calls))
+              f"{({k: v for k, v in na.items() if v})}", flush=True)
 
 
 def aot_executable(label, make, frames, want, export_path, compiled):
     """Take ``make()``'s program at ``frames``' geometry as an executable
     (``kind="executable"``: an AOTInductor package compiled on the card;
-    ``compiled`` its path and compile seconds, from
-    ``compile_executables``), attach it to a fresh ``make()`` and hold one call against the live
-    object: the same counted launches (``want``) per call, so the
-    package launches the hand-written kernels; within the cascade
-    contract (f32 0.25 px / 1e-3, bf16 nets the BF16_* criteria) and, on
-    the rotated 540p frames, their ground truth; a call on a side stream
-    equal to the default stream's.  Prints and returns the compile
-    (save) and attach seconds, the bytes, the largest differences against
-    live and against the export artifact at ``export_path``, and one
-    call's host-to-host ms through the live object, the export and the
-    executable."""
+    ``compiled`` its path, from ``compile_executables``), attach it to a
+    fresh ``make()`` and hold one call against the live object: the same
+    counted launches (``want``) per call, so the package launches the
+    hand-written kernels; within the cascade contract (f32 0.25 px /
+    1e-3, bf16 nets the BF16_* criteria) and, on the rotated 540p frames,
+    their ground truth; a call on a side stream equal to the default
+    stream's.  Prints the largest differences against live and against
+    the export artifact at ``export_path``."""
     live_obj = make()
     bf16 = live_obj.compute_dtype == torch.bfloat16
     live, n = counted(lambda: live_obj(frames))
@@ -2770,11 +2278,8 @@ def aot_executable(label, make, frames, want, export_path, compiled):
     b = frames.shape[0]
     planar = live_obj._layout == "planar"
     h, w = frames.shape[2:] if planar else frames.shape[1:3]
-    path, save_s = compiled
     served = make()
-    t0 = time.perf_counter()
-    prog = aot.attach(served, path)
-    attach_s = time.perf_counter() - t0
+    prog = aot.attach(served, compiled)
     assert prog.meta["kind"] == "executable", prog.meta
     out, n = counted(lambda: served(frames))
     assert n == want, (label, "executable", n, want)
@@ -2793,39 +2298,21 @@ def aot_executable(label, make, frames, want, export_path, compiled):
     exported = make()
     aot.attach(exported, export_path)
     vs_export = close(out, exported(frames), math.inf, f"{label} export")
-    ms = {key: host_call_ms(lambda: obj(frames)) for key, obj in (
-        ("live", live_obj), ("export", exported), ("executable", served))}
-    row = {"save_s": save_s, "attach_s": attach_s,
-           "bytes": path.stat().st_size, "vs_live_px": px,
-           "vs_live_score": sc,
-           "max_abs_diff_live": close(out, live, math.inf, label),
-           "max_abs_diff_export": vs_export,
-           "launches_per_call": {k: v for k, v in want.items() if v},
-           "host_ms": ms}
-    print(f"aot executable {label}: compile (save) {save_s:.2f} s, attach "
-          f"{attach_s:.2f} s, {row['bytes'] / 1e6:.2f} MB; vs live "
-          f"{px:.4f} px, scores {sc:.2e}, max |diff| "
-          f"{row['max_abs_diff_live']:.3g} (vs export {vs_export:.3g}); "
-          f"launches per call {row['launches_per_call']}; one call host to "
-          f"host: live {ms['live']:.3f} ms, export {ms['export']:.3f}, "
-          f"executable {ms['executable']:.3f}", flush=True)
-    return row, path
+    print(f"aot executable {label}: vs live {px:.4f} px, scores {sc:.2e}, "
+          f"max |diff| {close(out, live, math.inf, label):.3g} (vs export "
+          f"{vs_export:.3g}); launches per call "
+          f"{({k: v for k, v in want.items() if v})}", flush=True)
 
 
 def compile_one(label, batch, height, width):
     """The child of ``compile_executables``: save the program ``label``
     names (a cascade of ``cascade_makers`` or a tracker of ``TRACKERS``)
-    at the geometry given as an executable in AOT_DIR, and write its
-    compile seconds beside it.  Returns the exit code."""
+    at the geometry given as an executable in AOT_DIR.  Returns the exit
+    code."""
     make = {**cascade_makers(), **TRACKERS}[label]
-    path = AOT_DIR / f"{label}.exe.aot"
-    obj = make()
-    t0 = time.perf_counter()
     with eager_calls():
-        aot.save(obj, path, batch=batch, height=height, width=width,
-                 kind="executable")
-    save_s = time.perf_counter() - t0
-    path.with_suffix(".json").write_text(json.dumps({"save_s": save_s}))
+        aot.save(make(), AOT_DIR / f"{label}.exe.aot", batch=batch,
+                 height=height, width=width, kind="executable")
     return 0
 
 
@@ -2837,7 +2324,7 @@ def compile_executables(geometry):
     host, so together they take less than one after another.
     Each child's output goes to AOT_DIR/<label>.compile.log; a child
     that fails or outlasts COMPILE_TIMEOUT_S raises, and every child is
-    stopped.  Returns {label: (path, its compile seconds)}."""
+    stopped.  Returns {label: path}."""
     t0 = time.perf_counter()
     procs, logs = {}, {}
     try:
@@ -2860,22 +2347,13 @@ def compile_executables(geometry):
                 proc.wait()
         for log in logs.values():
             log.close()
-    out = {}
-    for label in geometry:
-        path = AOT_DIR / f"{label}.exe.aot"
-        save_s = json.loads(path.with_suffix(".json").read_text())["save_s"]
-        out[label] = (path, save_s)
-    print(f"{len(out)} executables compiled in as many child processes "
-          f"at once in {time.perf_counter() - t0:.2f} s: "
-          + ", ".join(f"{k} {v[1]:.2f} s" for k, v in out.items()),
-          flush=True)
-    return out
+    return {label: AOT_DIR / f"{label}.exe.aot" for label in geometry}
 
 
 COMPILE_TIMEOUT_S = 600
 
 
-def phase_aot_executable(cases, export_cold):
+def phase_aot_executable(cases):
     """The serving programs as executables on the card, the counts set to
     0 before and read after: the three FaceCascade cases of ``aot_cases``
     (f32 and bf16 at 540x360 batch 8, f32 at 1920x1080 planar batch 4)
@@ -2883,16 +2361,12 @@ def phase_aot_executable(cases, export_cold):
     together (``compile_executables``); each cascade attached and held
     against the live object by ``aot_executable``; the tracker's step in
     every branch (``aot_tracker``: the cascade contract on the result
-    and the next ROIs, launches and lock states equal, its host reads
-    and ms); then the cold start of the f32 540x360 b8 cascade
-    (construction, ``attach`` and a first call; ``aot.load`` and a first
-    call) beside the export's (``export_cold``).  Left out, to keep the script
-    within its time limit: the EmbedCascade and MultiFaceTracker
-    executables, which tests/test_torch_aot_executable.py compiles and
-    checks on the CPU (its ``slow`` tests).  Returns (launches,
-    numbers)."""
+    and the next ROIs, launches and lock states equal).  Left out, to keep
+    the script within its time limit: the EmbedCascade and
+    MultiFaceTracker executables, which tests/test_torch_aot_executable.py
+    compiles and checks on the CPU (its ``slow`` tests).  Returns the
+    launches."""
     phase("aot_executable")
-    numbers = {}
     geometry = {}
     for label, (_, x, _) in cases.items():
         h, w = x.shape[2:] if "planar" in label else x.shape[1:3]
@@ -2901,42 +2375,18 @@ def phase_aot_executable(cases, export_cold):
     compiled = compile_executables(geometry)
     reset_counts()
     for label, (make, x, want) in cases.items():
-        numbers[f"aot_executable_{label}"], _ = aot_executable(
-            label, make, x, want, AOT_DIR / f"{label}.aot", compiled[label])
+        aot_executable(label, make, x, want, AOT_DIR / f"{label}.aot",
+                       compiled[label])
     track = load_image(ROT / TRACK_SEQ[2])
     x = torch.from_numpy(np.stack([np.roll(track, 4 * s, axis=1)
                                    for s in range(8)])).cuda()
-    numbers["aot_executable_face_tracker_540p_b8"], _ = aot_tracker(
-        "face_tracker", TRACKERS["face_tracker"], x,
-        compiled["face_tracker"])
+    aot_tracker("face_tracker", TRACKERS["face_tracker"], x,
+                compiled["face_tracker"])
     launches = launch_counts()
     print(f"launches of the executables' path: {launches}", flush=True)
-
-    path = compiled["cascade_f32_540p_b8"][0]
-    frames = cases["cascade_f32_540p_b8"][1]
-
-    def attached():
-        cascade = FaceCascade()
-        aot.attach(cascade, path)
-        return cascade
-
-    cold = {}
-    for key, start in (("construct_attach_and_call", attached),
-                       ("load_and_call", lambda: aot.load(path))):
-        t0 = time.perf_counter()
-        fn = start()
-        with torch.inference_mode():
-            fn(frames)
-        torch.cuda.synchronize()
-        cold[key + "_s"] = time.perf_counter() - t0
-    numbers["aot_executable_cold_start_540p_b8"] = cold
-    print(f"cold start, FaceCascade f32 540x360 b8 (warm process): "
-          f"executable { {k: round(v, 3) for k, v in cold.items()} }, "
-          f"export { {k: round(v, 3) for k, v in export_cold.items()} }",
-          flush=True)
     for p in AOT_DIR.glob("*.aot"):
         p.unlink()
-    return launches, numbers
+    return launches
 
 
 def phase_sharded():
@@ -2954,10 +2404,8 @@ def phase_sharded():
     captures the shards' programs, under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host read), each
     within 2e-3 of the unsharded step with the flags and lock states
-    equal, and its steps/s beside the unsharded tracker's (host clock).
-    Then frames/s of each sharded cascade call beside the unsharded one
-    (host clock, every card synchronized).  The trackers run their cached
-    programs (``eager_calls(False)``).  Returns (launches, numbers)."""
+    equal.  The trackers run their cached programs
+    (``eager_calls(False)``).  Returns the launches."""
     phase("sharded")
     meshes = {"visible": data_parallel_mesh(),
               "cuda0_x2": data_parallel_mesh(["cuda:0", "cuda:0"])}
@@ -2975,7 +2423,6 @@ def phase_sharded():
              for i in range(3)]
     reset_counts()
     ref = cascade(batch)
-    numbers = {}
     for label, mesh in meshes.items():
         out, n = counted(lambda: infer_sharded(cascade, batch, mesh))
         assert n == only(warp_bilinear=2 * len(mesh),
@@ -2992,9 +2439,6 @@ def phase_sharded():
                                          f"track_sharded {label} step {i}"))
                 assert (sharded.tracking == single.tracking).all(), (label, i)
         assert list(sharded.tracking) == [True, True, False] + [True] * 5
-        numbers[f"sharded_{label}"] = {
-            "devices": [str(d) for d in mesh], "max_abs_diff": diff,
-            "tracker_max_abs_diff": worst}
         print(f"infer_sharded over {[str(d) for d in mesh]}: vs unsharded "
               f"max |diff| {diff:.3g}; track_sharded 3 steps (full, "
               f"locked, repair) max |diff| {worst:.3g}", flush=True)
@@ -3011,7 +2455,6 @@ def phase_sharded():
         for label, make in TRACKERS.items():
             single, sharded = make(), make()
             track_sharded(sharded, x, mesh)
-            rows = {}
             for branch, (frames, state, n) in branch_cases(
                     single, x, blank).items():
                 want, want_state = entered_step(single, state, n, frames)
@@ -3033,119 +2476,27 @@ def phase_sharded():
                                  f"track_sharded {label} {branch}"),
                            close(got_state, want_state, SHARD_TOL,
                                  f"track_sharded {label} {branch} state"))
-                ms = {"sharded": host_call_ms(step, 10),
-                      "unsharded": host_call_ms(lambda: entered_step(
-                          single, state, n, frames), 10)}
-                rows[branch] = {"max_abs_diff": diff, "host_ms": ms,
-                                "steps_per_s": 1e3 / ms["sharded"],
-                                "unsharded_steps_per_s":
-                                    1e3 / ms["unsharded"]}
                 print(f"track_sharded {label} over {[str(d) for d in mesh]}"
                       f" {branch}: no host read; vs unsharded max |diff| "
-                      f"{diff:.3g}; {1e3 / ms['sharded']:.1f} steps/s "
-                      f"beside the unsharded tracker's "
-                      f"{1e3 / ms['unsharded']:.1f}", flush=True)
+                      f"{diff:.3g}", flush=True)
             assert [k[0] for k in sharded.cascade._cache.entries] == [
                 "shard_stage", "shard_finish"], label
-            numbers[f"track_sharded_{label}_cuda0_x2_b8"] = rows
     launches = launch_counts()
     print(f"launches of the sharded path: {launches}", flush=True)
-
-    def host_ms(fn):
-        # host clock: a call's work may span cards
-        for _ in range(2):
-            fn()
-        return window_ms(fn, 10)
-
-    unsharded_ms = host_ms(lambda: cascade(batch))
-    for label, mesh in meshes.items():
-        ms = host_ms(lambda: infer_sharded(cascade, batch, mesh))
-        numbers[f"sharded_{label}"].update(
-            frames_per_s=b * 1e3 / ms, ms_per_batch=ms,
-            unsharded_frames_per_s=b * 1e3 / unsharded_ms)
-        print(f"infer_sharded {label} 540x360 b{b}: {b * 1e3 / ms:.1f} "
-              f"frames/s beside the unsharded call's "
-              f"{b * 1e3 / unsharded_ms:.1f}", flush=True)
-    return launches, numbers
+    return launches
 
 
-def strip_warp_calls(planes, calls):
-    """The gather strip kernel and both staged variants over ``calls``
-    (a list of one warp call's grids each), as {label: a function that
-    makes every call once}."""
-    flats = [flat(g) for g in calls]
-    stacks = [stacked(g) for g in calls]
-
-    def staged(copies):
-        return lambda: [warp.warp_bilinear_strips_staged(planes, x, y, copies)
-                        for x, y in stacks]
-
-    return {"gather": lambda: [warp.warp_bilinear_strips(planes, x, y)
-                               for x, y in flats],
-            "staged_fused": staged("fused"), "staged_split": staged("split")}
-
-
-# A/B order: each variant twice, the first and the last turn the gather
-TURNS = ("gather", "staged_fused", "staged_split", "staged_split",
-         "staged_fused", "gather")
-
-
-def time_in_turns(runs, reps=20):
-    """{label: [median ms of each of its turns]} over ``TURNS``."""
-    times = {k: [] for k in runs}
-    for k in TURNS:
-        times[k].append(median_ms(runs[k], reps=reps)[0])
-    return times
-
-
-# The staged kernel's geometries --sweep times on strip_dma's grids: (rt,
-# cw) block, bytes of one window buffer; the first is the package's
-STAGED_GEOMETRIES = (((8, 16), 12 * 1024), ((8, 16), 20 * 1024),
-                     ((8, 32), 32 * 1024), ((16, 32), 48 * 1024))
-
-
-def sweep_staged_geometry(planes, gx, gy, want):
-    """Both staged variants on grids [B, ..., Ho, Wo] at each of
-    ``STAGED_GEOMETRIES`` (``warp.STAGED_BLOCK`` and ``warp.STAGE_BYTES``
-    set for the call, then restored): bit-exact with ``want``, their
-    device time (``queued_ms``) and the kernel's counts (blocks, blocks
-    over the window budget, bytes copied)."""
-    out = {}
-    saved = warp.STAGED_BLOCK, warp.STAGE_BYTES
-    try:
-        for block, budget in STAGED_GEOMETRIES:
-            warp.STAGED_BLOCK, warp.STAGE_BYTES = block, budget
-            row = {"blocks": staged_blocks(gx)}
-            for copies in ("fused", "split"):
-                got, _, copied, over = staged_stats(planes, gx, gy, copies)
-                assert torch.equal(got, want), (block, budget, copies)
-                row[copies] = {"device_ms": queued_ms(
-                    lambda: warp.warp_bilinear_strips_staged(
-                        planes, gx, gy, copies)),
-                    "blocks_over_budget": over, "copied_bytes": copied}
-            label = f"{block[0]}x{block[1]}_{budget // 1024}KiB"
-            print(f"staged geometry {label}: " + "; ".join(
-                f"{k} {row[k]['device_ms']:.4f} ms, "
-                f"{row[k]['blocks_over_budget']} of {row['blocks']} blocks "
-                f"over budget, {row[k]['copied_bytes']} bytes copied"
-                for k in ("fused", "split")), flush=True)
-            out[label] = row
-    finally:
-        warp.STAGED_BLOCK, warp.STAGE_BYTES = saved
-    return out
-
-
-def phase_strip_dma(rng, sweep=False):
-    """K5's A/B, as tools/tpu_strip_dma_probe.py runs it on the TPU:
-    batch 64 of 1920x1080 bf16 planes (canvas (a), each frame rolled
-    along x by up to 99 px), one 192x192 mesh grid per frame from a
-    seeded ROI (centre 960+-200, 540+-100, sides 350-640 px, rotation
+def phase_strip_dma(rng):
+    """K5's A/B configuration, as tools/tpu_strip_dma_probe.py runs it on
+    the TPU: batch 64 of 1920x1080 bf16 planes (canvas (a), each frame
+    rolled along x by up to 99 px), one 192x192 mesh grid per frame from
+    a seeded ROI (centre 960+-200, 540+-100, sides 350-640 px, rotation
     +-0.3 rad).  The gather strip kernel and the staged kernel with one
     fused copy and with three per-channel copies, once each with the
-    counts set to 0 before (this path's launches), bit-exact with each
-    other, then timed in turns; with ``sweep``, the staged kernel at
-    each of ``STAGED_GEOMETRIES`` too.  Returns (launches, {entry:
-    kernels line numbers}, numbers)."""
+    counts set to 0 before (this path's launches): the staged outputs
+    bit-exact with the gather's, which is within KERNEL_TOL of the plain
+    version, and both variants counting the same windows.  Returns
+    (launches, the max abs error)."""
     phase("strip_dma")
     b = BATCH["strip_dma"]
     canvas = canvas_1080p(load_image)
@@ -3160,346 +2511,149 @@ def phase_strip_dma(rng, sweep=False):
     with torch.inference_mode():
         gx, gy, _ = image_ops._source_coords(
             torch.from_numpy(rois).cuda(), (192, 192), False, False)
-    grids = [(gx, gy)]
-    runs = strip_warp_calls(planes, [grids])
+    xs, ys = flat([(gx, gy)])
+    sx, sy = stacked([(gx, gy)])
     reset_counts()
-    outs = {k: fn()[0] for k, fn in runs.items()}
+    gather = warp.warp_bilinear_strips(planes, xs, ys)
+    staged = {copies: warp.warp_bilinear_strips_staged(planes, sx, sy, copies)
+              for copies in ("fused", "split")}
     torch.cuda.synchronize()
     launches = launch_counts()
     assert launches == only(warp_bilinear_strips=1,
                             warp_strips_staged_fused=1,
                             warp_strips_staged_split=1), launches
-    for k in ("staged_fused", "staged_split"):
-        assert torch.equal(outs[k], outs["gather"]), k
-    sx, sy = stacked(grids)
+    for copies, out in staged.items():
+        assert torch.equal(out, gather), copies
+    err = float((gather - warp.warp_bilinear_strips_plain(planes, xs, ys))
+                .abs().max())
+    assert err <= KERNEL_TOL, err
     counts = {copies: staged_stats(planes, sx, sy, copies)[2:]
               for copies in ("fused", "split")}
     assert counts["fused"] == counts["split"], counts
     copied, over = counts["fused"]
-    blocks = staged_blocks(sx)
-    times = time_in_turns(runs)
-    xs, ys = flat(grids)
-
-    def staged(copies):
-        return lambda p, x, y: warp.warp_bilinear_strips_staged(
-            p, x.view(gx.shape), y.view(gy.shape), copies)
-
-    # the plain version's and grid_sample's times and the bound, shared
-    # by both variants (the same function on the same inputs)
-    base = time_kernel(staged("fused"), warp.warp_bilinear_strips_plain,
-                       planes, [(xs, ys)])
-    dev = {k: queued_ms(fn) for k, fn in runs.items()}
-    timed = {f"warp_strips_{k}": dict(base, ms=statistics.mean(times[k]),
-                                      device_ms=dev[k])
-             for k in ("staged_fused", "staged_split")}
-    numbers = {f"strip_dma_b{b}": {
-        "grids": f"{b} x 192x192 mesh grids, 1920x1080 bf16 planes",
-        "bit_exact": True, "blocks": blocks, "blocks_over_budget": over,
-        "copied_bytes": copied,
-        **{f"{k}_ms": v for k, v in times.items()},
-        **{f"{k}_device_ms": v for k, v in dev.items()},
-        "bound_ms": base["bound_ms"], "bound_bytes": base["bound_bytes"],
-        "plain_ms": base["plain_ms"], "library_ms": base["library_ms"],
-        "library_device_ms": base["library_device_ms"]}}
-    if sweep:
-        numbers[f"staged_geometry_b{b}"] = sweep_staged_geometry(
-            planes, sx, sy, outs["gather"])
-    g, f, sp = (statistics.mean(times[k]) for k in
-                ("gather", "staged_fused", "staged_split"))
-    print(f"strip_dma b{b}: gather {g:.4f} ms, staged fused copy {f:.4f} "
-          f"ms, staged split copies {sp:.4f} ms (turns {times}; device "
-          f"{dev}); bound "
-          f"{base['bound_ms']:.4f} ms; bit-exact; {over} of {blocks} "
-          f"blocks over the window budget; the windows copied {copied} "
-          f"bytes (counted by the kernel), the gather's bound touches "
-          f"{base['bound_bytes']}", flush=True)
-    return launches, timed, numbers
+    print(f"strip_dma b{b}: both staged variants bit-exact with the gather, "
+          f"max abs err {err:.3g}; {over} of {staged_blocks(sx)} blocks over "
+          f"the window budget, the windows copied {copied} bytes (counted "
+          f"by the kernel)", flush=True)
+    return launches, err
 
 
-def net_turns(cascade, batch, size, per_op, tol):
-    """The cascade's detector net on this batch's detection input, and
-    the cascade, with the residual runs op by op (``per_op``) and on the
-    fused kernel, in turns (op by op, fused, fused, op by op); the two
-    nets' outputs agree within ``tol`` relative to the raw outputs
-    (which reach ~1e4: the score logits)."""
-    fused_net = cascade._det_net
+def check_back_net(cascade, batch, size, per_op, tol):
+    """The cascade's detector net on this batch's detection input with
+    the residual runs on the fused kernel and op by op (``per_op``): the
+    two nets' outputs agree within ``tol`` relative to the raw outputs
+    (which reach ~1e4: the score logits).  Returns the difference."""
     with torch.inference_mode(), exact_f32():
         planes = cascade._prepare_frame(batch, size)
         dx, dy, _ = cascade._whole_frame_coords(size)
         det_in = image_ops._normalize_pixels(
             image_ops.separable_sample_planar(planes, dx, dy), (-1.0, 1.0),
             True)
-        err = max(float((a - b_).abs().max()) / max(1.0, float(
-            b_.abs().max())) for a, b_ in zip(fused_net(det_in),
-                                               per_op(det_in)))
-        assert err <= tol, err
-        ab = {"net_ms": {"op_by_op": [], "fused": []},
-              "cascade_ms": {"op_by_op": [], "fused": []},
-              "fused_vs_op_by_op_max_rel_err": err}
-        for label, net in (("op_by_op", per_op), ("fused", fused_net),
-                           ("fused", fused_net), ("op_by_op", per_op)):
-            ab["net_ms"][label].append(median_ms(lambda: net(det_in),
-                                                 reps=10)[0])
-            cascade._det_net = net
-            ab["cascade_ms"][label].append(median_ms(lambda: cascade(batch),
-                                                     reps=10)[0])
-        cascade._det_net = fused_net
-    return ab
+        err = max(float((a - b).abs().max()) / max(1.0, float(
+            b.abs().max())) for a, b in zip(cascade._det_net(det_in),
+                                            per_op(det_in)))
+    assert err <= tol, err
+    return err
 
 
-def throughput(cascade, batch, launches, reps):
-    """Frames/s of ``cascade`` (a FaceCascade or an EmbedCascade) on
-    ``batch`` (first checked for its launches and for a valid face, with
-    a valid mesh where there is one, in every frame)."""
+def check_batch(cascade, batch, launches):
+    """One call of ``cascade`` (a FaceCascade or an EmbedCascade) on
+    ``batch``: its launches ``launches``, and a valid face, with a valid
+    mesh where there is one, in every frame."""
     res, n = counted(lambda: cascade(batch))
     assert n == launches, (n, launches)
     valid = int(getattr(res, "mesh_valid", res.face_valid).sum())
     assert valid == batch.shape[0], f"{valid} of {batch.shape[0]} faces"
-    ms, windows = median_ms(lambda: cascade(batch), reps=reps)
-    return {"frames_per_s": batch.shape[0] * 1e3 / ms, "ms_per_batch": ms,
-            "windows_ms": windows}
 
 
-def launch_queue_depth():
-    """How many small launches the host enqueues behind a card sleeping
-    200 ms before a launch blocks (None: 4,096 did not block).  A call
-    with more launches than this cannot be hidden behind a sleep, which
-    is why the bench's device-only latencies replay a CUDA graph."""
-    x = torch.zeros(1, device="cuda")
-    x.add_(1)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(bench.sleep_cycles(200.0))
-    t0 = time.perf_counter()
-    depth = None
-    for i in range(4096):
-        x.add_(1)
-        if time.perf_counter() - t0 > 0.1:      # blocked behind the sleep
-            depth = i
-            break
-    torch.cuda.synchronize()
-    return depth
+def kernel_err(kernel, plain, planes, calls):
+    """The largest difference of ``kernel(planes, *args)`` from
+    ``plain(planes, *args)`` over each ``args`` of ``calls``, within
+    KERNEL_TOL."""
+    err = max(float((kernel(planes, *args) - plain(planes, *args))
+                    .abs().max()) for args in calls)
+    assert err <= KERNEL_TOL, err
+    return err
 
 
-def phase_numbers(rng, trace, sweep=False):
-    """Throughput, stage times and the kernels' times; returns (numbers,
-    {kernel: time_kernel dict})."""
-    phase("numbers")
-    numbers = {}
-    timed = {}
+def phase_batches(rng):
+    """The main path's kernels and cascades at the batches of the bench's
+    rows, each call's launches counted: K1 against its plain version on
+    the grids of a FaceCascade call over 32 540x360 frames and K2 on those
+    of a planar call over 64 1920x1080 frames; FaceCascade with bf16 nets
+    at 540x360 batch 64, and planar at 1920x1080 batch 64 and 3840x2160
+    batch 8 with f32 and with bf16 nets (``check_batch``); the BACK
+    detector at 540x360 batch 64 with its residual runs on the fused
+    kernel and op by op, f32 within BLOCK_TOL_F32 and bf16 within
+    BLOCK_TOL_BF16.  Returns the max abs errors {kernel: err}."""
+    phase("batches")
+    errs = {}
     frames = np.stack([load_image(ROT / n) for n in FRAMES_540])
     size = (540, 360)
-    cascade = FaceCascade()
-    fused = cascade._det_net.fused_launches()
-    chained = cascade_epilogues(cascade)
     bf16 = torch.bfloat16
+    cascade = FaceCascade()
     cascade16 = FaceCascade(compute_dtype=bf16)
+    fused = cascade._det_net.fused_launches()
     fused16 = cascade16._det_net.fused_launches()
+    chained = cascade_epilogues(cascade)
 
-    # the convolution epilogue at the main path's shapes, together and
-    # one by one
-    cases = epilogue_cases(rng)
-    timed["conv_epilogue"] = time_epilogue(cases)
-    numbers["conv_epilogue"] = {"all": timed["conv_epilogue"],
-                                **{label: time_epilogue([(label, args)])
-                                   for label, args in cases}}
-    for label, row in numbers["conv_epilogue"].items():
-        print(f"conv_epilogue {label}: {row['device_ms']:.4f} ms device, "
-              f"{row['bound_ms']:.4f} ms bytes bound "
-              f"({100 * row['bound_ms'] / row['device_ms']:.1f}%), op by "
-              f"op {row['plain_ms']:.4f} ms", flush=True)
-    del cases
-
-    # the split-TF32 convolution at R100's 12 routed shapes at 128 crops,
-    # together (one of each shape) and one by one, against cuDNN's f32
-    # convolution
-    cases = conv_tc_cases(rng)
-    timed["conv3x3_tc"] = time_conv_tc(cases)
-    numbers["conv3x3_tc"] = {"all": timed["conv3x3_tc"],
-                             **{case[0]: time_conv_tc([case])
-                                for case in cases}}
-    for label, row in numbers["conv3x3_tc"].items():
-        print(f"conv3x3_tc {label}: {row['device_ms']:.4f} ms device "
-              f"({row['tflop_per_s']:.1f} TFLOP/s), bound "
-              f"{row['bound_ms']:.4f} ms "
-              f"({100 * row['bound_ms'] / row['device_ms']:.1f}%), cuDNN "
-              f"f32 {row['library_device_ms']:.4f} ms "
-              f"({row['library_tflop_per_s']:.1f} TFLOP/s)", flush=True)
-        # the route takes no shape at which cuDNN's f32 choice is faster
-        assert row["device_ms"] < row["library_device_ms"], (label, row)
-    del cases
-
-    # the fused block at the main path's shapes (the BACK detector's four
-    # runs at batch 64, together and one by one; the bf16 detector's in
-    # bf16) and at K3/K4's shape
-    # f32 (K3) and bf16 (K4) on the same runs: the same inputs and the
-    # f32 detector's weights (rounded to bf16 by the bf16 kernel's form)
-    cases = detector_runs(cascade._det_net, rng, BATCH["fused"])
-    for dtype, key, entry in ((torch.float32, "", "fused_dw_pw_block_f32"),
-                              (bf16, "_bf16", "fused_dw_pw_block_bf16")):
-        timed[entry] = time_fused(cases, dtype)
-        numbers[f"fused_runs{key}_b{BATCH['fused']}"] = {
-            "all": timed[entry],
-            **{label: time_fused([(label, x, w)], dtype)
-               for label, x, w in cases}}
-        if sweep:
-            numbers[f"fused_sweep{key}_b{BATCH['fused']}"] = sweep_tilings(
-                cases, dtype)
-    # K3's two designs of the 1x1 at R1 and R4
-    numbers[f"k3_probe_b{BATCH['fused']}"] = probe_f32_designs(
-        [cases[0], cases[3]])
-    del cases
-    x, w = prototype_inputs(BATCH["k3"])
-    numbers[f"fused_k3_f32_b{BATCH['k3']}"] = time_fused(
-        [("K3", x, w)], torch.float32)
-    numbers[f"fused_k4_bf16_b{BATCH['k3']}"] = time_fused([("K4", x, w)],
-                                                          bf16)
-    del x, w
-
-    # K1 at the shapes one infer_batch of 32 540x360 frames gives it
     b = BATCH["warp_540p"]
     planes, grids = stage_coords(
         cascade,
         torch.from_numpy(np.tile(frames, (b // 4, 1, 1, 1))).cuda(), size)
-    calls = [([(x, y, x.shape[-1]) for x, y in g],) for g in grids]
-    timed["warp_bilinear"] = time_kernel(
+    errs["warp_bilinear"] = kernel_err(
         warp.warp_bilinear_segments, warp.warp_bilinear_segments_plain,
-        planes, calls, [flat(g) for g in grids])
-    # the same launches without the operator's dispatch: the CUDA
-    # implementation called directly (the wrapper's checks skipped too)
-    direct = [([x for x, _, _ in segs], [y for _, y, _ in segs],
-               [w for _, _, w in segs]) for (segs,) in calls]
-    timed["warp_bilinear"]["direct_ms"], _ = median_ms(
-        lambda: [warp._segments_cuda(planes, *args) for args in direct],
-        reps=50)
-    numbers[f"warp_b{b}"] = {
-        "calls": ["mesh 192x192 (1 segment)", "iris 2x64x64 (2 segments)"],
-        **timed["warp_bilinear"]}
+        planes, [([(x, y, x.shape[-1]) for x, y in g],) for g in grids])
+    print(f"warp_bilinear_segments on the cascade's grids at 540x360 b{b}: "
+          f"max abs err {errs['warp_bilinear']:.3g}", flush=True)
 
-    # cascade throughput at batch 64 (the four 540p frames, x16), the
-    # uint8 batch already on the card, f32 and bf16 nets
     b = BATCH["540p"]
     batch = torch.from_numpy(np.tile(frames, (b // 4, 1, 1, 1))).cuda()
-    ms, windows = median_ms(lambda: cascade(batch), reps=10)
-    numbers[f"cascade_b{b}"] = {"frames_per_s": b * 1e3 / ms,
-                                "ms_per_batch": ms, "windows_ms": windows}
-    numbers[f"cascade_bf16_b{b}"] = throughput(
-        cascade16, batch,
-        only(warp_bilinear=2, fused_dw_pw_block_bf16=fused16), reps=10)
-    if trace is not None:
-        numbers[f"trace_b{b}"] = trace_cascade(cascade, batch, trace,
-                                               f"cascade_b{b}")
-    numbers["launch_queue_depth"] = launch_queue_depth()
+    check_batch(cascade16, batch,
+                only(warp_bilinear=2, fused_dw_pw_block_bf16=fused16))
+    for net, dtype, tol in ((cascade, torch.float32, BLOCK_TOL_F32),
+                            (cascade16, bf16, BLOCK_TOL_BF16)):
+        err = check_back_net(net, batch, size,
+                             back_net(fuse_blocks=False, dtype=dtype), tol)
+        print(f"BACK net {str(dtype)[6:]} 540x360 b{b}: fused vs op by op "
+              f"{err:.3g} of the outputs' magnitude (tolerance {tol:g})",
+              flush=True)
+    del batch, planes, grids
 
-    # the BACK net and the cascade with the residual runs op by op and on
-    # the fused kernel, in turns, with f32 and with bf16 nets
-    numbers[f"back_net_b{b}"] = net_turns(cascade, batch, size,
-                                          back_net(fuse_blocks=False),
-                                          BLOCK_TOL_F32)
-    numbers[f"back_net_bf16_b{b}"] = net_turns(
-        cascade16, batch, size, back_net(fuse_blocks=False, dtype=bf16),
-        BLOCK_TOL_BF16)
-
-    # per-stage times at batch 64 on the stage inputs of one run
-    with torch.inference_mode(), exact_f32():
-        planes = cascade._prepare_frame(batch, size)
-        dets, _, _ = cascade._detect_stage(planes, size)
-        roi = cascade._face_roi_from_det(dets, size)
-        _, _, lroi, rroi = cascade._mesh_half(planes, roi, size)
-        mesh_in = torch.rand(b, 192, 192, 3, device=planes.device)
-        iris_in = torch.rand(2 * b, 64, 64, 3, device=planes.device)
-
-        def detect():
-            cascade._detect_stage(cascade._prepare_frame(batch, size), size)
-
-        def mesh_warp():
-            x, y, _ = image_ops._source_coords(roi, (192, 192), False,
-                                               False)
-            image_ops._normalize_pixels(
-                warp.warp_sample_multi(planes, [(x, y)])[0], (0.0, 1.0),
-                True)
-
-        def iris_warp():
-            a = image_ops._source_coords(lroi, (64, 64), True, False)
-            c = image_ops._source_coords(rroi, (64, 64), True, True)
-            image_ops._normalize_pixels(torch.stack(
-                warp.warp_sample_multi(planes, [a[:2], c[:2]]), 1),
-                (0.0, 1.0), True)
-
-        stages = {"detect": detect, "mesh_warp": mesh_warp,
-                  "mesh_cnn": lambda: cascade._mesh_net(mesh_in),
-                  "iris_warp": iris_warp,
-                  "iris_cnn": lambda: cascade._iris_net(iris_in)}
-        numbers[f"stages_b{b}_ms"] = {k: median_ms(f, reps=10)[0]
-                                      for k, f in stages.items()}
-    del batch, planes, mesh_in, iris_in
-
-    # the strip kernel's tiers: 1080p at batch 64 and 4K at batch 8,
-    # planar input, frames built like bench.py's rows from canvas (a),
-    # f32 and bf16 nets; the cascade's two strip warp calls on the gather
-    # kernel and on both staged variants, in turns
     planar = FaceCascade(input_layout="planar")
     planar16 = FaceCascade(input_layout="planar", compute_dtype=bf16)
-    staged_faster = []
     for label, canvas, b in (
             ("1080p", canvas_1080p(load_image), BATCH["1080p"]),
             ("4k", canvas_1080p(load_image, 4, (3840, 2160)),
              BATCH["4k"])):
         hbatch = hires_batch(canvas, b, rng)
-        numbers[f"cascade_{label}_b{b}"] = throughput(
-            planar, hbatch,
-            only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused,
-                 conv_epilogue=chained), reps=5)
-        numbers[f"cascade_bf16_{label}_b{b}"] = throughput(
-            planar16, hbatch,
-            only(warp_bilinear_strips=2, fused_dw_pw_block_bf16=fused16),
-            reps=5)
-        if trace is not None:
-            numbers[f"trace_{label}_b{b}"] = trace_cascade(
-                planar, hbatch, trace, f"cascade_{label}_b{b}")
-            if label == "1080p":
-                numbers[f"trace_bf16_{label}_b{b}"] = trace_cascade(
-                    planar16, hbatch, trace, f"cascade_bf16_{label}_b{b}")
-        size = (canvas.shape[1], canvas.shape[0])
-        planes, grids = stage_coords(planar, hbatch, size)
+        check_batch(planar, hbatch,
+                    only(warp_bilinear_strips=2, fused_dw_pw_block_f32=fused,
+                         conv_epilogue=chained))
+        check_batch(planar16, hbatch,
+                    only(warp_bilinear_strips=2,
+                         fused_dw_pw_block_bf16=fused16))
         if label == "1080p":
-            timed["warp_bilinear_strips"] = time_kernel(
+            planes, grids = stage_coords(planar, hbatch,
+                                         (canvas.shape[1], canvas.shape[0]))
+            errs["warp_bilinear_strips"] = kernel_err(
                 warp.warp_bilinear_strips, warp.warp_bilinear_strips_plain,
                 planes, [flat(g) for g in grids])
-            numbers[f"warp_strips_1080p_b{b}"] = {
-                "calls": ["mesh 192x192", "iris 2x64x64"],
-                **timed["warp_bilinear_strips"]}
-        turns = time_in_turns(strip_warp_calls(planes, grids))
-        numbers[f"strip_warps_{label}_b{b}"] = {
-            "calls": ["mesh 192x192", "iris 2x64x64"],
-            **{f"{k}_ms": v for k, v in turns.items()}}
-        staged_faster.append(statistics.mean(turns["staged_fused"])
-                             < statistics.mean(turns["gather"]))
-        print(f"cascade strip warps {label} b{b} (ms, in turns): {turns}",
-              flush=True)
-        del planes, grids, hbatch
-    # the cascade keeps the gather kernel unless the staged one wins both
-    numbers["staged_fused_faster_at_1080p_and_4k"] = all(staged_faster)
-
-    # K=4 faces per frame: canvas (c) at batch 32
-    b = BATCH["k4"]
-    multi = FaceCascade(max_faces=4)
-    grid = torch.from_numpy(np.stack([canvas_grid(load_image)] * b)).cuda()
-    res, n = counted(lambda: multi(grid))
-    assert n == only(warp_bilinear=2, fused_dw_pw_block_f32=fused,
-                     conv_epilogue=chained), n
-    faces = int(res.mesh_valid.sum())
-    assert faces == 4 * b, faces
-    ms, windows = median_ms(lambda: multi(grid), reps=5)
-    numbers[f"multiface_k4_b{b}"] = {"faces_per_s": faces * 1e3 / ms,
-                                   "ms_per_batch": ms,
-                                   "windows_ms": windows}
-    return numbers, timed
+            print(f"warp_bilinear_strips on the cascade's grids at {label} "
+                  f"b{b}: max abs err {errs['warp_bilinear_strips']:.3g}",
+                  flush=True)
+            del planes, grids
+        print(f"FaceCascade planar {label} b{b}, f32 and bf16: each call's "
+              f"launches, a face in every frame", flush=True)
+        del hbatch
+    return errs
 
 
 # python -m tpu_face_torch.bench's arguments in the bench phase: its
-# rows at batch 64, short windows (every row on, hires included)
-BENCH_ARGS = ["--batch", "64", "--iters", "3", "--warmup", "1",
-              "--repeats", "2"]
+# rows at batch 64, the shortest windows it takes (every row on, hires
+# included)
+BENCH_ARGS = ["--batch", "64", "--iters", "1", "--warmup", "0",
+              "--repeats", "1"]
 
 
 def phase_bench(smi):
@@ -3507,9 +2661,8 @@ def phase_bench(smi):
     bf16 nets (BENCH_ARGS), the counts set to 0 before and read after:
     each run's gate passed in its type, every row of ``bench.ROWS``
     present and positive (``p50_aot_b8_ms`` through an executable), the
-    record naming this card.  Returns (launches, {dtype: record})."""
+    record naming this card.  Returns the launches."""
     phase("bench")
-    records = {}
     reset_counts()
     for dtype in ("f32", "bf16"):
         out = io.StringIO()
@@ -3526,10 +2679,9 @@ def phase_bench(smi):
         assert record["device"]["kind"] == torch.cuda.get_device_name(0)
         assert record["device"]["nvidia_smi"] in smi, (record, smi)
         print(f"bench {dtype}: {json.dumps(record)}", flush=True)
-        records[dtype] = record
     launches = launch_counts()
     print(f"launches of the bench: {launches}", flush=True)
-    return launches, records
+    return launches
 
 
 # ---- the cached programs (tpu_face_torch.programs) ---------------------
@@ -3630,10 +2782,9 @@ def hold_steps(label, tracker, steps, size):
     return worst
 
 
-def replay_kernels(obj, frames, label, out):
+def replay_kernels(obj, frames):
     """torch.profiler over one cached call (a graph replay): {kernel
-    name: launches} of what the device ran.  The table goes into ``out``
-    when given."""
+    name: launches} of what the device ran."""
     from torch.profiler import ProfilerActivity, profile
     obj(frames)
     torch.cuda.synchronize()
@@ -3641,19 +2792,13 @@ def replay_kernels(obj, frames, label, out):
                              ProfilerActivity.CUDA]) as prof:
         obj(frames)
         torch.cuda.synchronize()
-    names = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
-    if out is not None:
-        out.mkdir(parents=True, exist_ok=True)
-        (out / f"replay_{label}_kernels.txt").write_text(
-            prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=40))
-    return names
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-# the 540x360 batches of the cached FaceCascade: each held against
-# _forward but the last, and each timed
-GRAPH_BATCHES = (1, 8, 64, 128)
+# the 540x360 batches of the cached FaceCascade, each held against
+# _forward
+GRAPH_BATCHES = (1, 8, 64)
 # the hand-written kernels' function names in csrc/, as the profiler
 # lists them (a substring of the key)
 KERNEL_FUNCS = {"warp_bilinear": "warp_bilinear_kernel",
@@ -3672,69 +2817,33 @@ def kernels_in(names):
     return {k: c for k, c in found.items() if c}
 
 
-def cache_rows(label, cache):
-    """{key label: capture seconds and graph pool bytes} of ``cache``."""
-    rows = {}
-    for key, prog in cache.entries.items():
-        name = key[0] if isinstance(key[0], str) else "/".join(
-            str(k) for k in key[0])
-        shapes = ",".join("x".join(map(str, s)) + f":{str(d)[6:]}"
-                          for s, d in key[1:])
-        rows[f"{label} {name} {shapes}"] = {"capture_s": prog.capture_s,
-                                           "bytes": prog.nbytes}
-    return rows
-
-
-def phase_graphs(trace, exec_numbers):
+def phase_graphs():
     """The cached programs on the card: each object's first call at a
     geometry captures a CUDA graph, every later call replays it.  Each
     cached path against the eager call on the same input; two geometries
     interleaved with a held result; the hand-written kernels found in the
-    profiled replays; capture seconds, graph bytes and host-to-host ms,
-    eager against cached (and the executable's at b8, from
-    ``exec_numbers``).  Returns (launches, numbers)."""
+    profiled replays.  Returns the launches."""
     phase("graphs")
-    t0 = time.perf_counter()
     rot = {n: load_image(ROT / n) for n in GT}
     tile = np.stack([rot[n] for n in FRAMES_540])
-    rows, numbers, caches = {}, {}, {}
     reset_counts()
 
     def frames540(b):
         return torch.from_numpy(np.tile(tile, (b // 4 or 1, 1, 1, 1))[:b]
                                 ).cuda()
 
-    # FaceCascade BACK at 540x360: b1, b8, b64 held against _forward, and
-    # b128 timed; eager against cached host to host, and the cached
-    # call's device time (queued behind a sleep)
-    timing = {}
-    for dt, short in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    # FaceCascade BACK at 540x360, each batch held against _forward
+    for dt in (torch.float32, torch.bfloat16):
         name = str(dt)[6:]
         cascade = FaceCascade(compute_dtype=dt)
-        caches[f"cascade_{name}"] = cascade._cache
         for b in GRAPH_BATCHES:
             x = frames540(b)
             got = cascade(x)
-            if b < GRAPH_BATCHES[-1]:
-                hold_cached(f"FaceCascade {name} 540x360 b{b}", got,
-                            eager_forward(cascade, x), (540, 360),
-                            dt == torch.bfloat16)
-            eager = host_call_ms(lambda: eager_forward(cascade, x), 10)
-            cached = host_call_ms(lambda: cascade(x), 10)
-            device = queued_ms(lambda: cascade(x))
-            timing[f"{name}_b{b}"] = {"eager_ms": eager, "cached_ms": cached,
-                                      "cached_device_ms": device}
-            print(f"FaceCascade {name} 540x360 b{b}: one call host to host "
-                  f"eager {eager:.3f} ms, cached {cached:.3f} ms (device "
-                  f"{device:.3f} ms queued)", flush=True)
-        exe = exec_numbers[f"aot_executable_cascade_{short}_540p_b8"]
-        timing[f"{name}_b8"]["executable_ms"] = exe["host_ms"]["executable"]
-        print(f"FaceCascade {name} 540x360 b8 through the executable "
-              f"(== aot_executable): {exe['host_ms']['executable']:.3f} ms "
-              f"host to host", flush=True)
+            hold_cached(f"FaceCascade {name} 540x360 b{b}", got,
+                        eager_forward(cascade, x), (540, 360),
+                        dt == torch.bfloat16)
         if dt == torch.float32:
             f32_cascade = cascade
-    numbers["graphs_host_ms_540p"] = timing
 
     # two geometries interleaved (540x360 b8, the 704x704 close-up b1),
     # a held result unchanged by the next calls
@@ -3758,18 +2867,15 @@ def phase_graphs(trace, exec_numbers):
     rng = np.random.default_rng(1)
     hires = hires_batch(canvas_1080p(load_image), BATCH["1080p"], rng)
     planar = FaceCascade(input_layout="planar")
-    caches["planar_1080p"] = planar._cache
     hold_cached(f"FaceCascade f32 1920x1080 planar b{BATCH['1080p']}",
                 planar(hires), eager_forward(planar, hires), (1920, 1080))
     grid = torch.from_numpy(np.stack([canvas_grid(load_image)]
                                      * BATCH["k4"])).cuda()
     sparse = FaceCascade(tmodels.FaceDetectionModel.FULL_SPARSE,
                          max_faces=4)
-    caches["full_sparse_k4"] = sparse._cache
     hold_cached(f"FaceCascade FULL_SPARSE K=4 1080x720 b{BATCH['k4']}",
                 sparse(grid), eager_forward(sparse, grid), (1080, 720))
     embed = EmbedCascade(embed_model_path=str(DATA_DIR / "demo"))
-    caches["embed"] = embed._cache
     x8 = frames540(8)
     hold_cached("EmbedCascade f32 540x360 b8", embed(x8),
                 eager_forward(embed, x8), tol=EMBED_TOL)
@@ -3786,7 +2892,6 @@ def phase_graphs(trace, exec_numbers):
                 max_faces=2, redetect_every=3, repair_batch=2))):
         hold_steps(label, tracker, steps, (540, 360))
         cache = tracker.cascade._cache
-        caches[label] = cache
         assert [(k[0], k[1][0][0]) for k in cache.entries] == [
             ("step", 8)], list(cache.entries)
 
@@ -3813,14 +2918,12 @@ def phase_graphs(trace, exec_numbers):
         hold_cached(f"{label}.infer_batch 540x360 b8", got, want,
                     tol=EMBED_TOL if label == "FaceEmbeddings" else MODEL_TOL)
         assert len(model._cache.entries) == 1, label
-        caches[label] = model._cache
     launches = launch_counts()
     print(f"launches of the graphs phase (the warm-ups and captures of "
           f"each first call; a replay makes no wrapper call): {launches}",
           flush=True)
 
     # the kernels in one profiled replay per type and frame tier
-    found = {}
     for label, obj, x, want in (
             ("f32_540p_b8", f32_cascade, x8,
              {"warp_bilinear", "fused_dw_pw_block_f32", "conv_epilogue"}),
@@ -3828,26 +2931,16 @@ def phase_graphs(trace, exec_numbers):
              {"warp_bilinear", "fused_dw_pw_block_bf16"}),
             ("f32_1080p_b64", planar, hires,
              {"warp_bilinear_strips", "conv_epilogue"})):
-        names = replay_kernels(obj, x, label, trace)
-        found[label] = kernels_in(names)
-        assert want <= set(found[label]), (label, want, sorted(names))
+        names = replay_kernels(obj, x)
+        found = kernels_in(names)
+        assert want <= set(found), (label, want, sorted(names))
         # one epilogue launch a chain of the f32 nets, none in bf16
-        assert found[label].get("conv_epilogue", 0) == cascade_epilogues(
-            obj), (label, found[label])
+        assert found.get("conv_epilogue", 0) == cascade_epilogues(obj), (
+            label, found)
         print(f"replay {label}: {sum(names.values())} kernel launches "
               f"({len(names)} kernels by name), the hand-written ones "
-              f"{found[label]}", flush=True)
-    numbers["graphs_replay_kernels"] = found
-
-    for label, cache in caches.items():
-        rows.update(cache_rows(label, cache))
-    for key, row in rows.items():
-        print(f"graph {key}: capture {row['capture_s']:.3f} s, "
-              f"{row['bytes'] / 2**20:.1f} MiB")
-    numbers["graphs_by_key"] = rows
-    numbers["graphs_seconds"] = time.perf_counter() - t0
-    print(f"graphs phase: {numbers['graphs_seconds']:.1f} s", flush=True)
-    return launches, numbers
+              f"{found}", flush=True)
+    return launches
 
 
 # ---- each tracker step as one program (programs.cond) -----------------
@@ -3892,24 +2985,6 @@ def same_step(label, tracker, frames):
     return got
 
 
-def span_ms(fn, reps=10):
-    """Median ms of the card's stream from before one call of ``fn`` to
-    after it (CUDA events), the card synchronized around each call: the
-    device time plus the gaps in which it waited on the host."""
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def nested_cond():
     """``programs.cond`` nested on the card: a captured program of two
     conds, a cuBLAS matmul and an inner cond in one branch and a cuDNN
@@ -3934,8 +3009,8 @@ def nested_cond():
     for p, q in itertools.product(flags, flags):
         with torch.inference_mode(), exact_f32():
             assert torch.equal(prog(x, p, q)[0], fn(x, p, q)[0]), (p, q)
-    print(f"nested cond: captured in {prog.capture_s:.3f} s, each pair of "
-          f"predicates bit-identical with the eager call", flush=True)
+    print("nested cond: each pair of predicates bit-identical with the "
+          "eager call", flush=True)
 
 
 def branch_cases(tracker, frames, blank):
@@ -3955,10 +3030,10 @@ def branch_cases(tracker, frames, blank):
             "mass_loss": (frames, locked._replace(**{field: flags}), 1)}
 
 
-def step_kernels(fn, label, out, calls=2):
+def step_kernels(fn, label, calls=2):
     """{kernel name: launches per call} of ``fn`` from torch.profiler over
     ``calls`` back-to-back calls (each hand-written kernel's count a
-    multiple of ``calls``).  The table goes into ``out`` when given."""
+    multiple of ``calls``)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -3972,11 +3047,6 @@ def step_kernels(fn, label, out, calls=2):
         if e.device_type == torch.autograd.DeviceType.CUDA)
     odd = kernels_in({n: c for n, c in names.items() if c % calls})
     assert not odd, (label, calls, odd)
-    if out is not None:
-        out.mkdir(parents=True, exist_ok=True)
-        (out / f"step_{label}_kernels.txt").write_text(
-            prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=40))
     return {n: c // calls for n, c in names.items()}
 
 
@@ -3989,7 +3059,7 @@ STEP_KERNELS = {"locked": (2, False), "repair": (4, True),
 STEP_SEQ = [()] * 2 + [(2,), (), (1, 3, 5), ()] + [()] * 3 + [(0,), (), ()]
 
 
-def phase_tracker_program(trace):
+def phase_tracker_program():
     """Each tracker step as one captured program (``programs.cond``):
     FaceTracker and MultiFaceTracker K=2, f32 and bf16, 540x360, the
     counts set to 0 before and read after.  At 8 streams the sequence of
@@ -3997,15 +3067,13 @@ def phase_tracker_program(trace):
     2 blanked at step 2), each step bit-identical with the host-branch
     step entered with the same state; one step entry per tracker.  Then,
     at 8 and 64 streams, each branch (locked, repair, forced, mass loss)
-    entered from the same state through both steps: bit-identical, and
-    the host-to-host ms, the program's device ms (queued behind a sleep)
-    and both steps' stream span; at 8 streams two profiled replays of
-    each branch, its warp and fused launches checked (STEP_KERNELS).  Then 12
-    steps over every branch with OneEuro smoothing and ``dt``, after their
-    capture, under ``torch.cuda.set_sync_debug_mode("error")``.  Returns
-    (launches, numbers)."""
+    entered from the same state through both steps, bit-identical; at 8
+    streams two profiled replays of each branch, its warp, epilogue and
+    fused launches checked (STEP_KERNELS).  Then 12 steps over every
+    branch with OneEuro smoothing and ``dt``, after their capture, under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Returns the
+    launches."""
     phase("tracker_program")
-    t0 = time.perf_counter()
     driver = subprocess.run(
         ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -4020,7 +3088,6 @@ def phase_tracker_program(trace):
              "MultiFaceTracker K=2": lambda **kw: tracking.MultiFaceTracker(
                  max_faces=2, **kw)}
     reset_counts()
-    rows, pools = {}, {}
     for (kind, make), dt in itertools.product(kinds.items(),
                                               (f32, torch.bfloat16)):
         name = str(dt)[6:]
@@ -4042,33 +3109,12 @@ def phase_tracker_program(trace):
                 entered(tracker, state, n)
                 same_step(f"{label} {branch}", tracker, x)
 
-                def program():
-                    entered(tracker, state, n)
-                    tracker.step(x)
-
-                def host():
-                    entered(tracker, state, n)
-                    host_step(tracker, x)
-
-                row = {"program_host_ms": host_call_ms(program, 10),
-                       "program_device_ms": queued_ms(program),
-                       "program_span_ms": span_ms(program, 5),
-                       "host_branch_host_ms": host_call_ms(host, 5),
-                       "host_branch_span_ms": span_ms(host, 3)}
-                if branch == "locked":
-                    roi, valid = state[:2]
-                    if roi.dim() == 2:          # FaceTracker: one face each
-                        roi, valid = roi[:, None], valid[:, None]
-                    c = tracker.cascade
-                    with torch.inference_mode(), exact_f32():
-                        row["tracked_device_ms"] = queued_ms(
-                            lambda: c._cache(
-                                "tracked",
-                                lambda *a: tracking._tracked_stages(
-                                    c, *a, (540, 360)), x, roi, valid))
                 if b == 8:
-                    names = step_kernels(
-                        program, f"{kind[:4]}_{name}_{branch}", trace)
+                    def program():
+                        entered(tracker, state, n)
+                        tracker.step(x)
+
+                    names = step_kernels(program, f"{label} {branch}")
                     found = kernels_in(names)
                     warps, detector = STEP_KERNELS[branch]
                     assert found.get("warp_bilinear") == warps, (
@@ -4084,33 +3130,13 @@ def phase_tracker_program(trace):
                     want = (tracker.cascade._det_net.fused_launches()
                             if detector else None)
                     assert found.get(fused) == want, (label, branch, found)
-                    row["replay_kernels"] = found
-                rows[f"{label} {branch}"] = row
-                extra = ""
-                if "tracked_device_ms" in row:
-                    extra += (f"; the tracked program alone "
-                              f"{row['tracked_device_ms']:.3f} ms device")
-                if "replay_kernels" in row:
-                    extra += f"; replay {row['replay_kernels']}"
-                print(f"{label} {branch}: step program "
-                      f"{row['program_host_ms']:.3f} ms host to host "
-                      f"(device {row['program_device_ms']:.3f} ms queued, "
-                      f"span {row['program_span_ms']:.3f} ms); host-branch "
-                      f"step {row['host_branch_host_ms']:.3f} ms (span "
-                      f"{row['host_branch_span_ms']:.3f} ms){extra}",
-                      flush=True)
+                    print(f"{label} {branch}: replay {found}", flush=True)
             entries = tracker.cascade._cache.entries
             steps_keyed = [k for k in entries if k[0] == "step"]
             assert len(steps_keyed) == 1 and steps_keyed[0][1][0][0] == b, \
                 (label, list(entries))
-            pools[label] = entries[steps_keyed[0]].nbytes
-            print(f"{label}: one step program, capture "
-                  f"{entries[steps_keyed[0]].capture_s:.3f} s, "
-                  f"{pools[label] / 2**20:.1f} MiB of pool (the tracked "
-                  f"stages' program alone " + ", ".join(
-                      f"b{k[1][0][0]} {p.nbytes / 2**20:.1f} MiB"
-                      for k, p in entries.items() if k[0] == "tracked")
-                  + ")", flush=True)
+            print(f"{label}: every branch bit-identical with the host-branch "
+                  f"step; one step program", flush=True)
     launches = launch_counts()
     print(f"launches of the tracker_program phase (the warm-ups and "
           f"captures; a replay makes no wrapper call): {launches}",
@@ -4138,14 +3164,10 @@ def phase_tracker_program(trace):
               f"unrepaired, mass loss, forced) with OneEuro smoothing "
               f"under sync debug mode 'error': no synchronizing call",
               flush=True)
-    seconds = time.perf_counter() - t0
-    print(f"tracker_program phase: {seconds:.1f} s", flush=True)
-    return launches, {"tracker_program": rows,
-                      "tracker_program_pool_bytes": pools,
-                      "tracker_program_seconds": seconds}
+    return launches
 
 
-# batch sizes of the kernel, strip_dma and numbers phases
+# batch sizes of the phases' calls
 BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
          "fused": 64, "k3": 256, "strip_dma": 64, "track": 64}
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
@@ -4184,16 +3206,11 @@ def import_port():
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
-    global track_sharded, bench, median_ms, queued_ms, window_ms
-    global programs, Rect, CACHED_CALL, ctc
-    global H100_BYTES_PER_S, H100_F32_FLOPS, H100_BF16_FLOPS
+    global track_sharded, bench, programs, Rect, CACHED_CALL, ctc
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
     from tpu_face_torch import (aot, bench, programs, resolve_device,
                                 tracking)
-    from tpu_face_torch.bench import (H100_BF16_FLOPS, H100_BYTES_PER_S,
-                                      H100_F32_FLOPS, median_ms, queued_ms,
-                                      window_ms)
     from tpu_face_torch.compiler import Graph, build_torch_fn
     from tpu_face_torch.models.face_detection import _DATA_DIR as DATA_DIR
     from tpu_face_torch.models.face_embeddings import l2_normalize
@@ -4214,12 +3231,6 @@ def import_port():
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--trace", type=Path, metavar="DIR",
-                        help="profile three cascade calls per frame size "
-                        "and write the kernel tables and traces into DIR")
-    parser.add_argument("--sweep", action="store_true",
-                        help="time the fused kernel at every tiling of "
-                        "each residual run of the BACK detector")
     parser.add_argument("--compile-executable", nargs=4,
                         metavar=("LABEL", "BATCH", "HEIGHT", "WIDTH"),
                         help="compile one program of == aot_executable "
@@ -4253,7 +3264,6 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     phase_build()
     errs = phase_kernels(rng)
-    errs["conv3x3_tc"] = phase_conv_tc(rng)
     # the paths, each with the counts set to 0 before it and read after.
     # The cascades' main paths are the cached calls (their first call at
     # each geometry counted: the warm-ups and the capture); the phases
@@ -4269,30 +3279,21 @@ def main(argv=None):
     paths["mxu"] = phase_mxu()
     paths["embed_r100"] = phase_embed_r100()
     with eager_calls():
-        paths["tracker"], tracker_numbers = phase_tracker()
-        paths["embed"], embed_numbers = phase_embed(args.trace)
-        paths["aot"], aot_numbers, aot_cascades = phase_aot()
-        paths["aot_executable"], exec_numbers = phase_aot_executable(
-            aot_cascades, aot_numbers["aot_cold_start_540p_b8"])
-    aot_numbers.update(exec_numbers)
-    paths["graphs"], graphs_numbers = phase_graphs(args.trace, exec_numbers)
-    paths["tracker_program"], program_numbers = phase_tracker_program(
-        args.trace)
-    graphs_numbers.update(program_numbers)
+        paths["tracker"] = phase_tracker()
+        paths["embed"] = phase_embed()
+        paths["aot"], aot_cascades = phase_aot()
+        paths["aot_executable"] = phase_aot_executable(aot_cascades)
+    paths["graphs"] = phase_graphs()
+    paths["tracker_program"] = phase_tracker_program()
     with eager_calls():
-        paths["sharded"], sharded_numbers = phase_sharded()
-    paths["strip_dma"], timed, numbers = phase_strip_dma(rng, args.sweep)
-    numbers.update(tracker_numbers)
-    numbers.update(embed_numbers)
-    numbers.update(aot_numbers)
-    numbers.update(graphs_numbers)
-    numbers.update(sharded_numbers)
+        paths["sharded"] = phase_sharded()
+    paths["strip_dma"], err = phase_strip_dma(rng)
+    for name in ("warp_strips_staged_fused", "warp_strips_staged_split"):
+        errs[name] = max(errs[name], err)
     with eager_calls():
-        more_numbers, more_timed = phase_numbers(rng, args.trace,
-                                                 args.sweep)
-    numbers.update(more_numbers)
-    timed.update(more_timed)
-    paths["bench"], numbers["bench"] = phase_bench(smi)
+        for name, err in phase_batches(rng).items():
+            errs[name] = max(errs[name], err)
+    paths["bench"] = phase_bench(smi)
     # the bf16 paths run the bf16 kernel and never the f32 one, and no
     # epilogue
     for counts in (paths["cascade_bf16"], models["bf16"]):
@@ -4333,26 +3334,17 @@ def main(argv=None):
     for key, counts in {**paths, **models}.items():
         if key != "embed_r100":
             assert counts["conv3x3_tc"] == 0, (key, counts)
-    numbers["path_launches"] = paths
-    numbers["models_launches"] = models
-    numbers["device"] = smi
-    numbers["seconds"] = time.perf_counter() - t_start
+    numbers = {"path_launches": paths, "models_launches": models,
+               "device": smi, "seconds": time.perf_counter() - t_start}
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        t = timed[name]
         n = sum(counts[name] for counts in paths.values())
         assert n > 0, (name, paths)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n,
-            "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
-            "ms": t["ms"], "device_ms": t["device_ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library_device_ms": t["library_device_ms"],
-            **{k: t[k] for k in ("bound_f32_fma_ms", "direct_ms")
-               if k in t}})
+            "max_abs_err": errs.get(name)})
 
     print(smi)
     print(json.dumps(numbers))

@@ -4,7 +4,7 @@
 * the operator's plain version is ``F.conv2d`` at strides 1 and 2 and
   paddings 0 and 1, its output channels_last, from either input layout;
   the operand checks;
-* the routing rule (``conv_tc.routes``): ``nets.tc_convs`` counts 98
+* the routing rule (``conv_tc.routes``): a net's ``tc_convs`` holds 98
   convolutions on ArcFace's R100 (``benchmark/models/iresnet.py``, both
   3x3 of each of its 49 units; the stem and the four 1x1 shortcuts stay
   on ``F.conv2d``), none on any bundled graph or on a bf16 net, and the
@@ -47,7 +47,6 @@ from tpu_face_torch.models.face_detection import FaceDetectionModel
 from tpu_face_torch.models.face_embeddings import FaceEmbeddings
 from tpu_face_torch.ops import conv_tc
 from tpu_face_torch.pipeline import EmbedCascade
-from tpu_face_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
 DATA = ROOT / "tpu_face" / "data"
@@ -169,9 +168,7 @@ def r100_view():
 def test_routed_convolutions_counted(request, name, dtype, routed):
     graph = (request.getfixturevalue("r100_view") if name == "r100"
              else Graph(DATA / f"{name}.npz"))
-    before = profiling.counters["nets.tc_convs"]
     net = TFLiteNet(graph, compute_dtype=dtype)
-    assert profiling.counters["nets.tc_convs"] - before == routed
     assert len(net.tc_convs) == routed
     if name == "r100" and routed:
         # both 3x3 convs of every unit; the stem (3 -> 64) and the four 1x1

@@ -18,7 +18,7 @@
   layout where the skip comes first, and the operand checks;
 * ``torch.export`` of a net with chains holds one operator node a chain
   (its fake implementation) and runs as the live net;
-* the counters ``nets.epilogue_chains`` and ``nets.epilogue_ops``;
+* the chains and the ops they absorb, over the nets built;
 * a skip made in the graph's own layout (a RESHAPE's output, which the
   net turns NCHW as every 4-D activation) is read as the op-by-op ADD
   reads it.
@@ -39,7 +39,6 @@ from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch.compiler.lowering import (Graph, TFLiteNet, _consumers,
                                               _prelu)
 from tpu_face_torch.ops import conv_epilogue as ce
-from tpu_face_torch.utils import profiling
 
 DATA = Path(__file__).resolve().parents[1] / "tpu_face" / "data"
 # graph -> (chains, graph ops the chains hold by op)
@@ -325,12 +324,11 @@ def test_export_runs_the_operator_through_its_fake():
 
 def test_counters_count_each_net_built():
     graph = Graph(DATA / "iris_landmark.npz")
-    before = dict(profiling.counters)
-    TFLiteNet(graph)
-    TFLiteNet(graph, compute_dtype=torch.bfloat16)
-    added = {k: profiling.counters[k] - before.get(k, 0)
-             for k in ("nets.epilogue_chains", "nets.epilogue_ops")}
-    assert added == {"nets.epilogue_chains": 53, "nets.epilogue_ops": 80}
+    nets = (TFLiteNet(graph), TFLiteNet(graph, compute_dtype=torch.bfloat16))
+    # the chains, and the ops they absorb: each chain's but its conv
+    assert sum(len(net.chains) for net in nets) == 53
+    assert sum(sum(net.epilogue_counts.values()) - len(net.chains)
+               for net in nets) == 80
 
 
 def test_abi_test_covers_the_entry_point():

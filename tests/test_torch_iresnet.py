@@ -16,8 +16,7 @@ references ``benchmark/reference/iresnet.py`` and
   op-by-op one and the reference;
 * ``EmbedCascade`` (FULL_SPARSE, K=4) on the small net against the plain
   reference on two gallery canvases, by the benchmark's comparison;
-* ``EmbedCascade``'s spans and its ``embed.crops`` counter in
-  ``utils.profiling``'s record;
+* ``EmbedCascade``'s spans in ``utils.profiling``'s record;
 * the reference's net runs with TF32 off;
 * the small net (fused and op by op) and the downsampling unit at the
   published widths against the JAX package's ``build_jax_fn`` on the
@@ -301,7 +300,6 @@ def test_embed_cascade_spans_and_crop_counter(small, canvases):
     names = {s["name"] for s in got["spans"]}
     assert names == {"embed_cascade.call", "detect", "nms", "embed_crop",
                      "embed"}
-    assert got["counters"]["embed.crops"] == 2 * 4
 
 
 def test_reference_switches_tf32_off(small, monkeypatch):

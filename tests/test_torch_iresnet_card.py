@@ -146,7 +146,6 @@ def test_stamped_graph_spans_sum_to_the_graph(card):
         "programs.copy_in", "programs.graph", "detect", "nms", "embed_crop",
         "embed"}
     assert got["lost_calls"] == 0
-    assert got["counters"]["embed.crops"] == 2 * 8 * 4
     graphs = [s for s in device if s["name"] == "programs.graph"]
     assert len(graphs) == 2
     for g in graphs:

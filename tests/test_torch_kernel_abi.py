@@ -3,7 +3,9 @@
 ``tpu_face_torch/csrc/``, read from the sources on the CPU (no nvcc
 here): each entry point exists, and its parameters, in order, have the
 kinds ctypes passes (a pointer, a 64-bit or a 32-bit int).  A mismatch
-would pass arguments into the wrong parameters on the card.
+would pass arguments into the wrong parameters on the card.  And the
+other way round: every entry point a source declares directly has its
+signature, so a library builds no entry point that nothing binds.
 """
 
 import ctypes
@@ -18,6 +20,7 @@ from tpu_face_torch.ops import _build
 CSRC = Path(_build.__file__).resolve().parents[1] / "csrc"
 ENTRIES = [(lib, fn) for lib, fns in sorted(_build.SIGNATURES.items())
            for fn in sorted(fns)]
+SOURCES = sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def _params(lib: str, fn: str):
@@ -52,3 +55,12 @@ def test_signature_matches_the_c_entry_point(lib, fn):
     params = _params(lib, fn)
     assert [_kind(p) for p in params] == list(argtypes), (fn, params)
     assert params[-1] == "void* stream" and restype is ctypes.c_int
+
+
+@pytest.mark.parametrize("lib", SOURCES)
+def test_every_c_entry_point_has_a_signature(lib):
+    # the entry points declared as ``extern "C" int fn(``; a macro's body
+    # declares ``name``, and its entry points are read by the test above
+    src = (CSRC / f"{lib}.cu").read_text()
+    declared = set(re.findall(r'extern "C" int (\w+)\(', src)) - {"name"}
+    assert declared <= set(_build.SIGNATURES.get(lib, ())), (lib, declared)

@@ -41,8 +41,7 @@ Where it differs from the JAX bench:
 * a row that fails raises: the run exits non-zero and prints no record.
 
 The entry point runs on the CUDA card unless ``--device cpu`` is given,
-and raises without one.  The timing helpers (``median_ms``,
-``queued_ms``) are shared with ``chip_smoke.py``.
+and raises without one.
 """
 
 from __future__ import annotations
@@ -121,26 +120,6 @@ def window_ms(fn, reps):
         fn()
     sync()
     return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def median_ms(fn, reps, windows=3, warmup=2):
-    """Median over ``windows`` of the mean time of ``reps`` calls of
-    ``fn``, from CUDA events, after ``warmup`` calls, and the windows:
-    the call time, the host's launch path included."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times), times
 
 
 def sleep_cycles(ms):

@@ -54,7 +54,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv_epilogue, conv_tc, fused_block
-from ..utils import profiling
 
 # elementwise ops of two operands: {op: fn}
 _BINARY = {"ADD": torch.add, "SUB": torch.sub, "MUL": torch.mul,
@@ -637,9 +636,7 @@ class TFLiteNet(nn.Module):
     ops, the bias added after the convolution (oneDNN adds it inside, so
     the two paths differ there by the bias add's f32 rounding).  The
     chain runs where its last op stands.  ``epilogue_counts`` counts the
-    graph ops the chains hold, by op (``CONV_2D``: the chains), and the
-    counters ``nets.epilogue_chains`` and ``nets.epilogue_ops`` (the ops
-    absorbed into the epilogues) add them up over the nets built.  A bf16
+    graph ops the chains hold, by op (``CONV_2D``: the chains).  A bf16
     net has no chains (its double roundings are the JAX package's), and
     ``fuse_epilogues=False`` runs them op by op.
 
@@ -648,9 +645,8 @@ class TFLiteNet(nn.Module):
     after the PAD folding) runs as ``ops.conv_tc.conv3x3_tc``: the
     split-TF32 kernel on the card, on its weights split here, once, into
     the kernel's hi and lo buffers (``tc<k>_hi``, ``tc<k>_lo``);
-    ``F.conv2d`` on the CPU.  ``tc_convs`` maps their op positions to k,
-    and the counter ``nets.tc_convs`` adds them up over the nets built.  A net
-    with one holds every 4-D activation channels_last, the kernel's
+    ``F.conv2d`` on the CPU.  ``tc_convs`` maps their op positions to k.  A
+    net with one holds every 4-D activation channels_last, the kernel's
     layout (the NHWC input's NCHW view already is); every other net keeps
     the layouts its ops give."""
 
@@ -711,9 +707,6 @@ class TFLiteNet(nn.Module):
             for n in chain["ops"]:
                 self.epilogue_counts[n["op"]] = (
                     self.epilogue_counts.get(n["op"], 0) + 1)
-        profiling.count("nets.epilogue_chains", len(self.chains))
-        profiling.count("nets.epilogue_ops",
-                        sum(len(chain["ops"]) - 1 for chain in self.chains))
         # each chain's convolution's op position
         self._chain_conv = [pos[id(chain["conv"])] for chain in self.chains]
         # op position -> k for each convolution on conv_tc, its weights
@@ -734,7 +727,6 @@ class TFLiteNet(nn.Module):
                 hi, lo = conv_tc.kernel_weights(params[f"t{ins[1]}"])
                 self.register_buffer(f"tc{k}_hi", hi)
                 self.register_buffer(f"tc{k}_lo", lo)
-        profiling.count("nets.tc_convs", len(self.tc_convs))
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)

@@ -51,10 +51,6 @@
 // The depthwise and every FMA part are explicit __fmaf_rn in a fixed
 // order (built with -fmad=false).  The wrapper (fused_block.plan) trades
 // recomputed halo against launches.
-//
-// The other design of the 1x1 that chip_smoke.py's probe times against
-// this one, register-blocked FMAs (layer_fma), is built only into the
-// probe's entry point, fused_dw_pw_block_f32_fma_probe.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -322,97 +318,7 @@ __device__ __forceinline__ void layer_tc(const float* src, float* dst,
   }
 }
 
-// The probe's design of a layer, on the FMA units: the depthwise of
-// `act`'s region into `ys`, a barrier, then the 1x1 register-blocked (4
-// pixels x 8 output channels a thread: 8 shared loads per 64 FMAs) with
-// bias, residual and relu in place over `act`.
 template <int C>
-__device__ __forceinline__ void layer_fma(float* act, float* ys,
-                                          const float* wp, const float* wd,
-                                          const float* bd, const float* bp,
-                                          int bw, int r0, int r1, int c0,
-                                          int rw) {
-  constexpr int kPix = pixel_floats(C);
-  constexpr int kWs = weight_stride(C);
-  constexpr int kP = lane_pixels(C);
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int groups_row = (rw + kP - 1) / kP;
-  const int groups = (r1 - r0) * groups_row;
-  for (int m = threadIdx.x / 32; m * 8 < groups; m += kWarps) {
-    const Group<kP> grp(m * 8 + g, groups, groups_row, bw, r0, c0, rw);
-    const float* win = act + (grp.pix - bw - 1) * kPix + 2 * t;
-#pragma unroll
-    for (int s = 0; s < C / 8; ++s) {
-      float2 y[kP];
-      depthwise<C, kP>(win + 8 * s, bw * kPix, wd, bd, 8 * s + 2 * t, y);
-#pragma unroll
-      for (int q = 0; q < kP; ++q) {
-        if (q < grp.count) {
-          *reinterpret_cast<float2*>(
-              ys + (grp.pix + q) * kPix + 8 * s + 2 * t) = y[q];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  const int npix = (r1 - r0) * rw;
-  const int items = (npix + 3) / 4 * (C / 8);
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int co = 8 * (it % (C / 8));
-    const int q = 4 * (it / (C / 8));
-    int pix[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int lin = min(q + u, npix - 1);
-      const int row = lin / rw;
-      pix[u] = (r0 + row) * bw + c0 + lin - row * rw;
-    }
-    float acc[4][8];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[u][k] = 0.0f;
-    }
-#pragma unroll 2
-    for (int i = 0; i < C; i += 2) {
-      float2 y[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        y[u] = *reinterpret_cast<const float2*>(ys + pix[u] * kPix + i);
-      }
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const float* wr = wp + (i + k) * kWs + co;
-        const float4 wa = *reinterpret_cast<const float4*>(wr);
-        const float4 wb = *reinterpret_cast<const float4*>(wr + 4);
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float yv = k == 0 ? y[u].x : y[u].y;
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            acc[u][o] = __fmaf_rn(wv[o], yv, acc[u][o]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (q + u >= npix) break;
-      float* x = act + pix[u] * kPix + co;
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        x[o] = relu(acc[u][o] + bp[co + o] + x[o]);
-      }
-    }
-  }
-}
-
-// kTc: the 1x1 on the tensor cores (layer_tc), else the probe's layer_fma
-template <int C, bool kTc>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_blocks_kernel(const float* __restrict__ x, float* __restrict__ out,
                         const float* __restrict__ weights, int h, int w,
@@ -465,14 +371,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int r1 = min(oy + e - l - 1, h) - by0;
     const int c0 = max(ox + l + 1, 0) - bx0;
     const int rw = min(ox + e - l - 1, w) - bx0 - c0;
-    if constexpr (kTc) {
-      layer_tc<C>(act + cur * act_floats, act + (cur ^ 1) * act_floats, wp,
-                  wd, bd, bp, bw, r0, r1, c0, rw);
-      cur ^= 1;
-    } else {
-      layer_fma<C>(act, act + act_floats, wp, wd, bd, bp, bw, r0, r1, c0,
-                   rw);
-    }
+    layer_tc<C>(act + cur * act_floats, act + (cur ^ 1) * act_floats, wp, wd,
+                bd, bp, bw, r0, r1, c0, rw);
+    cur ^= 1;
     __syncthreads();   // layer l written before layer l + 1 reads it
   }
 
@@ -489,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int C, bool kTc>
+template <int C>
 int launch(const float* x, float* out, const float* weights, int batch,
            int h, int w, int layers, int tile, void* stream) {
   const int e = tile + 2 * layers;
@@ -506,14 +407,14 @@ int launch(const float* x, float* out, const float* weights, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      fused_blocks_kernel<C, kTc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_blocks_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_x = (w + tile - 1) / tile;
   const int tiles_y = (h + tile - 1) / tile;
   const dim3 grid(tiles_x * tiles_y, batch);
-  fused_blocks_kernel<C, kTc><<<grid, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  fused_blocks_kernel<C><<<grid, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
       x, out, weights, h, w, layers, tile, tiles_x, box_pixels);
   return static_cast<int>(cudaGetLastError());
 }
@@ -537,29 +438,9 @@ extern "C" int fused_dw_pw_block_f32(const float* x, float* out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (c) {
-    case 24: return launch<24, true>(x, out, weights, batch, h, w, layers, tile, stream);
-    case 48: return launch<48, true>(x, out, weights, batch, h, w, layers, tile, stream);
-    case 96: return launch<96, true>(x, out, weights, batch, h, w, layers, tile, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The same run with the 1x1 on the FMA units (layer_fma), for
-// chip_smoke.py's probe of the two designs at the BACK runs R1 (c = 24) and
-// R4 (c = 96) only; the same arguments, c one of 24, 96.
-extern "C" int fused_dw_pw_block_f32_fma_probe(const float* x, float* out,
-                                               const float* weights,
-                                               int batch, int c, int h, int w,
-                                               int layers, int tile,
-                                               void* stream) {
-  if (batch == 0 || h == 0 || w == 0) return 0;
-  if (layers < 1 || tile < 1 || batch > 65535 ||
-      static_cast<int64_t>(c) * h * w >= (int64_t{1} << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (c) {
-    case 24: return launch<24, false>(x, out, weights, batch, h, w, layers, tile, stream);
-    case 96: return launch<96, false>(x, out, weights, batch, h, w, layers, tile, stream);
+    case 24: return launch<24>(x, out, weights, batch, h, w, layers, tile, stream);
+    case 48: return launch<48>(x, out, weights, batch, h, w, layers, tile, stream);
+    case 96: return launch<96>(x, out, weights, batch, h, w, layers, tile, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -89,8 +89,7 @@ SIGNATURES = {
     "warp_bilinear": {"warp_bilinear": _SEGMENT_WARP_SIG},
     "warp_bilinear_strips": {"warp_bilinear_strips_bf16": _WARP_SIG,
                              "warp_bilinear_strips_f32": _WARP_SIG},
-    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG,
-                          "fused_dw_pw_block_f32_fma_probe": _BLOCK_SIG},
+    "fused_dw_pw_block": {"fused_dw_pw_block_f32": _BLOCK_SIG},
     "fused_dw_pw_block_bf16": {"fused_dw_pw_block_bf16": _BLOCK_SIG},
     "warp_strips_staged": {f"warp_strips_staged_{copies}_{t}": _STAGED_SIG
                            for copies in ("fused", "split")

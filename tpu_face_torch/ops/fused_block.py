@@ -55,10 +55,10 @@ SMEM_LIMIT = 232448      # opt-in shared memory per block on an H100
 # The f32 kernel's time model (f32_cost): one CTA's seconds per
 # pixel-channel it computes and per pixel-channel it stages or writes
 # back (as the bf16 kernel's below), per weight it fetches for a layer,
-# and per CTA.  Fitted by least squares (relative error) to chip_smoke.py
-# --sweep's device times of the BACK detector's four runs at batch 64 on
+# and per CTA.  Fitted by least squares (relative error) to the device
+# times of every tiling of the BACK detector's four runs at batch 64 on
 # an H100 SXM; with them plan picks each run's tiling within 5% of the
-# sweep's best.
+# fastest.
 F32_PX_S = 4.08e-10
 F32_STAGE_S = 2.10e-10
 F32_WEIGHT_S = 5.58e-10
@@ -68,9 +68,9 @@ F32_CTAS_PER_SM = 2      # __launch_bounds__(256, 2)
 # pixel-channel it computes (a layer's depthwise, 1x1 and epilogue) and
 # per pixel-channel it stages in or writes back, with 1 or
 # BF16_CTAS_PER_SM CTAs sharing an SM.  Fitted by least squares (relative
-# error) to chip_smoke.py --sweep's device times of the BACK detector's
-# four runs at batch 64 on an H100 SXM (199 tilings); with them plan picks
-# each run's tiling within 5% of the sweep's best.
+# error) to the device times of every tiling of the BACK detector's four
+# runs at batch 64 on an H100 SXM (199 tilings); with them plan picks
+# each run's tiling within 5% of the fastest.
 BF16_PX_S = 4.75e-10
 BF16_STAGE_S = 4.47e-10
 BF16_CTAS_PER_SM = 2     # __launch_bounds__(256, 2): its registers allow 2

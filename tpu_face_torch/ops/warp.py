@@ -64,9 +64,9 @@ FLAT_WIDTH = 16
 # Shared memory of one of the staged kernel's two window buffers (all
 # three channels): 12 KiB holds a block's bf16 window at up to ~2.5x
 # downsampling and keeps the CTA small, so that many CTAs' copies are in
-# flight on an SM (the fastest of the geometries chip_smoke.py --sweep
-# times: PERF.md).  A block whose window does not fit reads the rest of
-# its taps from global memory.
+# flight on an SM (the fastest of four block geometries and budgets timed
+# on an H100).  A block whose window does not fit reads the rest of its
+# taps from global memory.
 STAGE_BYTES = 12 * 1024
 # (rt, cw): output rows and columns of one block of the staged kernel,
 # one thread per output pixel

@@ -654,11 +654,6 @@ class EmbedCascade(_DetectorBase):
 
     _net_names = ("_det_net", "_embed_net")
 
-    def __call__(self, images):
-        # crops embedded a call: every face slot of every frame
-        profiling.count("embed.crops", images.shape[0] * self.max_faces)
-        return super().__call__(images)
-
     # batched API (infer_batch / __call__): _DetectorBase's; returns an
     # EmbedResult
 

@@ -33,10 +33,7 @@ recorded with ``collect()``.  While it is on:
 Off, ``stage`` is a shared null context and nothing is built: the
 stamp library is built and loaded on the first ``enable()`` on a card
 (or the first traced capture).  ``counters`` are always on
-(``programs.captures``: one add per capture; ``embed.crops``: the crops
-an ``EmbedCascade`` call embeds, B*K; ``nets.epilogue_chains`` and
-``nets.epilogue_ops``: each net built adds its epilogue chains and the
-ops they absorb).
+(``programs.captures``: one add per capture).
 """
 
 import collections
