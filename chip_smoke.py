@@ -863,7 +863,9 @@ def check_conv_tc(rng):
     R100's routed shapes (CONV_TC_SHAPE, CONV_TC_CROPS crops): one launch,
     a channels_last result, its error within CONV_TC_ERR_RATIO times
     cuDNN's f32 convolution's (TF32 off), and the kernel with TF32 allowed
-    (one product a step) failing that bound.  Returns the kernel's max
+    (one product a step) failing that bound; then its input affine at one
+    of R100's first convs (CONV_TC_AFFINE_SHAPE): one launch, bit-equal
+    to ATen's MUL, then ADD, then the kernel.  Returns the kernel's max
     abs error against the f64 result."""
     side, ci, co, stride = CONV_TC_SHAPE
     label = f"{side}x{side}x{ci}->{co}/s{stride}"
@@ -890,6 +892,29 @@ def check_conv_tc(rng):
     print(f"conv3x3_tc {label}: error / max |y| {rel}", flush=True)
     bound = CONV_TC_ERR_RATIO * rel["cudnn_f32"]
     assert rel["kernel"] <= bound < rel["tf32"], (label, rel)
+
+    side, ci, co = CONV_TC_AFFINE_SHAPE
+    label = f"{side}x{side}x{ci}->{co}/s1 with its BN"
+    x = torch.from_numpy(rng.standard_normal(
+        (CONV_TC_CROPS, side, side, ci), dtype=np.float32)).cuda()
+    x = x.permute(0, 3, 1, 2)
+    w = torch.from_numpy(rng.standard_normal(
+        (co, ci, 3, 3), dtype=np.float32) / (3 * ci ** 0.5)).cuda()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, ci).astype(
+        np.float32)).cuda()
+    shift = torch.from_numpy(rng.uniform(3.0, 4.0, ci).astype(
+        np.float32)).cuda()
+    hi, lo = ctc.kernel_weights(w)
+    with torch.inference_mode(), exact_f32():
+        got, n = counted(lambda: ctc.conv3x3_tc(x, w, hi, lo, 1, 1, scale,
+                                                shift))
+        assert n == only(conv3x3_tc=1), (label, n)
+        t = x * scale[:, None, None]
+        want = ctc.conv3x3_tc(t + shift[:, None, None], w, hi, lo, 1, 1)
+    equal = bool(torch.equal(got, want))
+    print(f"conv3x3_tc {label}: bit-equal with MUL, ADD, then the kernel "
+          f"{equal}", flush=True)
+    assert equal, label
     return diff["kernel"]
 
 
@@ -897,6 +922,9 @@ def check_conv_tc(rng):
 # Cout, stride; padding 1) and its crops a call (the card tests,
 # tests/test_torch_conv_tc_card.py, hold all twelve routed shapes)
 CONV_TC_SHAPE = (56, 128, 128, 2)
+# one of R100's first convs of a unit (side, Cin, Cout; stride 1, padding
+# 1), whose unit's leading BatchNorm it reads through its input affine
+CONV_TC_AFFINE_SHAPE = (28, 128, 128)
 CONV_TC_CROPS = 128
 # the kernel's largest error, over the f64 output's largest magnitude, at
 # most this many times cuDNN's f32 convolution's (TF32 off) at the shape

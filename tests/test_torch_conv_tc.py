@@ -2,13 +2,20 @@
 ``csrc/conv3x3_tc.cu``) and its route in the lowered nets, on the CPU:
 
 * the operator's plain version is ``F.conv2d`` at strides 1 and 2 and
-  paddings 0 and 1, its output channels_last, from either input layout;
-  the operand checks;
+  paddings 0 and 1, its output channels_last, from either input layout,
+  and with the input affine ``F.conv2d`` of ``x * scale + shift``, bit
+  for bit (the padding zero, not the shift); the operand checks;
 * the routing rule (``conv_tc.routes``): a net's ``tc_convs`` holds 98
   convolutions on ArcFace's R100 (``benchmark/models/iresnet.py``, both
   3x3 of each of its 49 units; the stem and the four 1x1 shortcuts stay
   on ``F.conv2d``), none on any bundled graph or on a bf16 net, and the
   rule's bounds one by one;
+* the absorbed affines (``lowering._input_affine``): R100's 49 leading
+  BatchNorms (each unit's ``bn1`` MUL and ADD) ride in their conv, no
+  other net's MUL or ADD does, and the forward runs none of the 49
+  pairs; on small graphs, which pairs qualify and that the net still
+  computes the two ops' values, also where the conv falls back to
+  ``F.conv2d``;
 * a net with routed convolutions hands each one a channels_last input
   and still equals the plain reference; a routed SAME-padded stride-2
   convolution at a size where its pads come out uneven goes to
@@ -87,6 +94,27 @@ def test_plain_is_conv2d(stride, pad, channels_last):
                              conv_tc.out_size(8, stride, pad))
 
 
+@pytest.mark.parametrize("stride,pad", [(1, 0), (1, 1), (2, 0), (2, 1)])
+def test_plain_with_affine_is_conv2d_of_the_two_ops(stride, pad):
+    x, w = _operands(2, 64, 128, 9, 8, seed=stride + 2 * pad)
+    hi, lo = conv_tc.kernel_weights(w)
+    gen_ = torch.Generator().manual_seed(7)
+    scale = torch.rand(64, generator=gen_) + 0.5
+    # a border tap that took the shift in place of 0 would move the
+    # output by ~3 * |w|
+    shift = torch.full((64,), 3.0) + torch.rand(64, generator=gen_)
+    got = conv_tc.conv3x3_tc(x, w, hi, lo, stride, pad, scale, shift)
+    t = x * scale[:, None, None]
+    want = F.conv2d(t + shift[:, None, None], w, None, stride, pad)
+    assert torch.equal(got, want)
+    assert got.is_contiguous(memory_format=CL)
+    if pad:
+        # the affine applied to the zero padding too
+        padded = F.pad(x, (1, 1, 1, 1)) * scale[:, None, None]
+        wrong = F.conv2d(padded + shift[:, None, None], w, None, stride, 0)
+        assert not torch.allclose(got, wrong, atol=1e-2)
+
+
 def test_operand_checks():
     x, w = _operands(1, 64, 64, 5, 5)
     hi, lo = conv_tc.kernel_weights(w)
@@ -104,6 +132,17 @@ def test_operand_checks():
         conv_tc.conv3x3_tc(x[:, :, :2, :2], w, hi, lo, 1, 0)
     with pytest.raises(ValueError, match="f32"):
         conv_tc.conv3x3_tc(x.double(), w, hi, lo, 1, 1)
+    scale, shift = torch.ones(64), torch.zeros(64)
+    for bad, name in ((torch.ones(32), "scale"), (torch.ones(65), "scale"),
+                      (torch.ones(64).double(), "scale"),
+                      (torch.ones(64, device="meta"), "scale"),
+                      (torch.ones(64, 2)[:, 0], "scale")):
+        with pytest.raises(ValueError, match=name):
+            conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1, bad, shift)
+        with pytest.raises(ValueError, match="shift"):
+            conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1, scale, bad)
+    with pytest.raises(ValueError, match="together"):
+        conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1, scale, None)
 
 
 # (OHWI weights, input channels, stride, dilation, pads, dtype) -> routed
@@ -170,6 +209,27 @@ def test_routed_convolutions_counted(request, name, dtype, routed):
              else Graph(DATA / f"{name}.npz"))
     net = TFLiteNet(graph, compute_dtype=dtype)
     assert len(net.tc_convs) == routed
+    # each R100 unit's leading BN (bn1) rides in its first conv; no other
+    # net absorbs a MUL or an ADD
+    affine = [rec for rec in net.tc_convs.values() if rec["affine"]]
+    assert len(affine) == (49 if routed else 0)
+    names = [graph.tensors[graph.ops[i]["outputs"][0]].get("name", "")
+             for i, n in enumerate(graph.ops)
+             if i not in net._skip and n["op"] in ("MUL", "ADD")]
+    absorbed = {graph.tensors[graph.ops[j]["outputs"][0]]["name"]
+                for rec in affine for j in rec["affine"]}
+    if name == "r100" and routed:
+        assert not any(".bn1/" in n for n in names)
+        assert absorbed == {f"layer{s + 1}.{b}.bn1/{op}"
+                            for s, n in enumerate(gen.PUBLISHED["blocks"])
+                            for b in range(n) for op in ("mul", "add")}
+        # the input map's pair (before the stem, which does not route)
+        # and the last BN's (before the flatten) still run
+        assert {"input_map/mul", "input_map/add", "bn2/mul",
+                "bn2/add"} <= set(names)
+        for rec in affine:
+            mul = graph.ops[rec["affine"][0]]
+            assert rec["input"] in mul["inputs"]
     if name == "r100" and routed:
         # both 3x3 convs of every unit; the stem (3 -> 64) and the four 1x1
         # shortcuts stay on F.conv2d
@@ -194,6 +254,9 @@ def test_routed_net_holds_channels_last_and_matches_reference(
                   shape["embedding"], shape["size"])
     net = TFLiteNet(Graph(d / gen.GRAPH_FILE)).eval()
     assert len(net.tc_convs) == 3
+    # the fourth stage's first conv (64 -> 128) takes its bn1
+    assert sum(rec["affine"] is not None
+               for rec in net.tc_convs.values()) == 1
     seen = []
     real = conv_tc.conv3x3_tc
 
@@ -381,4 +444,96 @@ def test_export_gives_channels_last_strides():
 
 def test_abi_test_covers_the_entry_point():
     assert ("conv3x3_tc", "conv3x3_tc_f32") in ENTRIES
+    # the input affine's operands follow the weights'
+    src = (ROOT / "tpu_face_torch" / "csrc" / "conv3x3_tc.cu").read_text()
+    assert ("conv3x3_tc_f32(const float* x, const float* w_hi,\n"
+            "                              const float* w_lo, const float* "
+            "scale,\n                              const float* shift,"
+            in src)
 
+
+def _affine_graph(path, scale_shape=(64,), shift_shape=(64,),
+                  add_act="NONE", mul_output=False, shift_first=False,
+                  hw=(6, 7), stride=1):
+    """x [1, *hw, 64] -> MUL(x, scale) -> ADD(t, shift) -> a SAME 3x3
+    CONV_2D 64 -> 64 of ``stride`` with a bias: the conv routes;
+    ``mul_output`` makes the MUL's output a graph output too."""
+    rng = np.random.default_rng(11)
+    act = [1, *hw, 64]
+    out = [1, *(-(-d // stride) for d in hw), 64]
+    shapes = (act, list(scale_shape), act, list(shift_shape), act,
+              [64, 3, 3, 64], [64], out)
+    add_in = [3, 2] if shift_first else [2, 3]
+    meta = {
+        "inputs": [0], "outputs": [7, 2] if mul_output else [7],
+        "tensors": [{"shape": s, "dtype": "float32"} for s in shapes],
+        "ops": [{"op": "MUL", "inputs": [0, 1], "outputs": [2],
+                 "options": {"activation": "NONE"}},
+                {"op": "ADD", "inputs": add_in, "outputs": [4],
+                 "options": {"activation": add_act}},
+                {"op": "CONV_2D", "inputs": [4, 5, 6], "outputs": [7],
+                 "options": {"stride": [stride, stride], "dilation": [1, 1],
+                             "padding": "SAME", "activation": "NONE"}}]}
+    np.savez(path, __graph__=json.dumps(meta),
+             t1=rng.uniform(0.5, 1.5, scale_shape).astype(np.float32),
+             t3=(3.0 + rng.uniform(0, 1, shift_shape)).astype(np.float32),
+             t5=rng.standard_normal((64, 3, 3, 64), dtype=np.float32) / 24,
+             t6=rng.standard_normal(64, dtype=np.float32))
+    return Graph(path)
+
+
+# graph variant -> whether the MUL and ADD ride in the conv
+AFFINE_CASES = {
+    "per_channel": ({}, True),
+    "nhwc_shaped": ({"scale_shape": (1, 1, 1, 64),
+                     "shift_shape": (1, 1, 64)}, True),
+    "scalar": ({"scale_shape": (), "shift_shape": (1,)}, True),
+    "shift_first": ({"shift_first": True}, True),
+    "per_pixel": ({"scale_shape": (1, 6, 7, 64)}, False),
+    "add_relu": ({"add_act": "RELU"}, False),
+    "mul_read_twice": ({"mul_output": True}, False),
+}
+
+
+@pytest.mark.parametrize("case", AFFINE_CASES)
+def test_input_affine_absorbed_where_it_qualifies(tmp_path, case):
+    kwargs, absorbed = AFFINE_CASES[case]
+    graph = _affine_graph(tmp_path / "g.npz", **kwargs)
+    net = TFLiteNet(graph).eval()
+    (rec,) = net.tc_convs.values()
+    assert (rec["affine"] is not None) is absorbed
+    assert rec["input"] == (0 if absorbed else 4)
+    x = torch.randn(2, 6, 7, 64, generator=torch.Generator().manual_seed(2))
+    c = {i: torch.from_numpy(graph.consts[i]) for i in (1, 3, 5, 6)}
+    t = x * c[1]
+    t = c[3] + t if kwargs.get("shift_first") else t + c[3]
+    if kwargs.get("add_act") == "RELU":
+        t = torch.relu(t)
+    want = F.conv2d(t.permute(0, 3, 1, 2), c[5].permute(0, 3, 1, 2), c[6],
+                    padding=1).permute(0, 2, 3, 1)
+    with torch.inference_mode():
+        got = net(x)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+
+def test_input_affine_runs_before_the_uneven_fallback(tmp_path, monkeypatch):
+    # routed by the graph's odd size; at an even size SAME pads (0, 1), so
+    # F.conv2d takes the conv, after the absorbed MUL and ADD as two ops
+    graph = _affine_graph(tmp_path / "g.npz", hw=(7, 7), stride=2)
+    net = TFLiteNet(graph).eval()
+    (rec,) = net.tc_convs.values()
+    assert rec["affine"] is not None
+    calls = []
+    real = conv_tc.conv3x3_tc
+    monkeypatch.setattr(conv_tc, "conv3x3_tc",
+                        lambda *a: calls.append(1) or real(*a))
+    x = torch.randn(2, 8, 8, 64, generator=torch.Generator().manual_seed(4))
+    c = {i: torch.from_numpy(graph.consts[i]) for i in (1, 3, 5, 6)}
+    t = (x * c[1] + c[3]).permute(0, 3, 1, 2)
+    want = F.conv2d(F.pad(t, (0, 1, 0, 1)), c[5].permute(0, 3, 1, 2), c[6],
+                    stride=2).permute(0, 2, 3, 1)
+    with torch.inference_mode():
+        (got,) = net(x)
+    assert not calls
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

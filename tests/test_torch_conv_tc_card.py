@@ -11,13 +11,20 @@ pytest tests/test_torch_conv_tc_card.py -q``).
   sums f32 holds exactly, it equals the f64 convolution bit for bit at
   strides 1 and 2, paddings 0 and 1, odd sizes and ragged last tiles,
   its output channels_last.
+* The input affine, at the shape of each of R100's 49 first convs
+  (``CONV1_SHAPES``), in the split and the TF32 mode: the kernel reading
+  x through scale and shift equals ATen's ``x * scale``, then ``+
+  shift``, then the kernel, bit for bit, the padding zero under a large
+  shift.
 * Launches: one ``EmbedCascade`` call on R100 adds 98 to ``LAUNCHES`` (one
   a routed conv), a ``FaceCascade`` call none.
-* Captured in a CUDA graph, its replay equals the eager call.
+* Captured in a CUDA graph, its replay equals the eager call, alone and
+  in a net whose first conv absorbs its BatchNorm.
 """
 
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 
 from test_torch_threads import share_cores  # noqa: F401
 from tpu_face_torch import exact_f32
+from tpu_face_torch.compiler.lowering import TFLiteNet, _fold_pads_into_convs
 from tpu_face_torch.models.face_detection import FaceDetectionModel
 from tpu_face_torch.ops import conv_tc
 from tpu_face_torch.pipeline import EmbedCascade, FaceCascade
@@ -45,6 +53,11 @@ SHAPES = [(112, 64, 64, 1), (112, 64, 64, 2), (56, 64, 64, 1),
           (56, 64, 128, 1), (56, 128, 128, 2), (28, 128, 128, 1),
           (28, 128, 256, 1), (28, 256, 256, 2), (14, 256, 256, 1),
           (14, 256, 512, 1), (14, 512, 512, 2), (7, 512, 512, 1)]
+# (side, Cin, Cout) of R100's first conv of a unit (stride 1), each of
+# which reads its unit's BatchNorm through the input affine
+CONV1_SHAPES = [(112, 64, 64), (56, 64, 64), (56, 64, 128), (28, 128, 128),
+                (28, 128, 256), (14, 256, 256), (14, 256, 512),
+                (7, 512, 512)]
 # the kernel's error against cuDNN's f32 one: split TF32 drops a_lo*b_lo
 # (~2^-22 of a product) and the tensor cores sum each k8 step in their
 # own order, so its error is of f32's size, not TF32's (~2^-11, ~1000x)
@@ -107,6 +120,28 @@ def test_exact_on_integers_borders_and_stride(card, b, side, ci, co):
             assert torch.equal(got.double(), want), (stride, pad)
 
 
+@pytest.mark.parametrize("side,ci,co", CONV1_SHAPES)
+def test_affine_equals_the_two_ops_then_the_kernel(card, side, ci, co):
+    x, w = _operands(CROPS, side, ci, co, card, side * ci + co)
+    hi, lo = conv_tc.kernel_weights(w)
+    gen_ = torch.Generator(card).manual_seed(co)
+    scale = torch.rand(ci, device=card, generator=gen_) + 0.5
+    # a border tap that took the shift in place of 0 would move the
+    # output by ~3 * |w|
+    shift = 3.0 + torch.rand(ci, device=card, generator=gen_)
+    with torch.inference_mode():
+        for tf32 in (False, True):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                t = x * scale[:, None, None]
+                want = conv_tc.conv3x3_tc(t + shift[:, None, None], w, hi,
+                                          lo, 1, 1)
+                got = conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1, scale, shift)
+            torch.cuda.synchronize()
+            assert got.is_contiguous(memory_format=CL)
+            assert torch.equal(got, want), (tf32, float(
+                (got - want).abs().max()))
+
+
 def test_launches_a_routed_conv_each(card, tmp_path):
     made = gen.write(tmp_path, SEED, files=(gen.GRAPH_FILE,))
     frames = torch.from_numpy(np.random.default_rng(3).integers(
@@ -125,20 +160,49 @@ def test_launches_a_routed_conv_each(card, tmp_path):
         assert conv_tc.LAUNCHES - before == routed
 
 
+def _replay(fn):
+    """fn's result from a CUDA graph's replay, captured after a warm-up
+    on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for t in out if isinstance(out, tuple) else (out,):
+        t.zero_()
+    graph.replay()
+    return out
+
+
 def test_graph_replay_equals_eager(card):
     x, w = _operands(32, 28, 128, 256, card, 5)
     hi, lo = conv_tc.kernel_weights(w)
     with torch.inference_mode():
         eager = conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1)
-        out.zero_()
-        graph.replay()
+        out = _replay(lambda: conv_tc.conv3x3_tc(x, w, hi, lo, 1, 1))
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+    # R100's second stage's first unit (64 -> 128, stride 2) as a net:
+    # its first conv reads the unit's input through bn1's affine
+    p = gen.PUBLISHED
+    wts = gen.draw_weights(SEED, [1, 1, 1, 1], p["widths"], p["embedding"],
+                           p["input"])
+    meta, consts = gen.unit_graph(wts, "layer2.0", 56, 2)
+    consts = {int(k[1:]): v for k, v in consts.items()}
+    graph = SimpleNamespace(
+        tensors=meta["tensors"], consts=consts, inputs=meta["inputs"],
+        outputs=meta["outputs"],
+        ops=_fold_pads_into_convs(meta["ops"], consts, set(meta["outputs"])))
+    net = TFLiteNet(graph).to(card).eval()
+    assert [rec["affine"] is not None for rec in net.tc_convs.values()] == [
+        True, False]
+    x = torch.randn(16, 56, 56, 64, device=card,
+                    generator=torch.Generator(card).manual_seed(6))
+    with torch.inference_mode():
+        eager = net(x)
+        out = _replay(lambda: net(x))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0])

@@ -37,7 +37,10 @@ In an f32 net each dense 3x3 convolution that ``ops.conv_tc.routes``
 takes (stride 1 or 2, symmetric padding 0 or 1, Cin >= 64 a multiple of
 32, Cout a multiple of 64: ArcFace's IR-ResNet, no bundled graph) runs as
 ``ops.conv_tc.conv3x3_tc``, a hand-written split-TF32 tensor-core kernel
-on the card; such a net holds its 4-D activations channels_last.
+on the card; such a net holds its 4-D activations channels_last.  A
+per-channel MUL then ADD that only such a conv reads (a BatchNorm before
+it: each IR-ResNet unit's first) rides in the kernel's operand load
+(``_input_affine``).
 
 ``compute_dtype=torch.bfloat16`` runs the net in bf16 as
 ``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
@@ -450,6 +453,49 @@ def _epilogue_chains(ops, consts, tensors, graph_outputs, taken=()):
     return chains
 
 
+def _input_affine(conv, users, producers, consts, tensors, graph_outputs):
+    """The per-channel affine in front of CONV_2D ``conv`` as {"input",
+    "scale", "shift", "ops": [mul, add]} (tensor ids; the MUL and the ADD),
+    or None: its input is ADD(t, shift) (either order, no activation), t
+    is MUL(x, scale) (the same), x an activation of t's shape, scale and
+    shift float constants of one value or one a channel (every axis but
+    the last of size 1), and t and the ADD's output each read by the next
+    op alone and no graph output."""
+    def only_user(t):
+        u = users.get(t, [])
+        return u[0] if len(u) == 1 and t not in graph_outputs else None
+
+    def split(node, op):
+        """(activation, constant) of a two-operand ``op`` node, or None."""
+        if (node is None or node["op"] != op or len(node["inputs"]) != 2
+                or node["options"].get("activation", "NONE") != "NONE"):
+            return None
+        a, b = node["inputs"]
+        if b not in consts:
+            a, b = b, a
+        if a in consts or b not in consts:
+            return None
+        c = np.asarray(consts[b])
+        if (c.dtype.kind != "f" or c.ndim > 4
+                or any(d != 1 for d in c.shape[:-1])
+                or c.size not in (1, channels)):
+            return None
+        return a, b
+
+    channels = tensors[conv["inputs"][0]]["shape"][-1]
+    add = producers.get(conv["inputs"][0])
+    shifted = split(add, "ADD")
+    if shifted is None or only_user(add["outputs"][0]) is not conv:
+        return None
+    mul = producers.get(shifted[0])
+    scaled = split(mul, "MUL")
+    if (scaled is None or only_user(mul["outputs"][0]) is not add
+            or tensors[scaled[0]]["shape"] != tensors[shifted[0]]["shape"]):
+        return None
+    return {"input": scaled[0], "scale": scaled[1], "shift": shifted[1],
+            "ops": [mul, add]}
+
+
 def params_from_consts(ops, consts):
     """The graph's float constants as the module's tensors: conv weights
     OHWI -> OIHW, depthwise ``[1, kh, kw, C]`` -> ``[C, 1, kh, kw]``
@@ -645,10 +691,18 @@ class TFLiteNet(nn.Module):
     after the PAD folding) runs as ``ops.conv_tc.conv3x3_tc``: the
     split-TF32 kernel on the card, on its weights split here, once, into
     the kernel's hi and lo buffers (``tc<k>_hi``, ``tc<k>_lo``);
-    ``F.conv2d`` on the CPU.  ``tc_convs`` maps their op positions to k.  A
-    net with one holds every 4-D activation channels_last, the kernel's
-    layout (the NHWC input's NCHW view already is); every other net keeps
-    the layouts its ops give."""
+    ``F.conv2d`` on the CPU.  Where such a conv's input is a per-channel
+    MUL then ADD that it alone reads (``_input_affine``: a BatchNorm in
+    front of a zero-padded conv, which cannot fold into its weights), the
+    conv reads the MUL's input and takes the two constants (buffers
+    ``tc<k>_scale``, ``tc<k>_shift``, Cin each) into the kernel's operand
+    load, bit-equal to the two ops on the card; the MUL and the ADD do not
+    run.  ``tc_convs`` maps the routed convs' op positions to their
+    records {"k", "input" (the tensor the conv reads), "affine" (the
+    absorbed MUL's and ADD's op positions, or None)}.  A net with one
+    holds every 4-D activation channels_last, the kernel's layout (the
+    NHWC input's NCHW view already is); every other net keeps the layouts
+    its ops give."""
 
     def __init__(self, graph, params=None, fuse_blocks=True,
                  compute_dtype=torch.float32, fuse_epilogues=True):
@@ -709,9 +763,12 @@ class TFLiteNet(nn.Module):
                     self.epilogue_counts.get(n["op"], 0) + 1)
         # each chain's convolution's op position
         self._chain_conv = [pos[id(chain["conv"])] for chain in self.chains]
-        # op position -> k for each convolution on conv_tc, its weights
-        # split into the buffers tc<k>_hi and tc<k>_lo
+        # op position -> record for each convolution on conv_tc, its
+        # weights split into the buffers tc<k>_hi and tc<k>_lo
         self.tc_convs = {}
+        users = _consumers(graph.ops)
+        producers = {t: node for node in graph.ops for t in node["outputs"]}
+        chained = self._in_chain | set(self._chain_end)
         for i, node in enumerate(graph.ops):
             if node["op"] != "CONV_2D" or i in taken:
                 continue
@@ -723,10 +780,26 @@ class TFLiteNet(nn.Module):
                     _window_pads(o["padding"], xshape[1:3], wshape[1:3],
                                  o["stride"], o.get("dilation", (1, 1))),
                     compute_dtype)):
-                k = self.tc_convs[i] = len(self.tc_convs)
+                k = len(self.tc_convs)
                 hi, lo = conv_tc.kernel_weights(params[f"t{ins[1]}"])
                 self.register_buffer(f"tc{k}_hi", hi)
                 self.register_buffer(f"tc{k}_lo", lo)
+                rec = self.tc_convs[i] = {"k": k, "input": ins[0],
+                                          "affine": None}
+                aff = _input_affine(node, users, producers, graph.consts,
+                                    graph.tensors, set(graph.outputs))
+                at = aff and tuple(pos[id(n)] for n in aff["ops"])
+                if at and not set(at) & (taken | chained):
+                    rec.update(input=aff["input"], affine=at)
+                    for name in ("scale", "shift"):
+                        self.register_buffer(
+                            f"tc{k}_{name}", torch.broadcast_to(
+                                params[f"c{aff[name]}"].reshape(-1),
+                                (xshape[3],)).contiguous())
+        # op positions forward skips: inside a run or a chain (each runs
+        # where its first or its last op stands), or absorbed by a conv
+        self._skip = self._in_run | self._in_chain | {
+            j for rec in self.tc_convs.values() for j in rec["affine"] or ()}
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)
@@ -767,7 +840,7 @@ class TFLiteNet(nn.Module):
         every 4-D activation."""
         chain = self.chains[k]
         conv = chain["conv"]
-        y = self._conv(env[conv["inputs"][0]], conv, False, epilogue=True,
+        y = self._conv(env, conv, False, epilogue=True,
                        pos=self._chain_conv[k])
         return conv_epilogue.conv_epilogue(
             y, self._bias(conv),
@@ -776,26 +849,37 @@ class TFLiteNet(nn.Module):
                 self, f"t{chain['alpha']}"), chain["act"],
             chain["skip_first"])
 
-    def _conv(self, x, node, depthwise, epilogue=False, pos=None):
-        """The convolution ``node`` (at op position ``pos``) of NCHW x with
-        its bias and activation, or (``epilogue``) without either, for its
-        chain's epilogue."""
+    def _conv(self, env, node, depthwise, epilogue=False, pos=None):
+        """The convolution ``node`` (at op position ``pos``) of its NCHW
+        input in ``env`` (through its absorbed affine where it has one)
+        with its bias and activation, or (``epilogue``) without either, for
+        its chain's epilogue."""
         o, ins = node["options"], node["inputs"]
+        rec = self.tc_convs.get(pos)
+        x = env[ins[0] if rec is None else rec["input"]]
+        scale = shift = None
+        if rec is not None and rec["affine"] is not None:
+            scale = getattr(self, f"tc{rec['k']}_scale")
+            shift = getattr(self, f"tc{rec['k']}_shift")
         w = getattr(self, f"t{ins[1]}")
         b = None if epilogue else self._bias(node)
         stride = tuple(o["stride"])
         dilation = tuple(o.get("dilation", (1, 1)))
         (pt, pb), (pl, pr) = _window_pads(o["padding"], x.shape[2:],
                                           w.shape[2:], stride, dilation)
-        k = self.tc_convs.get(pos)
         # a SAME padding's pads follow the input's size: where they come
-        # out uneven (a stride-2 conv on an even size), F.conv2d takes it
-        if k is not None and pt == pb == pl == pr:
+        # out uneven (a stride-2 conv on an even size), F.conv2d takes it,
+        # after the affine as its two ops
+        if rec is not None and pt == pb == pl == pr:
+            k = rec["k"]
             y = conv_tc.conv3x3_tc(x, w, getattr(self, f"tc{k}_hi"),
-                                   getattr(self, f"tc{k}_lo"), stride[0], pt)
+                                   getattr(self, f"tc{k}_lo"), stride[0], pt,
+                                   scale, shift)
             if b is not None:
                 y = y + b[:, None, None]
             return y if epilogue else _act(y, o["activation"])
+        if scale is not None:
+            x = x * scale[:, None, None] + shift[:, None, None]
         if pt == pb and pl == pr:
             pad = (pt, pl)
         else:
@@ -870,7 +954,7 @@ class TFLiteNet(nn.Module):
             return self._const(i, as_nchw)
 
         for i, node in enumerate(self.ops):
-            if i in self._in_run or i in self._in_chain:
+            if i in self._skip:
                 continue
             if i in self._chain_end:
                 k = self._chain_end[i]
@@ -886,8 +970,7 @@ class TFLiteNet(nn.Module):
             op, ins, o = node["op"], node["inputs"], node["options"]
             layout_nchw = all(i in nchw for i in ins if i in env)
             if op in ("CONV_2D", "DEPTHWISE_CONV_2D"):
-                y = self._conv(env[ins[0]], node,
-                               op == "DEPTHWISE_CONV_2D", pos=i)
+                y = self._conv(env, node, op == "DEPTHWISE_CONV_2D", pos=i)
             elif op == "MAX_POOL_2D":
                 y = self._max_pool(env[ins[0]], o)
             elif op == "AVERAGE_POOL_2D":

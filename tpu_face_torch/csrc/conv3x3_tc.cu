@@ -7,7 +7,12 @@
 // x NHWC (a channels_last [B, Cin, H, W] tensor), w OHWI, y NHWC, all f32;
 // stride s 1 or 2, symmetric padding p 0 or 1 (taps outside the image read
 // zero); Cin a multiple of 32, Cout of 64.  No bias or activation: the
-// lowered net's epilogue kernel (conv_epilogue.cu) follows.
+// lowered net's epilogue kernel (conv_epilogue.cu) follows.  Optionally an
+// input affine (a BatchNorm before the conv, which cannot fold into the
+// weights of a zero-padded conv: it would change the border taps): each x
+// inside the image read as x * scale[ci] + shift[ci], rounded after the
+// product and after the sum as ATen's MUL then ADD, and the taps outside
+// still zero, so the result equals MUL, ADD, then the conv, bit for bit.
 //
 // It replaces no Pallas kernel: XLA lowers the JAX package's convolutions
 // (tpu_face/compiler/lowering.py) onto the TPU's matrix unit itself.  On
@@ -50,6 +55,17 @@
 //     or two, eight 16-byte cp.async a row with zero fill at the borders)
 //     and copies the B tiles (cp.async.bulk) into a ring of stages, each
 //     completing on an mbarrier; the consumers free a stage on another.
+//   * The input affine, where given, is the consumers': each applies it to
+//     the eight channels of its two rows it has just loaded, before the
+//     split, where the row's tap lies in the image (a 9-bit mask a row,
+//     made once a tile; the scale and shift from global memory, L1-held).
+//     On the H100 that costs 0-15% of a conv (PERF.md); the producer
+//     rewriting each stage in shared memory, one or two stages behind its
+//     copies, cost 14-50%; the consumers' two warpgroups issuing their
+//     wgmma in turns, making a stage's fragments while the stage before's
+//     wgmma ran, or each k8 step's fragments before its own wgmma, made
+//     the convs slower still.  A conv without the affine runs an
+//     instantiation with none of its code (a template flag).
 //   * Persistent CTAs, one per SM, walk the (M tile, N tile) list with the
 //     N tiles of one M tile adjacent, so an A tile is fetched from memory
 //     once and read again from L2.
@@ -168,6 +184,38 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(__fsub_rn(v, __uint_as_float(hi)));
 }
 
+// v * s + t with two roundings (no FMA), as ATen's MUL then ADD
+__device__ __forceinline__ float affine(float v, float s, float t) {
+  return __fadd_rn(__fmul_rn(v, s), t);
+}
+
+// Bit ky * 3 + kx set where tap (ky, kx) of output pixel m lies in the
+// image (none for m past the last pixel).
+__device__ __forceinline__ uint32_t tap_mask(int m, int m_total, int pixels,
+                                             int wo, int h, int w,
+                                             int stride, int pad) {
+  if (m >= m_total) return 0;
+  const int b = m / pixels;
+  const int rem = m - b * pixels;
+  const int oy = rem / wo;
+  const int iy = oy * stride - pad;
+  const int ix = (rem - oy * wo) * stride - pad;
+  uint32_t cols = 0, mask = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    cols |= static_cast<uint32_t>(static_cast<unsigned>(ix + k) <
+                                  static_cast<unsigned>(w))
+            << k;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (static_cast<unsigned>(iy + k) < static_cast<unsigned>(h)) {
+      mask |= cols << (3 * k);
+    }
+  }
+  return mask;
+}
+
 // The wgmma descriptor of a K-major operand of 128-byte rows under the
 // 128B swizzle, 8-row groups 1024 bytes apart, starting at shared `addr`
 // (a k8 step further along a row: + 32 bytes, i.e. + 2 on the descriptor).
@@ -261,12 +309,15 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2],
 
 // The shared memory of a CTA, from the 1024-aligned base: kStages stages
 // of [A BM x 32 | B hi BN x 32 | B lo BN x 32] f32, then the full and the
-// empty barrier of each stage.
-template <int BN, bool kSplit>
+// empty barrier of each stage.  kAffine: x read through the input affine
+// (scale, shift: Cin floats each).
+template <int BN, bool kSplit, bool kAffine>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_tc_kernel(const float* __restrict__ x,
                       const float* __restrict__ w_hi,
-                      const float* __restrict__ w_lo, float* __restrict__ y,
+                      const float* __restrict__ w_lo,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift, float* __restrict__ y,
                       int h, int w, int cin, int ho, int wo, int cout,
                       int stride, int pad, int m_total, int tiles_n,
                       int tiles) {
@@ -386,12 +437,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int mt = tile / tiles_n;
     const int nt = tile - mt * tiles_n;
     float acc[kMW][BN / 2], part[kMW][BN / 2];
+    // kAffine: bit tap of taps[mb] set where row r0 + 64 mb's tap lies in
+    // the image, bit 16 + tap where row r0 + 64 mb + 8's does
+    uint32_t taps[kMW];
 #pragma unroll
     for (int mb = 0; mb < kMW; ++mb) {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0.0f;
+      if constexpr (kAffine) {
+        const int m = mt * C::kBM + mb * 64 + r0;
+        taps[mb] = tap_mask(m, m_total, pixels, wo, h, w, stride, pad) |
+                   tap_mask(m + 8, m_total, pixels, wo, h, w, stride, pad)
+                       << 16;
+      }
     }
+    int tap = 0, cb = 0;
     for (int kt = 0; kt < ktiles; ++kt) {
+      // kAffine: the scale and shift of channels 8t .. 8t + 7 of the stage
+      float sc[8], sh[8];
+      if constexpr (kAffine) {
+        const float4* s4 =
+            reinterpret_cast<const float4*>(scale + cb * kBK + 8 * t);
+        const float4* t4 =
+            reinterpret_cast<const float4*>(shift + cb * kBK + 8 * t);
+        const float4 s0 = __ldg(s4), s1 = __ldg(s4 + 1);
+        const float4 t0 = __ldg(t4), t1 = __ldg(t4 + 1);
+        sc[0] = s0.x, sc[1] = s0.y, sc[2] = s0.z, sc[3] = s0.w;
+        sc[4] = s1.x, sc[5] = s1.y, sc[6] = s1.z, sc[7] = s1.w;
+        sh[0] = t0.x, sh[1] = t0.y, sh[2] = t0.z, sh[3] = t0.w;
+        sh[4] = t1.x, sh[5] = t1.y, sh[6] = t1.z, sh[7] = t1.w;
+      }
       mbar_wait(full0 + 8 * stage, phase);
       const uint32_t sa = base + stage * C::kStageBytes;
       uint32_t hi[kMW][4][4], lo[kMW][4][4];
@@ -404,10 +479,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float4 p11 = lds128(row + a01 + 8 * kRowBytes);
         // channel 8t + q of rows r0 (v0) and r0 + 8 (v1); k8 step kk
         // takes q = 2kk as its k column t and q = 2kk + 1 as t + 4
-        const float v0[8] = {p00.x, p00.y, p00.z, p00.w,
-                             p01.x, p01.y, p01.z, p01.w};
-        const float v1[8] = {p10.x, p10.y, p10.z, p10.w,
-                             p11.x, p11.y, p11.z, p11.w};
+        float v0[8] = {p00.x, p00.y, p00.z, p00.w,
+                       p01.x, p01.y, p01.z, p01.w};
+        float v1[8] = {p10.x, p10.y, p10.z, p10.w,
+                       p11.x, p11.y, p11.z, p11.w};
+        if constexpr (kAffine) {
+          // taps outside the image stay the zeros the copies filled in
+          const bool ok0 = (taps[mb] >> tap) & 1;
+          const bool ok1 = (taps[mb] >> (16 + tap)) & 1;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            v0[q] = ok0 ? affine(v0[q], sc[q], sh[q]) : v0[q];
+            v1[q] = ok1 ? affine(v1[q], sc[q], sh[q]) : v1[q];
+          }
+        }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           split(v0[2 * kk], hi[mb][kk][0], lo[mb][kk][0]);
@@ -440,6 +525,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         stage = 0;
         phase ^= 1;
       }
+      if (++cb == cblocks) {
+        cb = 0;
+        ++tap;
+      }
       // the tensor cores' f32 sums are not rounded to nearest; summing
       // each stage's part here keeps their error to one stage's length
 #pragma unroll
@@ -470,11 +559,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int BN, bool kSplit>
+template <int BN, bool kSplit, bool kAffine>
 cudaError_t launch(const float* x, const float* w_hi, const float* w_lo,
-                   float* y, int h, int w, int cin, int ho, int wo, int cout,
-                   int stride, int pad, int m_total, int grid,
-                   cudaStream_t stream) {
+                   const float* scale, const float* shift, float* y, int h,
+                   int w, int cin, int ho, int wo, int cout, int stride,
+                   int pad, int m_total, int grid, cudaStream_t stream) {
   // the shared-memory opt-in, once for each device and instantiation
   static unsigned ready = 0;
   int dev = 0;
@@ -482,7 +571,7 @@ cudaError_t launch(const float* x, const float* w_hi, const float* w_lo,
   if (err != cudaSuccess) return err;
   if (dev >= 32) return cudaErrorInvalidDevice;
   if (!(ready & (1u << dev))) {
-    err = cudaFuncSetAttribute(conv3x3_tc_kernel<BN, kSplit>,
+    err = cudaFuncSetAttribute(conv3x3_tc_kernel<BN, kSplit, kAffine>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Cfg<BN>::kSmem);
     if (err != cudaSuccess) return err;
@@ -490,11 +579,35 @@ cudaError_t launch(const float* x, const float* w_hi, const float* w_lo,
   }
   const int tiles_n = cout / BN;
   const int tiles = (m_total + Cfg<BN>::kBM - 1) / Cfg<BN>::kBM * tiles_n;
-  conv3x3_tc_kernel<BN, kSplit><<<grid < tiles ? grid : tiles, kThreads,
-                                  Cfg<BN>::kSmem, stream>>>(
-      x, w_hi, w_lo, y, h, w, cin, ho, wo, cout, stride, pad, m_total,
-      tiles_n, tiles);
+  conv3x3_tc_kernel<BN, kSplit, kAffine>
+      <<<grid < tiles ? grid : tiles, kThreads, Cfg<BN>::kSmem, stream>>>(
+          x, w_hi, w_lo, scale, shift, y, h, w, cin, ho, wo, cout, stride,
+          pad, m_total, tiles_n, tiles);
   return cudaGetLastError();
+}
+
+// the instantiation for N tiles of BN columns, the split (or one TF32
+// product) and the affine (or none)
+template <int BN>
+cudaError_t launch_bn(bool split, const float* x, const float* w_hi,
+                      const float* w_lo, const float* scale,
+                      const float* shift, float* y, int h, int w, int cin,
+                      int ho, int wo, int cout, int stride, int pad,
+                      int m_total, int grid, cudaStream_t s) {
+  if (scale != nullptr) {
+    return split ? launch<BN, true, true>(x, w_hi, w_lo, scale, shift, y, h,
+                                          w, cin, ho, wo, cout, stride, pad,
+                                          m_total, grid, s)
+                 : launch<BN, false, true>(x, w_hi, w_lo, scale, shift, y, h,
+                                           w, cin, ho, wo, cout, stride, pad,
+                                           m_total, grid, s);
+  }
+  return split ? launch<BN, true, false>(x, w_hi, w_lo, scale, shift, y, h,
+                                         w, cin, ho, wo, cout, stride, pad,
+                                         m_total, grid, s)
+               : launch<BN, false, false>(x, w_hi, w_lo, scale, shift, y, h,
+                                          w, cin, ho, wo, cout, stride, pad,
+                                          m_total, grid, s);
 }
 
 }  // namespace
@@ -502,17 +615,20 @@ cudaError_t launch(const float* x, const float* w_hi, const float* w_lo,
 // y [batch, ho, wo, cout] = the convolution of x [batch, h, w, cin] by the
 // weights split into w_hi and w_lo ([9 cin / 32][cout][32] each, the tile
 // order of ops/conv_tc.py kernel_weights), stride 1 or 2, padding 0 or 1;
-// N tiles of `bn` (64 or 128) columns, `grid` persistent CTAs; `tf32`: one
-// TF32 product (w_lo unread) instead of the split's three.  All pointers
-// 16-byte aligned.
+// with `scale` and `shift` (cin floats each, both or neither) x read as
+// x * scale + shift inside the image; N tiles of `bn` (64 or 128) columns,
+// `grid` persistent CTAs; `tf32`: one TF32 product (w_lo unread) instead
+// of the split's three.  All pointers 16-byte aligned.
 extern "C" int conv3x3_tc_f32(const float* x, const float* w_hi,
-                              const float* w_lo, float* y, int batch, int h,
+                              const float* w_lo, const float* scale,
+                              const float* shift, float* y, int batch, int h,
                               int w, int cin, int cout, int stride, int pad,
                               int bn, int grid, int tf32, void* stream) {
   if (batch < 0 || h < 1 || w < 1 || cin < 32 || cin % 32 != 0 ||
       cout < 64 || cout % 64 != 0 || (stride != 1 && stride != 2) ||
       (pad != 0 && pad != 1) || (bn != 64 && bn != 128) || cout % bn != 0 ||
-      grid < 1 || h + 2 * pad < 3 || w + 2 * pad < 3) {
+      grid < 1 || h + 2 * pad < 3 || w + 2 * pad < 3 ||
+      (scale == nullptr) != (shift == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ho = (h + 2 * pad - 3) / stride + 1;
@@ -525,17 +641,10 @@ extern "C" int conv3x3_tc_f32(const float* x, const float* w_hi,
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mi = static_cast<int>(m);
-  cudaError_t err;
-  if (bn == 64) {
-    err = tf32 ? launch<64, false>(x, w_hi, w_lo, y, h, w, cin, ho, wo, cout,
-                                   stride, pad, mi, grid, s)
-               : launch<64, true>(x, w_hi, w_lo, y, h, w, cin, ho, wo, cout,
-                                  stride, pad, mi, grid, s);
-  } else {
-    err = tf32 ? launch<128, false>(x, w_hi, w_lo, y, h, w, cin, ho, wo,
-                                    cout, stride, pad, mi, grid, s)
-               : launch<128, true>(x, w_hi, w_lo, y, h, w, cin, ho, wo, cout,
-                                   stride, pad, mi, grid, s);
-  }
+  const cudaError_t err =
+      bn == 64 ? launch_bn<64>(!tf32, x, w_hi, w_lo, scale, shift, y, h, w,
+                               cin, ho, wo, cout, stride, pad, mi, grid, s)
+               : launch_bn<128>(!tf32, x, w_hi, w_lo, scale, shift, y, h, w,
+                                cin, ho, wo, cout, stride, pad, mi, grid, s);
   return static_cast<int>(err);
 }

@@ -70,11 +70,11 @@ _STAMP_PAIR_SIG = ((_P, _P, _P), _I)
 #  stream) -> cudaError_t, the convolution epilogue's entry point
 _EPILOGUE_SIG = ((_P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P), _I)
 
-# (x, w_hi, w_lo, y, batch, h, w, cin, cout, stride, pad, N tile, CTAs,
-#  tf32, stream) -> cudaError_t, the split-TF32 3x3 convolution's entry
-#  point
-_CONV_TC_SIG = ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-                _I)
+# (x, w_hi, w_lo, scale, shift, y, batch, h, w, cin, cout, stride, pad,
+#  N tile, CTAs, tf32, stream) -> cudaError_t, the split-TF32 3x3
+#  convolution's entry point (scale and shift null: no input affine)
+_CONV_TC_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _I, _P), _I)
 
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}

@@ -6,8 +6,12 @@ split TF32, at f32 accuracy (``csrc/conv3x3_tc.cu``):
 
 x [B, Cin, H, W] f32 and channels_last, w [Cout, Cin, 3, 3], stride s 1 or
 2, symmetric padding p 0 or 1 (taps outside the image read zero), no bias;
-y channels_last.  The kernel reads the weights split once into TF32 hi
-and lo parts (``kernel_weights``) and splits x as it loads it; it sums
+y channels_last.  With ``scale`` and ``shift`` (f32 [Cin] each: a
+BatchNorm before the conv, which cannot fold into a zero-padded conv's
+weights) x is read as ``x * scale + shift`` inside the image, rounded as
+the two ops round, the padding still zero.  The kernel reads the weights
+split once into TF32 hi and lo parts (``kernel_weights``) and splits x
+(after the affine) as it loads it; it sums
 a_lo*b_hi + a_hi*b_lo + a_hi*b_hi in f32.  Where the caller allows TF32 in
 convolutions (``torch.backends.cudnn.allow_tf32``, the flag cuDNN's f32
 convolutions follow) it takes a_hi*b_hi alone, at TF32's accuracy, as
@@ -111,13 +115,16 @@ def _sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def conv3x3_tc_plain(x, w, stride: int, pad: int):
-    """``F.conv2d`` on the f32 operands, the output channels_last."""
+def conv3x3_tc_plain(x, w, stride: int, pad: int, scale=None, shift=None):
+    """``F.conv2d`` on the f32 operands, after ``x * scale + shift`` (two
+    ops, per channel) where given, the output channels_last."""
+    if scale is not None:
+        x = x * scale[:, None, None] + shift[:, None, None]
     return F.conv2d(x, w, None, stride, pad).contiguous(
         memory_format=torch.channels_last)
 
 
-def _check(x, w, w_hi, w_lo, stride, pad):
+def _check(x, w, w_hi, w_lo, stride, pad, scale=None, shift=None):
     if x.dim() != 4 or x.dtype != torch.float32:
         raise ValueError(f"x must be f32 [B, C, H, W], got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -140,6 +147,16 @@ def _check(x, w, w_hi, w_lo, stride, pad):
                 or not t.is_contiguous() or t.device != x.device):
             raise ValueError(f"{name} must be contiguous f32 {list(want)} on "
                              f"{x.device} (kernel_weights)")
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift come together")
+    for name, t in (("scale", scale), ("shift", shift)):
+        if t is not None and (tuple(t.shape) != (ci,)
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()
+                              or t.device != x.device):
+            raise ValueError(f"{name} must be contiguous f32 [{ci}] on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
 
 
 def _empty_out(x, w, stride, pad):
@@ -149,10 +166,10 @@ def _empty_out(x, w, stride, pad):
                        device=x.device, memory_format=torch.channels_last)
 
 
-def _conv_cuda(x, w, w_hi, w_lo, stride, pad):
+def _conv_cuda(x, w, w_hi, w_lo, stride, pad, scale=None, shift=None):
     """One launch of ``csrc/conv3x3_tc.cu``."""
     global LAUNCHES
-    _check(x, w, w_hi, w_lo, stride, pad)
+    _check(x, w, w_hi, w_lo, stride, pad, scale, shift)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"x must be channels_last, got strides "
                          f"{x.stride()}")
@@ -162,8 +179,8 @@ def _conv_cuda(x, w, w_hi, w_lo, stride, pad):
     y = _empty_out(x, w, stride, pad)
     if y.numel() == 0:
         return y
-    for t in (x, w_hi, w_lo, y):
-        if t.data_ptr() % 16:
+    for t in (x, w_hi, w_lo, y, scale, shift):
+        if t is not None and t.data_ptr() % 16:
             raise ValueError("the kernel's operands must be 16-byte aligned")
     b, ci, h, wd = x.shape
     co = w.shape[0]
@@ -171,35 +188,42 @@ def _conv_cuda(x, w, w_hi, w_lo, stride, pad):
     bn, grid = plan(b * y.shape[2] * y.shape[3], co, _sms(dev))
     _build.launch(_build.entry("conv3x3_tc", "conv3x3_tc_f32"), dev,
                   x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                  None if scale is None else scale.data_ptr(),
+                  None if shift is None else shift.data_ptr(),
                   y.data_ptr(), b, h, wd, ci, co, stride, pad, bn, grid,
                   int(torch.backends.cudnn.allow_tf32))
     LAUNCHES += 1
     return y
 
 
-def _conv_cpu(x, w, w_hi, w_lo, stride, pad):
-    return conv3x3_tc_plain(x, w, stride, pad)
+def _conv_cpu(x, w, w_hi, w_lo, stride, pad, scale=None, shift=None):
+    return conv3x3_tc_plain(x, w, stride, pad, scale, shift)
 
 
-def _conv_fake(x, w, w_hi, w_lo, stride, pad):
+def _conv_fake(x, w, w_hi, w_lo, stride, pad, scale=None, shift=None):
     return _empty_out(x, w, stride, pad)
 
 
 # the convolution of x by w (OIHW, the plain version's operand) and its
-# kernel_weights parts w_hi and w_lo (the kernel's), stride, padding
+# kernel_weights parts w_hi and w_lo (the kernel's), stride, padding, and
+# the input affine's scale and shift (or none)
 conv_op = _build.register(
     "conv3x3_tc", "(Tensor x, Tensor w, Tensor w_hi, Tensor w_lo, int stride, "
-    "int pad) -> Tensor", _conv_cpu, _conv_cuda, _conv_fake)
+    "int pad, Tensor? scale=None, Tensor? shift=None) -> Tensor", _conv_cpu,
+    _conv_cuda, _conv_fake)
 
 
-def conv3x3_tc(x, w, w_hi, w_lo, stride: int, pad: int):
+def conv3x3_tc(x, w, w_hi, w_lo, stride: int, pad: int, scale=None,
+               shift=None):
     """The 3x3 convolution of x by w through ``conv_op``: the CUDA kernel
     (on ``w_hi`` and ``w_lo``, ``kernel_weights(w)``) for a CUDA tensor,
-    ``conv3x3_tc_plain`` for a CPU tensor.  The kernel takes one TF32
-    product a step where ``torch.backends.cudnn.allow_tf32`` is set at the
-    call (PyTorch's default): call it under ``exact_f32`` for f32
-    accuracy, as the package's entry points do; only the benchmark's TF32
-    control and the tests call it with the flag set."""
+    ``conv3x3_tc_plain`` for a CPU tensor; x read as ``x * scale +
+    shift`` per channel where ``scale`` and ``shift`` are given.  The
+    kernel takes one TF32 product a step where
+    ``torch.backends.cudnn.allow_tf32`` is set at the call (PyTorch's
+    default): call it under ``exact_f32`` for f32 accuracy, as the
+    package's entry points do; only the benchmark's TF32 control and the
+    tests call it with the flag set."""
     if not x.is_cuda:            # the CUDA implementation checks its own
-        _check(x, w, w_hi, w_lo, stride, pad)
-    return conv_op(x, w, w_hi, w_lo, stride, pad)
+        _check(x, w, w_hi, w_lo, stride, pad, scale, shift)
+    return conv_op(x, w, w_hi, w_lo, stride, pad, scale, shift)
