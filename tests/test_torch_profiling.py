@@ -12,10 +12,16 @@
 * The stamp ring's decoding and the clock pairing's mapping, on
   synthetic arrays; ``stage`` under ``torch.export`` leaves nothing in
   the exported graph.
+* The ring's shape is ``csrc/stage_stamp.cu``'s; a capture's recorder
+  slots every span up to the ring's width (a ViT-L call's 79, far past
+  the 31 of a 64-slot ring) and counts the ones past it unslotted, and
+  the ring decodes every slotted span.
 """
 
 import importlib
+import re
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -156,6 +162,66 @@ def _ring(rows):
         for slot, t in slots.items():
             ring[base + 1 + slot] = t
     return ring
+
+
+def test_ring_shape_is_the_stamp_kernels():
+    src = (Path(profiling.__file__).resolve().parents[1] / "csrc"
+           / "stage_stamp.cu").read_text()
+    consts = dict(re.findall(r"constexpr int(?:64_t)? (k\w+) = (\d+);", src))
+    assert int(consts["kRows"]) == profiling.ROWS
+    assert int(consts["kSlots"]) == profiling.SLOTS
+    assert int(consts["kHead"]) == profiling._HEAD
+
+
+class _Marks:
+    """A card's stamp state as ``_Recorder`` uses it: the slots it marks."""
+
+    def __init__(self):
+        self.slots = []
+
+    def mark(self, slot):
+        self.slots.append(slot)
+
+
+@pytest.mark.parametrize("layers", [73, 200])
+def test_capture_slots_every_span_the_ring_holds(layers):
+    # inside a traced capture: the cascade's stages, then ``layers`` spans
+    # inside ``embed`` (a ViT-L's 24 attention cores and 49 LayerNorms)
+    dev = _Marks()
+    profiling.reset()
+    profiling._devices[0] = dev
+    profiling.enable()
+    try:
+        with profiling.graph_spans(0) as table:
+            for name in ("detect", "nms", "embed_crop"):
+                with profiling.stage(name):
+                    pass
+            with profiling.stage("embed"):
+                for i in range(layers):
+                    with profiling.stage(f"net.{i % 3}"):
+                        pass
+        unslotted = profiling.counters["spans.unslotted"]
+    finally:
+        profiling.enable(False)
+        del profiling._devices[0]
+        profiling.reset()
+    held = profiling.SLOTS // 2 - 2          # after programs.copy_in, .graph
+    assert held > 31
+    slotted = min(4 + layers, held)
+    assert unslotted == 4 + layers - slotted
+    assert len(table) == 2 + slotted
+    # the graph's begin, each stage's begin and end (embed's around its
+    # slotted inner spans), the graph's end
+    inner = [s for j in range(6, 2 + slotted) for s in (2 * j, 2 * j + 1)]
+    assert dev.slots == [2, 4, 5, 6, 7, 8, 9, 10] + inner + [11, 3]
+    embed = table.index(("embed", 1))
+    assert all(parent == embed for _, parent in table[embed + 1:])
+    stamps = {0: 1, 1: 2}
+    stamps.update({s: 100 + s for s in range(2, 4 + 2 * slotted)})
+    spans, lost = profiling.decode({0: _ring({9: stamps})},
+                                   [(0, 9, 1, table)], {0: lambda d: d})
+    assert lost == 0 and len(spans) == 2 + slotted
+    assert [s[0] for s in spans] == [name for name, _ in table]
 
 
 def test_ring_decodes_with_unset_branches_and_lost_rows():

@@ -42,6 +42,13 @@ per-channel MUL then ADD that only such a conv reads (a BatchNorm before
 it: each IR-ResNet unit's first) rides in the kernel's operand load
 (``_input_affine``).
 
+A transformer's mechanisms are recognised as ranges of ops
+(``_mechanism_spans``): each attention core (the head split of q, k and
+v, BATCH_MATMUL, the scale, SOFTMAX, BATCH_MATMUL, the head merge) and
+each LayerNorm as the converter decomposes it.  ``forward`` runs their
+ops as before, inside a ``utils.profiling`` span (``net.attention``,
+``net.layer_norm``), the null context unless tracing is on.
+
 ``compute_dtype=torch.bfloat16`` runs the net in bf16 as
 ``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
 bf16 input, weights, biases and PReLU alphas, every op's output in bf16
@@ -57,6 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv_epilogue, conv_tc, fused_block
+from ..utils import profiling
 
 # elementwise ops of two operands: {op: fn}
 _BINARY = {"ADD": torch.add, "SUB": torch.sub, "MUL": torch.mul,
@@ -496,6 +504,162 @@ def _input_affine(conv, users, producers, consts, tensors, graph_outputs):
             "ops": [mul, add]}
 
 
+# the spans ``TFLiteNet.forward`` opens around a recognised mechanism
+ATTENTION, LAYER_NORM = "net.attention", "net.layer_norm"
+
+
+def _last_axis(node, consts, tensors):
+    """Whether MEAN ``node`` reduces its input's last axis alone and keeps
+    it."""
+    axes = np.asarray(consts.get(node["inputs"][1], [])).reshape(-1)
+    rank = len(tensors[node["inputs"][0]]["shape"])
+    return (node["options"].get("keep_dims") and axes.size == 1
+            and int(axes[0]) % rank == rank - 1)
+
+
+def _sole_user(users, t, op, graph_outputs):
+    """The one op that reads ``t`` where it is an ``op`` and ``t`` no
+    graph output, else None."""
+    u = users.get(t, [])
+    return (u[0] if len(u) == 1 and t not in graph_outputs
+            and u[0]["op"] == op else None)
+
+
+def _layer_norm_at(mean, users, producers, consts, tensors, graph_outputs):
+    """The ops of the LayerNorm that starts at MEAN ``mean``, as the
+    converter decomposes one over the last axis: MEAN(x) -> m, SUB(x, m)
+    -> d, MUL(d, d), MEAN, ADD(eps), RSQRT -> r, MUL(d, r) (either order),
+    then a MUL by a constant (gamma) and an ADD of one (beta) where they
+    follow; or None.  Every intermediate but d (read by its square and by
+    the normalizing MUL) has one user and is no graph output."""
+    def only_user(t, op):
+        return _sole_user(users, t, op, graph_outputs)
+
+    def const_operand(node):
+        return (node is not None and len(node["inputs"]) == 2
+                and node["options"].get("activation", "NONE") == "NONE"
+                and sum(i in consts for i in node["inputs"]) == 1)
+
+    if mean["op"] != "MEAN" or not _last_axis(mean, consts, tensors):
+        return None
+    x = mean["inputs"][0]
+    sub = only_user(mean["outputs"][0], "SUB")
+    if sub is None or sub["inputs"] != [x, mean["outputs"][0]]:
+        return None
+    d = sub["outputs"][0]
+    # the square reads d twice: once in ``users``' list for each read
+    dusers = list({id(u): u for u in users.get(d, [])}.values())
+    square = [u for u in dusers if u["op"] == "MUL" and u["inputs"] == [d, d]]
+    if len(dusers) != 2 or len(square) != 1 or d in graph_outputs:
+        return None
+    var = only_user(square[0]["outputs"][0], "MEAN")
+    if var is None or not _last_axis(var, consts, tensors):
+        return None
+    eps = only_user(var["outputs"][0], "ADD")
+    if not const_operand(eps):
+        return None
+    rsqrt = only_user(eps["outputs"][0], "RSQRT")
+    norm = rsqrt and only_user(rsqrt["outputs"][0], "MUL")
+    if (norm is None or sorted(norm["inputs"]) != sorted(
+            [d, rsqrt["outputs"][0]]) or norm not in dusers):
+        return None
+    ops = [mean, sub, square[0], var, eps, rsqrt, norm]
+    for op in ("MUL", "ADD"):
+        nxt = only_user(ops[-1]["outputs"][0], op)
+        if not const_operand(nxt):
+            break
+        ops.append(nxt)
+    return ops
+
+
+def _attention_at(softmax, users, producers, graph_outputs):
+    """The ops of the attention core around SOFTMAX ``softmax``: each head
+    split (a RESHAPE, then a TRANSPOSE) of q, k and v, BATCH_MATMUL(q, k),
+    a MUL by a constant (the scale) where there is one, the SOFTMAX,
+    BATCH_MATMUL(p, v), and the head merge (a TRANSPOSE, then a RESHAPE);
+    or None.  Every intermediate has one user and is no graph output; the
+    qkv and output projections are outside."""
+    def only_user(t, op):
+        return _sole_user(users, t, op, graph_outputs)
+
+    def split(t):
+        """The RESHAPE and TRANSPOSE that make head tensor ``t``."""
+        tr = producers.get(t)
+        rs = tr and producers.get(tr["inputs"][0])
+        if (tr is None or tr["op"] != "TRANSPOSE" or rs is None
+                or rs["op"] != "RESHAPE"
+                or only_user(rs["outputs"][0], "TRANSPOSE") is not tr
+                or len(users.get(t, [])) != 1 or t in graph_outputs):
+            return None
+        return [rs, tr]
+
+    ops = [softmax]
+    scores = producers.get(softmax["inputs"][0])
+    if (scores is not None and scores["op"] == "MUL"
+            and only_user(scores["outputs"][0], "SOFTMAX") is softmax):
+        ops.insert(0, scores)
+        scores = producers.get(next(
+            (i for i in scores["inputs"] if i in producers), None))
+    if (scores is None or scores["op"] != "BATCH_MATMUL"
+            or len(users.get(scores["outputs"][0], [])) != 1):
+        return None
+    context = only_user(softmax["outputs"][0], "BATCH_MATMUL")
+    if context is None or context["inputs"][0] != softmax["outputs"][0]:
+        return None
+    merge = only_user(context["outputs"][0], "TRANSPOSE")
+    flat = merge and only_user(merge["outputs"][0], "RESHAPE")
+    heads = [split(t) for t in (*scores["inputs"], context["inputs"][1])]
+    if flat is None or None in heads:
+        return None
+    return [n for h in heads for n in h] + [scores] + ops + [context, merge,
+                                                             flat]
+
+
+def _mechanism_spans(ops, consts, tensors, graph_outputs, taken=()):
+    """{first op position: (span name, last op position)} of each attention
+    core (``_attention_at``: ``ATTENTION``) and each LayerNorm
+    (``_layer_norm_at``: ``LAYER_NORM``) of ``ops`` whose ops are one
+    unbroken range of positions, none of them in ``taken`` (the ops that
+    run elsewhere than they stand: in a residual run, an epilogue chain or
+    a convolution's operand load)."""
+    users = _consumers(ops)
+    producers = {t: node for node in ops for t in node["outputs"]}
+    pos = {id(node): i for i, node in enumerate(ops)}
+    taken = set(taken)
+    spans = {}
+    for node in ops:
+        if node["op"] == "MEAN":
+            found = _layer_norm_at(node, users, producers, consts, tensors,
+                                   graph_outputs)
+            name = LAYER_NORM
+        elif node["op"] == "SOFTMAX":
+            found = _attention_at(node, users, producers, graph_outputs)
+            name = ATTENTION
+        else:
+            continue
+        at = sorted(pos[id(n)] for n in found or ())
+        if at and at[-1] - at[0] + 1 == len(at) and not taken.intersection(at):
+            spans[at[0]] = (name, at[-1])
+    return spans
+
+
+def _dead_after(ops, graph_outputs, executed_at):
+    """{op position: [tensor ids]}: each tensor an op reads, under the
+    last position at which it is read (an op computed elsewhere than it
+    stands, ``executed_at``, reads its inputs at the later of the two),
+    graph outputs left out."""
+    last = {}
+    for i, node in enumerate(ops):
+        at = max(i, executed_at.get(i, i))
+        for t in node["inputs"]:
+            last[t] = max(last.get(t, at), at)
+    dead = {}
+    for t, at in last.items():
+        if t not in graph_outputs:
+            dead.setdefault(at, []).append(t)
+    return dead
+
+
 def params_from_consts(ops, consts):
     """The graph's float constants as the module's tensors: conv weights
     OHWI -> OIHW, depthwise ``[1, kh, kw, C]`` -> ``[C, 1, kh, kw]``
@@ -702,7 +866,18 @@ class TFLiteNet(nn.Module):
     absorbed MUL's and ADD's op positions, or None)}.  A net with one
     holds every 4-D activation channels_last, the kernel's layout (the
     NHWC input's NCHW view already is); every other net keeps the layouts
-    its ops give."""
+    its ops give.
+
+    ``forward`` drops each activation once the last op that reads it has
+    run (``_dead_after``; a run, a chain or an absorbed affine reads where
+    it runs), so a call, and the pool of a graph captured from it, holds
+    the live activations, not every one of the call.
+
+    ``attention_cores`` and ``layer_norms`` list the (first, last) op
+    positions of each attention core and LayerNorm ``_mechanism_spans``
+    recognises (insightface's ViT-L: 24 and 49; no bundled net and no
+    IR-ResNet has one); ``forward`` opens the span ``net.attention`` or
+    ``net.layer_norm`` around each, and their ops compute as any other."""
 
     def __init__(self, graph, params=None, fuse_blocks=True,
                  compute_dtype=torch.float32, fuse_epilogues=True):
@@ -800,6 +975,19 @@ class TFLiteNet(nn.Module):
         # where its first or its last op stands), or absorbed by a conv
         self._skip = self._in_run | self._in_chain | {
             j for rec in self.tc_convs.values() for j in rec["affine"] or ()}
+        # op position -> the activations that no op after it reads, which
+        # forward drops once it is done: a call holds what is live, not
+        # every activation (a captured graph's pool likewise)
+        self._dead_after = _dead_after(
+            graph.ops, set(graph.outputs), self._executed_at(pos))
+        # op position -> (span name, last op position) of each recognised
+        # attention core and LayerNorm, for the spans forward opens
+        self._spans = _mechanism_spans(
+            graph.ops, graph.consts, graph.tensors, set(graph.outputs),
+            self._skip | set(self._chain_end) | set(self._run_start))
+        self.attention_cores, self.layer_norms = (
+            [(a, b) for a, (name, b) in sorted(self._spans.items())
+             if name == kind] for kind in (ATTENTION, LAYER_NORM))
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)
@@ -811,6 +999,21 @@ class TFLiteNet(nn.Module):
                 names.append(f"run{k}_kernel{i}")
                 self.register_buffer(names[-1], value)
             self._run_weights.append(names)
+
+    def _executed_at(self, pos):
+        """{op position: the position where forward computes it} of the
+        ops that do not run where they stand: a residual run's at its
+        first op, an epilogue chain's at its last, an affine absorbed by a
+        routed conv where that conv runs."""
+        at = {}
+        for run in self.runs:
+            start = pos[id(run[0]["ops"][0])]
+            at.update({pos[id(n)]: start for b in run for n in b["ops"]})
+        for end, k in self._chain_end.items():
+            at.update({pos[id(n)]: end for n in self.chains[k]["ops"]})
+        for i, rec in self.tc_convs.items():
+            at.update({j: at.get(i, i) for j in rec["affine"] or ()})
+        return at
 
     def fused_launches(self, itemsize=None) -> int:
         """Kernel launches of one ``forward`` on the card: those the
@@ -928,6 +1131,23 @@ class TFLiteNet(nn.Module):
             y = F.avg_pool2d(x, (fh, fw), (sh, sw))
         return _act(y, o["activation"])
 
+    def _ops_in_spans(self):
+        """(position, op) of each op in order, those of a recognised
+        mechanism inside its span (``profiling.stage``, the null context
+        unless tracing is on): the span opens before its first op and
+        closes once its last op is done."""
+        i = 0
+        while i < len(self.ops):
+            if i not in self._spans:
+                yield i, self.ops[i]
+                i += 1
+                continue
+            name, last = self._spans[i]
+            with profiling.stage(name):
+                for j in range(i, last + 1):
+                    yield j, self.ops[j]
+            i = last + 1
+
     def forward(self, x):
         batch = x.shape[0]
         # env holds 4-D activations NCHW (ids in `nchw`; channels_last in
@@ -938,9 +1158,12 @@ class TFLiteNet(nn.Module):
         def held(y):
             return y if cl is None else y.contiguous(memory_format=cl)
 
-        env = {self.inputs[0]:
-               held(x.permute(0, 3, 1, 2).to(self.compute_dtype))}
-        nchw = {self.inputs[0]}
+        x = x.to(self.compute_dtype)
+        if x.dim() == 4:
+            env = {self.inputs[0]: held(x.permute(0, 3, 1, 2))}
+            nchw = {self.inputs[0]}
+        else:                   # tokens [B, N, C]: the graph's own layout
+            env, nchw = {self.inputs[0]: x}, set()
 
         def nhwc(i):
             v = env[i]
@@ -953,7 +1176,9 @@ class TFLiteNet(nn.Module):
                 return env[i] if as_nchw else nhwc(i)
             return self._const(i, as_nchw)
 
-        for i, node in enumerate(self.ops):
+        for i, node in self._ops_in_spans():
+            for t in self._dead_after.get(i - 1, ()):
+                env.pop(t, None)
             if i in self._skip:
                 continue
             if i in self._chain_end:
