@@ -46,8 +46,14 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               R100's routed shapes (128 crops of 56x56x128 -> 128, stride
               2) against an f64 convolution: one launch, within 4x cuDNN
               f32's error, and its TF32 mode outside that bound.  The
-              card tests (tests/test_torch_epilogue_card.py,
-              tests/test_torch_conv_tc_card.py) hold both kernels over
+              split-TF32 token FC at ViT-L's fc1 and fc2 shapes (128
+              crops of 144 tokens: 18432x768 -> 3072 and 18432x3072 ->
+              768) against an f64 product: one launch each, within 4x
+              cuBLAS f32's error, its TF32 mode outside that bound, and
+              its bias and activation bit-equal to ATen's after its bare
+              product.  The card tests (tests/test_torch_epilogue_card.py,
+              tests/test_torch_conv_tc_card.py,
+              tests/test_torch_fc_tc_card.py) hold the three kernels over
               more cases;
 4. cascade -- the main paths, with every launch count set to 0 before
               each and read after it.  Each call is a cascade's first at
@@ -115,14 +121,17 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               close-up (its mesh ROI overflows the band, in JAX too) and
               the cascade on the 540p frames, against the CPU port; no
               warp kernel launched, only the BACK detector's fused ones;
-8. embed r100 -- EmbedCascade(FULL_SPARSE, max_faces=4) on ArcFace's
-              IR-ResNet-100 (benchmark/models/iresnet.py at its published
-              widths, the graph written from R100_SEED into build/) on
-              canvas (c) eight times over: 98 split-TF32 convolutions and
-              one epilogue a chain per run, the cached call equal to the
-              eager one and making no launch on a replay, the first
-              frame against the port on the CPU (the nets on the card's
-              crops within R100_EMBED_TOL);
+8. embed iresnet, embed vit -- EmbedCascade(FULL_SPARSE, max_faces=4)
+              on ArcFace's IR-ResNet-100 and on insightface's ViT-L
+              (benchmark/models/iresnet.py and vit.py at their published
+              widths, the graphs written from R100_SEED and VIT_SEED into
+              build/) on canvas (c) eight times over: per run 98
+              split-TF32 convolutions (R100) or 144 split-TF32 token FCs
+              (ViT-L, 6 a block) and one epilogue a chain, the cached call
+              equal to the eager one and making no launch on a replay,
+              the first frame against the port on the CPU (the nets on
+              the card's crops within their configurations'
+              embedding_abs, R100_EMBED_TOL and VIT_EMBED_TOL);
 9. tracker -- FaceTracker() with the published nets: 8 streams of a
               five-step rotated 540p sequence (stream 2 blanked at step
               2), then 2 streams of canvas (a) at 1920x1080 over three
@@ -272,6 +281,7 @@ error against its plain version here) and {"ok": true, "device":
 import argparse
 import collections
 import contextlib
+import importlib
 import io
 import itertools
 import json
@@ -650,7 +660,8 @@ def launch_counts():
             "warp_strips_staged_fused": warp.STAGED_LAUNCHES["fused"],
             "warp_strips_staged_split": warp.STAGED_LAUNCHES["split"],
             "conv_epilogue": ce.LAUNCHES,
-            "conv3x3_tc": ctc.LAUNCHES}
+            "conv3x3_tc": ctc.LAUNCHES,
+            "fc_tc": ftc.LAUNCHES}
 
 
 def reset_counts():
@@ -659,6 +670,7 @@ def reset_counts():
     warp.STAGED_LAUNCHES.update(fused=0, split=0)
     ce.LAUNCHES = 0
     ctc.LAUNCHES = 0
+    ftc.LAUNCHES = 0
 
 
 def epilogues(*nets):
@@ -702,8 +714,9 @@ def phase_build():
 
 
 def phase_kernels(rng):
-    """Each warp, fused-block, epilogue and split-TF32 convolution kernel
-    against its plain version; returns the max abs errors {kernel: err}."""
+    """Each warp, fused-block, epilogue and split-TF32 convolution and FC
+    kernel against its plain version; returns the max abs errors {kernel:
+    err}."""
     phase("kernel vs plain")
     errs = collections.defaultdict(float)
 
@@ -809,6 +822,7 @@ def phase_kernels(rng):
         errs["conv_epilogue"] = max(errs["conv_epilogue"],
                                     check_epilogue(label, *args))
     errs["conv3x3_tc"] = check_conv_tc(rng)
+    errs["fc_tc"] = max(check_fc_tc(rng, *shape) for shape in FC_TC_SHAPES)
     return errs
 
 
@@ -926,15 +940,78 @@ CONV_TC_SHAPE = (56, 128, 128, 2)
 # 1), whose unit's leading BatchNorm it reads through its input affine
 CONV_TC_AFFINE_SHAPE = (28, 128, 128)
 CONV_TC_CROPS = 128
-# the kernel's largest error, over the f64 output's largest magnitude, at
-# most this many times cuDNN's f32 convolution's (TF32 off) at the shape
+# the split-TF32 kernels' largest error, over the f64 output's largest
+# magnitude, at most this many times cuDNN's f32 convolution's or
+# cuBLAS's f32 product's (TF32 off) at the shape
 CONV_TC_ERR_RATIO = 4.0
+# ViT-L's token FCs at 128 crops of 144 tokens (M, K, N, activation):
+# fc1 (bias and RELU6) and fc2 (bias); the card tests
+# (tests/test_torch_fc_tc_card.py) hold all three (K, N) at 1, 3 and 128
+# crops
+FC_TC_SHAPES = [(128 * 144, 768, 3072, "RELU6"),
+                (128 * 144, 3072, 768, "NONE")]
+
+
+def check_fc_tc(rng, m, k, n, act):
+    """The split-TF32 token FC against an f64 product at one of ViT-L's
+    shapes: the bare product one launch, its error within
+    CONV_TC_ERR_RATIO times cuBLAS's f32 product's (TF32 off), and the
+    kernel with TF32 allowed in matmuls (one product a step) failing that
+    bound; then the FC with its bias and activation ``act``: one launch,
+    bit-equal to ATen's ``+ bias`` and ``clamp(0, 6)`` after the bare
+    product.  Returns the bare product's max abs error against the f64
+    one."""
+    label = f"[{m}, {k}] x [{k}, {n}] + bias, {act}"
+    x = torch.from_numpy(rng.standard_normal((m, k),
+                                             dtype=np.float32)).cuda()
+    # pre-activations of standard deviation ~2, so RELU6 clips at both
+    # ends
+    w = torch.from_numpy(2 * rng.standard_normal(
+        (n, k), dtype=np.float32) / k ** 0.5).cuda()
+    bias = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).cuda()
+    hi, lo = ftc.kernel_weights(w)
+    with torch.inference_mode(), exact_f32():
+        want = x.double() @ w.double().t()
+        bare, launches = counted(lambda: ftc.fc_tc(x, w, hi, lo))
+        assert launches == only(fc_tc=1), (label, launches)
+        cublas = x @ w.t()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = ftc.fc_tc(x, w, hi, lo)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        got, launches = counted(lambda: ftc.fc_tc(x, w, hi, lo, bias, act))
+        assert launches == only(fc_tc=1), (label, launches)
+        aten = bare + bias
+        if act == "RELU6":
+            aten = torch.clamp(aten, 0.0, 6.0)
+    diff = {name: float((y.double() - want).abs().max())
+            for name, y in (("kernel", bare), ("cublas_f32", cublas),
+                            ("tf32", tf32))}
+    top = float(want.abs().max())
+    rel = {name: v / top for name, v in diff.items()}
+    equal = bool(torch.equal(got, aten))
+    print(f"fc_tc {label}: error / max |y| {rel}; bias and {act} "
+          f"bit-equal with ATen after the bare product {equal}", flush=True)
+    assert rel["kernel"] <= CONV_TC_ERR_RATIO * rel["cublas_f32"] < (
+        rel["tf32"]), (label, rel)
+    assert equal, label
+    if act == "RELU6":
+        assert bool((aten == 6).any()) and bool((aten == 0).any()), label
+    return diff["kernel"]
+
+
 # the seed of the R100 graph the identification path runs on
 # (benchmark/models/iresnet.py at its published widths)
 R100_SEED = 2**31 + 20
 # R100's embeddings on the card against the CPU's on the same crops: the
 # limit of the arcface_r100_k4_f32 configuration's embedding_abs
 R100_EMBED_TOL = 2e-5
+# the seed of the ViT-L graph (benchmark/models/vit.py at its published
+# widths) and the limit of the arcface_vitl_k4_f32 configuration's
+# embedding_abs
+VIT_SEED = 2**31 + 23
+VIT_EMBED_TOL = 2e-5
 
 
 def fused_entry(dtype):
@@ -1718,39 +1795,42 @@ def cli_close(got, want, key=""):
         assert abs(got - want) <= tol, (key, got, want)
 
 
-def phase_embed_r100():
-    """A main path: the identification path on ArcFace's IR-ResNet-100
-    (``benchmark/models/iresnet.py`` at its published widths, the graph
-    written from R100_SEED into build/), EmbedCascade(FULL_SPARSE,
+def phase_embed_net(model, seed, tol, routed):
+    """A main path: the identification path on one of the benchmark's
+    published-width embedding nets (``benchmark/models/<model>.py``, the
+    graph written from ``seed`` into build/), EmbedCascade(FULL_SPARSE,
     max_faces=4) through its cached call on canvas (c) eight times over
-    (32 crops a call), the counts set to 0 before it and read after.  One
-    eager run of ``_forward`` first gives each kernel's launches a run:
-    98 of the split-TF32 convolution (each routed conv once) and one
-    epilogue a chain.  The cached first call makes them once for each of
-    its runs (the warm-ups and the capture), its replays none, and its
-    result equals the eager call's; the first frame's result against the
-    port on the CPU (``check_embed``, ``hold_cascade_embeddings``: the nets
-    on the card's crops within R100_EMBED_TOL).  Returns the launches."""
-    import importlib.util
-    phase("embed r100")
-    spec = importlib.util.spec_from_file_location(
-        "iresnet", ROOT / "benchmark" / "models" / "iresnet.py")
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
-    made = gen.write(ROOT / "build" / "chip_smoke" / "r100", R100_SEED,
+    (32 crops a call), the counts set to 0 before it and read after.
+    ``routed`` gives the launches a run of each split-TF32 kernel
+    ({"conv3x3_tc": R100's 98 routed convs, "fc_tc": ViT-L's 144 token
+    FCs, 6 a block}): the net's ``tc_convs`` and ``tc_fcs`` count them,
+    and one eager run of ``_forward`` first makes them and one epilogue a
+    chain, no other launch but the detector's and the warp's.  The cached
+    first call makes them once for each of its runs (the warm-ups and the
+    capture), its replays none, and its result equals the eager call's
+    within ``tol``; the first frame's result against the port on the CPU
+    (``check_embed``, ``hold_cascade_embeddings``: the nets on the card's
+    crops within ``tol``, the configuration's ``embedding_abs``).
+    Returns the launches."""
+    phase(f"embed {model}")
+    if str(ROOT / "benchmark") not in sys.path:
+        sys.path.append(str(ROOT / "benchmark"))
+    gen = importlib.import_module(f"models.{model}")
+    made = gen.write(ROOT / "build" / "chip_smoke" / model, seed,
                      files=(gen.GRAPH_FILE,))
     sparse = tmodels.FaceDetectionModel.FULL_SPARSE
     canvas = canvas_grid(load_image)[None]
     frames = np.tile(canvas, (8, 1, 1, 1))
     cas = EmbedCascade(sparse, embed_model_path=str(made), max_faces=4)
-    assert len(cas._embed_net.tc_convs) == 98, len(cas._embed_net.tc_convs)
+    net = cas._embed_net
+    assert {"conv3x3_tc": len(net.tc_convs),
+            "fc_tc": len(net.tc_fcs)} == routed, (model, routed)
     with eager_calls():
         eager, per_run = counted(lambda: cas.infer_batch(frames))
-    assert per_run["conv3x3_tc"] == 98, per_run
     assert per_run == only(
         fused_dw_pw_block_f32=cas._det_net.fused_launches(),
         warp_bilinear=per_run["warp_bilinear"],
-        conv_epilogue=cascade_epilogues(cas), conv3x3_tc=98), per_run
+        conv_epilogue=cascade_epilogues(cas), **routed), (model, per_run)
     reset_counts()
     res, n = counted(lambda: cas.infer_batch(frames))
     runs = capture_runs()
@@ -1760,27 +1840,29 @@ def phase_embed_r100():
     assert n == only(), n
     assert all(torch.equal(a, b) for a, b in
                zip(result_arrays(again), result_arrays(res)))
-    hold_cached("EmbedCascade R100 1080x720 K=4 B=8", res, eager,
-                tol=R100_EMBED_TOL)
-    print(f"launches of the R100 identification path: {launches} for one "
-          f"cached infer_batch of 8 frames ({runs} runs of _forward: the "
-          f"warm-ups and the capture; {per_run['conv3x3_tc']} conv3x3_tc "
-          f"and {per_run['conv_epilogue']} epilogue launches a run)",
+    hold_cached(f"EmbedCascade {model} 1080x720 K=4 B=8", res, eager,
+                tol=tol)
+    print(f"launches of the {model} identification path: {launches} for "
+          f"one cached infer_batch of 8 frames ({runs} runs of _forward: "
+          f"the warm-ups and the capture; {per_run['conv3x3_tc']} "
+          f"conv3x3_tc, {per_run['fc_tc']} fc_tc and "
+          f"{per_run['conv_epilogue']} epilogue launches a run)",
           flush=True)
 
     cpu = EmbedCascade(sparse, embed_model_path=str(made), max_faces=4,
                        device="cpu")
     ref = cpu.infer_batch(canvas)
     first = type(res)(*(f[:1] for f in res))
-    px, sc = check_embed(first, ref, (1080, 720), "R100 canvas (c)")
+    label = f"{model} canvas (c)"
+    px, sc = check_embed(first, ref, (1080, 720), label)
     e, flips, net = hold_cascade_embeddings(cas, cpu, first, ref, canvas,
-                                            "R100 canvas (c)")
-    assert net <= R100_EMBED_TOL, net
-    print(f"EmbedCascade R100 canvas (c) 1080x720 K=4: "
+                                            label)
+    assert net <= tol, (model, net)
+    print(f"EmbedCascade {model} canvas (c) 1080x720 K=4: "
           f"{int(first.face_valid.sum())} valid faces; f32 GPU vs CPU port "
           f"{px:.4f} px, scores {sc:.2e}, embeddings {e:.2e} ({flips} crop "
-          f"levels one apart; R100 on the card's crops {net:.2e}, limit "
-          f"{R100_EMBED_TOL:g})", flush=True)
+          f"levels one apart; {model} on the card's crops {net:.2e}, limit "
+          f"{tol:g})", flush=True)
     return launches
 
 
@@ -2064,7 +2146,8 @@ def close(got, want, tol, label):
 GRAPH_OPS = {"warp_bilinear_segments": "warp_bilinear",
              "warp_bilinear_strips": "warp_bilinear_strips",
              "conv_epilogue": "conv_epilogue",
-             "conv3x3_tc": "conv3x3_tc"}
+             "conv3x3_tc": "conv3x3_tc",
+             "fc_tc": "fc_tc"}
 
 
 def graph_launches(prog):
@@ -3201,7 +3284,7 @@ BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
            "fused_dw_pw_block_bf16", "warp_strips_staged", "graph_cond",
-           "conv_epilogue", "conv3x3_tc")
+           "conv_epilogue", "conv3x3_tc", "fc_tc")
 # the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
@@ -3224,6 +3307,10 @@ SOURCES = {
     # (lax.conv_general_dilated) onto the TPU's matrix unit
     "conv3x3_tc": ("tpu_face_torch/csrc/conv3x3_tc.cu",
                    "tpu_face/compiler/lowering.py:328"),
+    # no Pallas kernel: XLA lowers the JAX package's FULLY_CONNECTED
+    # (jnp.dot) onto the TPU's matrix unit
+    "fc_tc": ("tpu_face_torch/csrc/fc_tc.cu",
+              "tpu_face/compiler/lowering.py:396"),
 }
 
 
@@ -3234,7 +3321,7 @@ def import_port():
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
-    global track_sharded, bench, programs, Rect, CACHED_CALL, ctc
+    global track_sharded, bench, programs, Rect, CACHED_CALL, ctc, ftc
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
     from tpu_face_torch import (aot, bench, programs, resolve_device,
@@ -3245,6 +3332,7 @@ def import_port():
     from tpu_face_torch.ops import _build, fused_block, geometry
     from tpu_face_torch.ops import conv_epilogue as ce
     from tpu_face_torch.ops import conv_tc as ctc
+    from tpu_face_torch.ops import fc_tc as ftc
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
     from tpu_face_torch.parallel import (data_parallel_mesh, infer_sharded,
@@ -3305,7 +3393,10 @@ def main(argv=None):
                   "bf16": phase_models(torch.bfloat16)}
     paths["full_detectors"] = phase_full_detectors()
     paths["mxu"] = phase_mxu()
-    paths["embed_r100"] = phase_embed_r100()
+    paths["embed_r100"] = phase_embed_net(
+        "iresnet", R100_SEED, R100_EMBED_TOL, {"conv3x3_tc": 98, "fc_tc": 0})
+    paths["embed_vit"] = phase_embed_net(
+        "vit", VIT_SEED, VIT_EMBED_TOL, {"conv3x3_tc": 0, "fc_tc": 144})
     with eager_calls():
         paths["tracker"] = phase_tracker()
         paths["embed"] = phase_embed()
@@ -3357,11 +3448,13 @@ def main(argv=None):
         fused_dw_pw_block_f32=paths["embed"]["fused_dw_pw_block_f32"],
         fused_dw_pw_block_bf16=paths["embed"]["fused_dw_pw_block_bf16"],
         conv_epilogue=paths["embed"]["conv_epilogue"]), paths
-    # the split-TF32 convolution runs on R100's path alone: no bundled
-    # graph has a convolution it takes
+    # the split-TF32 convolution runs on R100's path alone and the token
+    # FC on ViT-L's: no bundled graph has a convolution or an FC they take
     for key, counts in {**paths, **models}.items():
         if key != "embed_r100":
             assert counts["conv3x3_tc"] == 0, (key, counts)
+        if key != "embed_vit":
+            assert counts["fc_tc"] == 0, (key, counts)
     numbers = {"path_launches": paths, "models_launches": models,
                "device": smi, "seconds": time.perf_counter() - t_start}
 

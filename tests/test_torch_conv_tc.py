@@ -52,7 +52,7 @@ from tpu_face_torch.compiler.lowering import (Graph, TFLiteNet,
                                               _fold_pads_into_convs)
 from tpu_face_torch.models.face_detection import FaceDetectionModel
 from tpu_face_torch.models.face_embeddings import FaceEmbeddings
-from tpu_face_torch.ops import conv_tc
+from tpu_face_torch.ops import conv_tc, wgmma_tf32
 from tpu_face_torch.pipeline import EmbedCascade
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -375,7 +375,7 @@ def test_weight_split():
     gen_ = torch.Generator().manual_seed(1)
     w = torch.randn(128, 64, 3, 3, generator=gen_) * torch.exp(
         4 * torch.randn(128, 64, 3, 3, generator=gen_))
-    hi, lo = conv_tc.split_tf32(w)
+    hi, lo = wgmma_tf32.split_tf32(w)
     for part in (hi, lo):
         assert not (part.view(torch.int32) & 0x1FFF).any()
     err = ((hi.double() + lo.double()) - w.double()).abs()
@@ -391,7 +391,7 @@ def test_tile_order(co):
     it: undone here by the index formula of ``kernel_weights``."""
     gen_ = torch.Generator().manual_seed(co)
     w = torch.randn(co, 64, 3, 3, generator=gen_)
-    hi, lo = conv_tc.split_tf32(w)
+    hi, lo = wgmma_tf32.split_tf32(w)
     thi, tlo = conv_tc.kernel_weights(w)
     assert thi.shape == tlo.shape == (18, co, 32)
     # K step k, output channel n, slot s of the row: channel
@@ -411,9 +411,9 @@ def test_tile_order(co):
     (128 * 28 * 28, 128, 128), (128 * 14 * 14, 256, 128),
     (128 * 7 * 7, 512, 128), (5, 128, 128), (0, 64, 64), (300, 192, 64)])
 def test_plan(m, cout, bn):
-    got_bn, grid = conv_tc.plan(m, cout, 132)
+    got_bn, grid = wgmma_tf32.plan(m, cout, 132)
     assert got_bn == bn and cout % got_bn == 0
-    tiles = -(-m // conv_tc.TILES[got_bn]) * (cout // got_bn)
+    tiles = -(-m // wgmma_tf32.TILES[got_bn]) * (cout // got_bn)
     assert grid == min(tiles, 132)
 
 

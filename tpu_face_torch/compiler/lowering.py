@@ -40,7 +40,13 @@ takes (stride 1 or 2, symmetric padding 0 or 1, Cin >= 64 a multiple of
 on the card; such a net holds its 4-D activations channels_last.  A
 per-channel MUL then ADD that only such a conv reads (a BatchNorm before
 it: each IR-ResNet unit's first) rides in the kernel's operand load
-(``_input_affine``).
+(``_input_affine``).  In an f32 net each FULLY_CONNECTED over a token
+sequence that ``ops.fc_tc.routes`` takes (``_token_fcs``:
+``keep_num_dims``, more than one row a sample, K a multiple of 32, N of
+64, a NONE, RELU or RELU6 activation: insightface's ViT-L's 144, no
+bundled graph's, not R100's) runs as ``ops.fc_tc.fc_tc``, a hand-written
+split-TF32 tensor-core kernel on the card with the FC's bias and
+activation in its epilogue.
 
 A transformer's mechanisms are recognised as ranges of ops
 (``_mechanism_spans``): each attention core (the head split of q, k and
@@ -63,7 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv_epilogue, conv_tc, fused_block
+from ..ops import conv_epilogue, conv_tc, fc_tc, fused_block
 from ..utils import profiling
 
 # elementwise ops of two operands: {op: fn}
@@ -643,6 +649,23 @@ def _mechanism_spans(ops, consts, tensors, graph_outputs, taken=()):
     return spans
 
 
+def _token_fcs(ops, consts, tensors, dtype):
+    """The op positions of the FULLY_CONNECTED ops that ``fc_tc.routes``
+    sends to the kernel in a net computing in ``dtype``: by the weights'
+    shape, the input's shape in the graph, ``keep_num_dims`` and the
+    fused activation."""
+    out = []
+    for i, node in enumerate(ops):
+        if node["op"] != "FULLY_CONNECTED":
+            continue
+        o, ins = node["options"], node["inputs"]
+        if fc_tc.routes(np.shape(consts.get(ins[1])),
+                        tensors[ins[0]]["shape"], o.get("keep_num_dims"),
+                        o["activation"], dtype):
+            out.append(i)
+    return out
+
+
 def _dead_after(ops, graph_outputs, executed_at):
     """{op position: [tensor ids]}: each tensor an op reads, under the
     last position at which it is read (an op computed elsewhere than it
@@ -707,7 +730,8 @@ def _stack_run(run, params):
         ins = node["inputs"]
         if len(ins) > 2 and ins[2] >= 0:
             return params[f"t{ins[2]}"]
-        return torch.zeros(c, dtype=params[f"t{ins[1]}"].dtype)
+        w = params[f"t{ins[1]}"]
+        return torch.zeros(c, dtype=w.dtype, device=w.device)
 
     c = run[0]["c"]
     dws = [b["ops"][0] for b in run]
@@ -868,6 +892,19 @@ class TFLiteNet(nn.Module):
     NHWC input's NCHW view already is); every other net keeps the layouts
     its ops give.
 
+    In an f32 net every FULLY_CONNECTED that ``ops.fc_tc.routes`` takes
+    (``_token_fcs``: by its weights' shape, its input's shape in the
+    graph, ``keep_num_dims`` and its fused activation) runs as
+    ``ops.fc_tc.fc_tc`` with its bias and activation: the split-TF32
+    kernel on the card, on its weights split here, once, into the kernel's
+    hi and lo buffers (``fc<k>_hi``, ``fc<k>_lo``); ``F.linear``, the bias
+    and the activation as ops on the CPU.  ``tc_fcs`` maps the routed FCs'
+    op positions to their records {"k"} (ViT-L: 144; R100 and every
+    bundled net: none); every other FC stays on ``torch.matmul``.  Each
+    RESHAPE's output is row-major, the kernel's layout (the tokens of a
+    patch conv's NCHW output are otherwise a strided view that every op
+    after it keeps).
+
     ``forward`` drops each activation once the last op that reads it has
     run (``_dead_after``; a run, a chain or an absorbed affine reads where
     it runs), so a call, and the pool of a graph captured from it, holds
@@ -971,6 +1008,16 @@ class TFLiteNet(nn.Module):
                             f"tc{k}_{name}", torch.broadcast_to(
                                 params[f"c{aff[name]}"].reshape(-1),
                                 (xshape[3],)).contiguous())
+        # op position -> record for each FULLY_CONNECTED on fc_tc, its
+        # weights split into the buffers fc<k>_hi and fc<k>_lo
+        self.tc_fcs = {}
+        for k, i in enumerate(_token_fcs(graph.ops, graph.consts,
+                                         graph.tensors, compute_dtype)):
+            hi, lo = fc_tc.kernel_weights(
+                params[f"t{graph.ops[i]['inputs'][1]}"])
+            self.register_buffer(f"fc{k}_hi", hi)
+            self.register_buffer(f"fc{k}_lo", lo)
+            self.tc_fcs[i] = {"k": k}
         # op positions forward skips: inside a run or a chain (each runs
         # where its first or its last op stands), or absorbed by a conv
         self._skip = self._in_run | self._in_chain | {
@@ -1220,7 +1267,10 @@ class TFLiteNet(nn.Module):
                            or np.asarray(self.consts[ins[1]]).tolist())
                 if tgt and tgt[0] == 1:
                     tgt[0] = batch
-                y = nhwc(ins[0]).reshape(tgt)
+                # row-major: a reshape of an NCHW conv's output (ViT's
+                # tokens) is otherwise a strided view, which every op
+                # after it keeps; where it copied already, a no-op
+                y = nhwc(ins[0]).reshape(tgt).contiguous()
                 layout_nchw = False
             elif op in ("RESIZE_BILINEAR", "DEPTH_TO_SPACE"):
                 xin = env[ins[0]]
@@ -1263,14 +1313,21 @@ class TFLiteNet(nn.Module):
             elif op == "FULLY_CONNECTED":
                 w = getattr(self, f"t{ins[1]}")        # [out, in]
                 xin = nhwc(ins[0])
-                if not o.get("keep_num_dims"):
-                    # TFLite flattens all but the contraction dim, in the
-                    # graph's NHWC order
-                    xin = xin.reshape(-1, w.shape[1])
-                y = torch.matmul(xin, w.t())
-                if len(ins) > 2 and ins[2] >= 0:
-                    y = y + getattr(self, f"t{ins[2]}")
-                y = _act(y, o["activation"])
+                bias = self._bias(node)
+                if i in self.tc_fcs:
+                    k = self.tc_fcs[i]["k"]
+                    y = fc_tc.fc_tc(xin, w, getattr(self, f"fc{k}_hi"),
+                                    getattr(self, f"fc{k}_lo"), bias,
+                                    o["activation"])
+                else:
+                    if not o.get("keep_num_dims"):
+                        # TFLite flattens all but the contraction dim, in
+                        # the graph's NHWC order
+                        xin = xin.reshape(-1, w.shape[1])
+                    y = torch.matmul(xin, w.t())
+                    if bias is not None:
+                        y = y + bias
+                    y = _act(y, o["activation"])
                 layout_nchw = False
             elif op == "BATCH_MATMUL":
                 a, b = arg(ins[0], False), arg(ins[1], False)
@@ -1304,8 +1361,12 @@ class TFLiteNet(nn.Module):
 def build_torch_fn(graph, device=None, fuse_blocks=True,
                    compute_dtype=torch.float32):
     """The graph as a ``TFLiteNet`` in eval mode on ``device``, computing
-    in ``compute_dtype``."""
-    return TFLiteNet(graph, fuse_blocks=fuse_blocks,
+    in ``compute_dtype``.  Its constants go to ``device`` first, so the
+    kernels' forms of its weights (the split-TF32 hi and lo parts: 1.36
+    GB for ViT-L) are made there, not on the host and copied."""
+    params = {k: v.to(device) for k, v in
+              params_from_consts(graph.ops, graph.consts).items()}
+    return TFLiteNet(graph, params, fuse_blocks=fuse_blocks,
                      compute_dtype=compute_dtype).to(device).eval()
 
 

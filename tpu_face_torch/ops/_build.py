@@ -2,13 +2,14 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) at first use into ``build/tpu_face_torch/``
-at the repository root, under a name keyed by a hash of the source and
-the flags, so a stale library is never loaded; the library is opened
-with ``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once.
-Nothing here runs when the module is imported: the CPU-only test
-environment has no ``nvcc``.  ``entry`` and ``launch`` are the lean
-launch path every kernel wrapper shares; ``register`` makes a kernel a
-PyTorch operator in the ``tpu_face_torch`` namespace.
+at the repository root, under a name keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a stale library is never
+loaded; the library is opened with ``ctypes``.  ``build_all`` starts one
+``nvcc`` per source at once.  Nothing here runs when the module is
+imported: the CPU-only test environment has no ``nvcc``.  ``entry`` and
+``launch`` are the lean launch path every kernel wrapper shares;
+``register`` makes a kernel a PyTorch operator in the ``tpu_face_torch``
+namespace.
 """
 
 import ctypes
@@ -76,11 +77,17 @@ _EPILOGUE_SIG = ((_P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P), _I)
 _CONV_TC_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _I, _P), _I)
 
+# (x, w_hi, w_lo, bias, y, M, K, N, activation, N tile, CTAs, tf32,
+#  stream) -> cudaError_t, the split-TF32 token FC's entry point (bias
+#  null: none)
+_FC_TC_SIG = ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
     "conv_epilogue": {"conv_epilogue_f32": _EPILOGUE_SIG},
     "conv3x3_tc": {"conv3x3_tc_f32": _CONV_TC_SIG},
+    "fc_tc": {"fc_tc_f32": _FC_TC_SIG},
     "graph_cond": {"graph_if_begin": _IF_BEGIN_SIG,
                    "graph_if_end": _IF_END_SIG},
     "stage_stamp": {"stage_stamp_open": _STAMP_OPEN_SIG,
@@ -116,9 +123,12 @@ def _nvcc():
 
 
 def _target(name: str) -> Path:
-    """The library path of ``csrc/<name>.cu``, keyed by its content."""
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library path of ``csrc/<name>.cu``, keyed by its content and
+    that of the headers beside it (``csrc/*.cuh``), which it may
+    include."""
+    content = b"".join(p.read_bytes() for p in (
+        _CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))))
+    digest = hashlib.sha256(content
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

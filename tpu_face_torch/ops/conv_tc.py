@@ -28,25 +28,19 @@ and gives ``torch.export`` the output's shape and channels_last strides
 through its fake implementation.  ``conv3x3_tc`` checks the operands and
 calls it.  ``LAUNCHES`` counts the kernel's launches; the plain path never
 adds to it.  ``routes`` is the shape rule by which
-``compiler.lowering.TFLiteNet`` sends a CONV_2D of an f32 net here;
-``plan`` picks the kernel's N tile and grid from the GEMM's shape.
+``compiler.lowering.TFLiteNet`` sends a CONV_2D of an f32 net here.
+The TF32 split, the tile order of the weights' parts and the plan of a
+launch (N tile and grid from the GEMM's shape) are ``wgmma_tf32``'s,
+shared with ``fc_tc``.
 """
-
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .wgmma_tf32 import BK, plan, sms, tiles
 
 LAUNCHES = 0
-
-BK = 32                # K a stage: 32 channels of one tap (kBK)
-# the kernel's tiles, {output channels: output pixels}: the same work and
-# the same bytes a stage, so the wide one, which never takes more tiles,
-# is taken wherever it divides Cout
-TILES = {128: 128, 64: 256}
-_TF32_DROP = 0x1FFF    # the 13 low mantissa bits TF32 does not keep
 
 
 def routes(w_shape, c_in, stride, dilation, pads, dtype) -> bool:
@@ -65,54 +59,17 @@ def routes(w_shape, c_in, stride, dilation, pads, dtype) -> bool:
             and pt in (0, 1) and ci >= 64 and ci % 32 == 0 and co % 64 == 0)
 
 
-def round_tf32(t):
-    """f32 ``t`` rounded to TF32 (10 mantissa bits), to nearest with ties
-    away from zero, as the card's ``cvt.rna.tf32.f32``."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + (_TF32_DROP + 1) // 2) & ~_TF32_DROP).view(torch.float32)
-
-
-def split_tf32(t):
-    """(hi, lo), TF32 values with ``hi + lo`` within 2^-22 of f32 ``t``:
-    hi = tf32(t), lo = tf32(t - hi)."""
-    hi = round_tf32(t)
-    return hi, round_tf32(t - hi)
-
-
 def kernel_weights(w):
     """The hi and lo parts of OIHW weights ``w`` [Cout, Cin, 3, 3] in the
-    kernel's tile order, each [9 Cin / 32, Cout, 32]: for K step k (tap
-    ky*3 + kx, channels 32j .. 32j + 31, k = tap * Cin / 32 + j) and output
-    channel n, 32 floats, a 128-byte row of the kernel's B tile as shared
-    memory holds it under the 128B swizzle (16-byte chunk c at c ^ (n %
-    8)), in the kernel's K order within the step (float 4c + d of the row
-    is channel 8d + (c ^ (n % 8)))."""
+    kernel's tile order, each [9 Cin / 32, Cout, 32]: ``tiles`` of w as
+    [Cout, 9 Cin] in (ky, kx, ci) order, so K step k is tap ky*3 + kx and
+    channels 32j .. 32j + 31 with k = tap * Cin / 32 + j."""
     co, ci = w.shape[:2]
-    k = w.permute(0, 2, 3, 1).reshape(co, 9 * ci // BK, BK).permute(1, 0, 2)
-    n = torch.arange(co)[:, None]
-    slot = torch.arange(BK)[None, :]
-    channel = 8 * (slot % 4) + ((slot // 4) ^ (n % 8))      # [Cout, 32]
-    index = channel.expand(k.shape[0], co, BK).to(w.device)
-    return tuple(torch.gather(part, 2, index).contiguous()
-                 for part in split_tf32(k.float().contiguous()))
+    return tiles(w.permute(0, 2, 3, 1).reshape(co, 9 * ci))
 
 
 def out_size(size, stride, pad):
     return (size + 2 * pad - 3) // stride + 1
-
-
-def plan(m, cout, sms):
-    """(N tile width, CTAs) of the kernel for M = ``m`` output pixels and
-    N = ``cout`` on ``sms`` SMs: the widest of ``TILES`` that divides
-    Cout; as many persistent CTAs as there are tiles, at most one an
-    SM."""
-    bn = 128 if cout % 128 == 0 else 64
-    return bn, min(-(-m // TILES[bn]) * (cout // bn), sms)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def conv3x3_tc_plain(x, w, stride: int, pad: int, scale=None, shift=None):
@@ -185,7 +142,7 @@ def _conv_cuda(x, w, w_hi, w_lo, stride, pad, scale=None, shift=None):
     b, ci, h, wd = x.shape
     co = w.shape[0]
     dev = x.get_device()
-    bn, grid = plan(b * y.shape[2] * y.shape[3], co, _sms(dev))
+    bn, grid = plan(b * y.shape[2] * y.shape[3], co, sms(dev))
     _build.launch(_build.entry("conv3x3_tc", "conv3x3_tc_f32"), dev,
                   x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
                   None if scale is None else scale.data_ptr(),
