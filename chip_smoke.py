@@ -48,7 +48,9 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               f32's error, and its TF32 mode outside that bound.  The
               split-TF32 token FC at ViT-L's fc1 and fc2 shapes (128
               crops of 144 tokens: 18432x768 -> 3072 and 18432x3072 ->
-              768) against an f64 product: one launch each, within 4x
+              768) and two of Swin-S's (401408x96 -> 384, stage 1's fc1;
+              100352x192 -> 192, stage 2's q, k, v, proj and fc2, on the
+              256x64 tile) against an f64 product: one launch each, within 4x
               cuBLAS f32's error, its TF32 mode outside that bound, and
               its bias and activation bit-equal to ATen's after its bare
               product.  The card tests (tests/test_torch_epilogue_card.py,
@@ -121,17 +123,20 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               close-up (its mesh ROI overflows the band, in JAX too) and
               the cascade on the 540p frames, against the CPU port; no
               warp kernel launched, only the BACK detector's fused ones;
-8. embed iresnet, embed vit -- EmbedCascade(FULL_SPARSE, max_faces=4)
-              on ArcFace's IR-ResNet-100 and on insightface's ViT-L
-              (benchmark/models/iresnet.py and vit.py at their published
-              widths, the graphs written from R100_SEED and VIT_SEED into
-              build/) on canvas (c) eight times over: per run 98
-              split-TF32 convolutions (R100) or 144 split-TF32 token FCs
-              (ViT-L, 6 a block) and one epilogue a chain, the cached call
+8. embed iresnet, embed vit, embed swin -- EmbedCascade(FULL_SPARSE,
+              max_faces=4) on ArcFace's IR-ResNet-100, on insightface's
+              ViT-L and on Swin-S (benchmark/models/iresnet.py, vit.py
+              and swin.py at their published widths, the graphs written
+              from R100_SEED, VIT_SEED and SWIN_SEED into build/) on
+              canvas (c) eight times over: per run 98 split-TF32
+              convolutions (R100), 144 split-TF32 token FCs (ViT-L, 6 a
+              block) or 137 (Swin-S: stage 1's fc1s, the merges, every FC
+              of stages 2-4) and one epilogue a chain, the cached call
               equal to the eager one and making no launch on a replay,
               the first frame against the port on the CPU (the nets on
               the card's crops within their configurations'
-              embedding_abs, R100_EMBED_TOL and VIT_EMBED_TOL);
+              embedding_abs, R100_EMBED_TOL, VIT_EMBED_TOL and
+              SWIN_EMBED_TOL);
 9. tracker -- FaceTracker() with the published nets: 8 streams of a
               five-step rotated 540p sequence (stream 2 blanked at step
               2), then 2 streams of canvas (a) at 1920x1080 over three
@@ -944,17 +949,21 @@ CONV_TC_CROPS = 128
 # magnitude, at most this many times cuDNN's f32 convolution's or
 # cuBLAS's f32 product's (TF32 off) at the shape
 CONV_TC_ERR_RATIO = 4.0
-# ViT-L's token FCs at 128 crops of 144 tokens (M, K, N, activation):
-# fc1 (bias and RELU6) and fc2 (bias); the card tests
-# (tests/test_torch_fc_tc_card.py) hold all three (K, N) at 1, 3 and 128
-# crops
+# token FCs at 128 crops (M, K, N, activation): ViT-L's fc1 (bias and
+# RELU6) and fc2 (bias) over 144 tokens, which take the 128x128 tile;
+# Swin-S's stage-1 fc1 over 3,136 tokens (K = 96) and stage 2's q, k, v,
+# proj and fc2 over 784 (N = 192, the 256x64 tile); the card tests
+# (tests/test_torch_fc_tc_card.py) hold ViT-L's three (K, N) at 1, 3 and
+# 128 crops and these two of Swin-S's
 FC_TC_SHAPES = [(128 * 144, 768, 3072, "RELU6"),
-                (128 * 144, 3072, 768, "NONE")]
+                (128 * 144, 3072, 768, "NONE"),
+                (128 * 3136, 96, 384, "NONE"),
+                (128 * 784, 192, 192, "NONE")]
 
 
 def check_fc_tc(rng, m, k, n, act):
-    """The split-TF32 token FC against an f64 product at one of ViT-L's
-    shapes: the bare product one launch, its error within
+    """The split-TF32 token FC against an f64 product at one of
+    ``FC_TC_SHAPES``: the bare product one launch, its error within
     CONV_TC_ERR_RATIO times cuBLAS's f32 product's (TF32 off), and the
     kernel with TF32 allowed in matmuls (one product a step) failing that
     bound; then the FC with its bias and activation ``act``: one launch,
@@ -1012,6 +1021,10 @@ R100_EMBED_TOL = 2e-5
 # embedding_abs
 VIT_SEED = 2**31 + 23
 VIT_EMBED_TOL = 2e-5
+# the seed of the Swin-S graph (benchmark/models/swin.py at its published
+# widths) and the limit of the swin_s_k4_f32 configuration's embedding_abs
+SWIN_SEED = 2**31 + 25
+SWIN_EMBED_TOL = 2e-5
 
 
 def fused_entry(dtype):
@@ -1593,10 +1606,10 @@ TIE = 1e-3                      # 0-255 units
 
 def exact_crops(frames, boxes, device, size=112):
     """The crops' values before the rint (0-255 units), flat
-    [N, size, size, 3], of host frames [B, H, W, 3] at crop boxes
-    [B(, K), 4]: the f32 sampling coordinates the port computes on
-    ``device``, then the hat weights and both products in f64 on the
-    CPU."""
+    [N, size, size, 3] (``size`` the embedding net's input side), of host
+    frames [B, H, W, 3] at crop boxes [B(, K), 4]: the f32 sampling
+    coordinates the port computes on ``device``, then the hat weights and
+    both products in f64 on the CPU."""
     box = torch.as_tensor(np.asarray(boxes), dtype=torch.float32,
                           device=device)
     roi = torch.stack([(box[..., 0] + box[..., 2]) / 2.0,
@@ -1675,7 +1688,8 @@ def hold_f32_embeddings(card, cpu, card_emb, cpu_emb, frames, boxes,
     sides = []
     for model, side in ((card, crops), (cpu, face_crops(cpu, frames,
                                                          boxes))):
-        exact = exact_crops(frames, boxes, model.device)[valid]
+        exact = exact_crops(frames, boxes, model.device,
+                            side.shape[1])[valid]
         tie = ((exact - torch.floor(exact)) - 0.5).abs() <= TIE
         want = torch.round(exact)
         levels = torch.round(side[valid] * 255)
@@ -1803,14 +1817,15 @@ def phase_embed_net(model, seed, tol, routed):
     (32 crops a call), the counts set to 0 before it and read after.
     ``routed`` gives the launches a run of each split-TF32 kernel
     ({"conv3x3_tc": R100's 98 routed convs, "fc_tc": ViT-L's 144 token
-    FCs, 6 a block}): the net's ``tc_convs`` and ``tc_fcs`` count them,
-    and one eager run of ``_forward`` first makes them and one epilogue a
-    chain, no other launch but the detector's and the warp's.  The cached
-    first call makes them once for each of its runs (the warm-ups and the
-    capture), its replays none, and its result equals the eager call's
-    within ``tol``; the first frame's result against the port on the CPU
-    (``check_embed``, ``hold_cascade_embeddings``: the nets on the card's
-    crops within ``tol``, the configuration's ``embedding_abs``).
+    FCs, 6 a block, or Swin-S's 137}): the net's ``tc_convs`` and
+    ``tc_fcs`` count them, and one eager run of ``_forward`` first makes
+    them and one epilogue a chain, no other launch but the detector's
+    and the warp's.  The cached first call makes them once for each of
+    its runs (the warm-ups and the capture), its replays none, and its
+    result equals the eager call's within ``tol``; the first frame's
+    result against the port on the CPU (``check_embed``,
+    ``hold_cascade_embeddings``: the nets on the card's crops within
+    ``tol``, the configuration's ``embedding_abs``).
     Returns the launches."""
     phase(f"embed {model}")
     if str(ROOT / "benchmark") not in sys.path:
@@ -3397,6 +3412,8 @@ def main(argv=None):
         "iresnet", R100_SEED, R100_EMBED_TOL, {"conv3x3_tc": 98, "fc_tc": 0})
     paths["embed_vit"] = phase_embed_net(
         "vit", VIT_SEED, VIT_EMBED_TOL, {"conv3x3_tc": 0, "fc_tc": 144})
+    paths["embed_swin"] = phase_embed_net(
+        "swin", SWIN_SEED, SWIN_EMBED_TOL, {"conv3x3_tc": 0, "fc_tc": 137})
     with eager_calls():
         paths["tracker"] = phase_tracker()
         paths["embed"] = phase_embed()
@@ -3449,11 +3466,12 @@ def main(argv=None):
         fused_dw_pw_block_bf16=paths["embed"]["fused_dw_pw_block_bf16"],
         conv_epilogue=paths["embed"]["conv_epilogue"]), paths
     # the split-TF32 convolution runs on R100's path alone and the token
-    # FC on ViT-L's: no bundled graph has a convolution or an FC they take
+    # FC on the transformers': no bundled graph has a convolution or an FC
+    # they take
     for key, counts in {**paths, **models}.items():
         if key != "embed_r100":
             assert counts["conv3x3_tc"] == 0, (key, counts)
-        if key != "embed_vit":
+        if key not in ("embed_vit", "embed_swin"):
             assert counts["fc_tc"] == 0, (key, counts)
     numbers = {"path_launches": paths, "models_launches": models,
                "device": smi, "seconds": time.perf_counter() - t_start}

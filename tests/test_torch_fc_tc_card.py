@@ -3,10 +3,12 @@ test skips without one; run on the card with ``python -m pytest
 tests/test_torch_fc_tc_card.py -q``).
 
 * At ViT-L's three FC shapes (K, N) and 1, 3 and 128 crops of 144 tokens
-  (``SHAPES``, ``ROWS``), against an f64 product: its largest error, over
-  the largest magnitude of the f64 output, is at most ``ERR_RATIO`` times
-  cuBLAS's f32 product's (TF32 off); the kernel with TF32 allowed (one
-  product a step) fails that same bound.
+  (``SHAPES``, ``ROWS``), and at two of Swin-S's at 128 crops
+  (``SWIN_SHAPES``: K = 96, and N = 192 on the 256x64 tile), against an
+  f64 product: its largest error, over the largest magnitude of the f64
+  output, is at most ``ERR_RATIO`` times cuBLAS's f32 product's (TF32
+  off); the kernel with TF32 allowed (one product a step) fails that same
+  bound.
 * Tiles and ragged rows: on small-integer operands, whose products and
   sums f32 holds exactly, with an integer bias and each activation, it
   equals the f64 result bit for bit at N tiles of 64 and 128, one and
@@ -51,6 +53,9 @@ TOKENS = 144
 # (K, N) of ViT-L's token FCs: q, k, v and proj; fc1; fc2
 SHAPES = [(768, 768), (768, 3072), (3072, 768)]
 ROWS = [TOKENS, 3 * TOKENS, 128 * TOKENS]
+# (M, K, N) of Swin-S's token FCs at 128 crops: stage 1's fc1 (3,136
+# tokens a crop), and stage 2's q, k, v, proj and fc2 (784)
+SWIN_SHAPES = [(128 * 3136, 96, 384), (128 * 784, 192, 192)]
 # the kernel's error against cuBLAS's f32 one: split TF32 drops a_lo*b_lo
 # (~2^-22 of a product) and the tensor cores sum each k8 step in their
 # own order, so its error is of f32's size, not TF32's (~2^-11, ~1000x)
@@ -79,6 +84,15 @@ def _rel_err(y, want):
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("k,n", SHAPES)
 def test_error_within_cublas_f32(card, k, n, m):
+    _check_error(card, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", SWIN_SHAPES)
+def test_error_within_cublas_f32_swin(card, m, k, n):
+    _check_error(card, m, k, n)
+
+
+def _check_error(card, m, k, n):
     x, w = _operands(m, k, n, card, m + k + n)
     hi, lo = fc_tc.kernel_weights(w)
     with torch.inference_mode():

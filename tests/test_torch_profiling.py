@@ -183,10 +183,12 @@ class _Marks:
         self.slots.append(slot)
 
 
-@pytest.mark.parametrize("layers", [73, 200])
+@pytest.mark.parametrize("layers", [73, 200, 125, 400])
 def test_capture_slots_every_span_the_ring_holds(layers):
     # inside a traced capture: the cascade's stages, then ``layers`` spans
-    # inside ``embed`` (a ViT-L's 24 attention cores and 49 LayerNorms)
+    # inside ``embed`` (a ViT-L's 24 attention cores and 49 LayerNorms; a
+    # Swin-S's 24 cores, 53 LayerNorms and 48 window spans; more than the
+    # ring holds)
     dev = _Marks()
     profiling.reset()
     profiling._devices[0] = dev

@@ -6,7 +6,13 @@ DEPTHWISE_CONV_2D, ADD, RELU, PRELU, MAX_POOL_2D, PAD, RESHAPE,
 CONCATENATION, RESIZE_BILINEAR, DEPTH_TO_SPACE) and those of the
 embedding nets (FULLY_CONNECTED, BATCH_MATMUL, AVERAGE_POOL_2D, SUB, MUL,
 DIV, MINIMUM, MAXIMUM, MEAN, SOFTMAX, L2_NORMALIZATION, SQRT, RSQRT,
-NEG, EXP, TANH, HARD_SWISH, LOGISTIC, TRANSPOSE).  Any other op raises
+NEG, EXP, TANH, HARD_SWISH, LOGISTIC, TRANSPOSE), and two the JAX module
+lacks, which a shifted-window transformer needs: SLICE (constant begin and
+size over the graph's axes, a size of -1 to the end: the halves of each
+cyclic shift, joined by a CONCATENATION; the first axis is the batch,
+kept whole by begin 0 with size 1 or -1, and any other cut of it raises
+``NotImplementedError``) and GELU (exact, by erf, unless
+its ``approximate`` option asks for the tanh form).  Any other op raises
 ``NotImplementedError``, as does a SAME-padded AVERAGE_POOL_2D that is
 no whole-window reshape (the JAX module asserts there).
 ``graph_flops``, ``load_model_fn`` and ``Graph(collapse_separable=...)``
@@ -50,10 +56,15 @@ activation in its epilogue.
 
 A transformer's mechanisms are recognised as ranges of ops
 (``_mechanism_spans``): each attention core (the head split of q, k and
-v, BATCH_MATMUL, the scale, SOFTMAX, BATCH_MATMUL, the head merge) and
-each LayerNorm as the converter decomposes it.  ``forward`` runs their
-ops as before, inside a ``utils.profiling`` span (``net.attention``,
-``net.layer_norm``), the null context unless tracing is on.
+v, BATCH_MATMUL, the scale, a constant bias and a windows' mask where
+they follow, SOFTMAX, BATCH_MATMUL, the head merge), each LayerNorm as
+the converter decomposes it, and each window partition or reverse (the
+6-D window factorisation, its TRANSPOSE and RESHAPE, with the cyclic
+shifts and token-grid RESHAPEs around them).  ``forward`` runs their ops
+as before, inside a ``utils.profiling`` span (``net.attention``,
+``net.layer_norm``, ``net.window``), the null context unless tracing is
+on.  A RESHAPE target's leading 1 is the batch and a leading -1 stays
+-1: the windows of every image of the batch.
 
 ``compute_dtype=torch.bfloat16`` runs the net in bf16 as
 ``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
@@ -89,7 +100,8 @@ _SUPPORTED = (("CONV_2D", "DEPTHWISE_CONV_2D", "PRELU", "MAX_POOL_2D",
                "AVERAGE_POOL_2D", "PAD", "RESHAPE", "CONCATENATION",
                "RESIZE_BILINEAR", "DEPTH_TO_SPACE", "FULLY_CONNECTED",
                "BATCH_MATMUL", "MEAN", "SOFTMAX", "L2_NORMALIZATION",
-               "TRANSPOSE") + tuple(_BINARY) + tuple(_UNARY))
+               "TRANSPOSE", "SLICE", "GELU") + tuple(_BINARY)
+              + tuple(_UNARY))
 
 # NHWC axis -> NCHW axis
 _TO_NCHW_AXIS = {0: 0, 1: 2, 2: 3, 3: 1}
@@ -511,7 +523,10 @@ def _input_affine(conv, users, producers, consts, tensors, graph_outputs):
 
 
 # the spans ``TFLiteNet.forward`` opens around a recognised mechanism
-ATTENTION, LAYER_NORM = "net.attention", "net.layer_norm"
+ATTENTION, LAYER_NORM, WINDOW = "net.attention", "net.layer_norm", "net.window"
+# the TRANSPOSE of a window partition and of a window reverse: [B, H/w, w,
+# W/w, w, C] <-> [B, H/w, W/w, w, w, C]
+WINDOW_PERM = [0, 1, 3, 2, 4, 5]
 
 
 def _last_axis(node, consts, tensors):
@@ -578,13 +593,26 @@ def _layer_norm_at(mean, users, producers, consts, tensors, graph_outputs):
     return ops
 
 
-def _attention_at(softmax, users, producers, graph_outputs):
+def _const_add(node, consts):
+    """The activation operand of ``node`` where it is an ADD of it and a
+    constant with no activation, else None."""
+    if (node is None or node["op"] != "ADD" or len(node["inputs"]) != 2
+            or node["options"].get("activation", "NONE") != "NONE"
+            or sum(i in consts for i in node["inputs"]) != 1):
+        return None
+    return next(i for i in node["inputs"] if i not in consts)
+
+
+def _attention_at(softmax, users, producers, consts, graph_outputs):
     """The ops of the attention core around SOFTMAX ``softmax``: each head
     split (a RESHAPE, then a TRANSPOSE) of q, k and v, BATCH_MATMUL(q, k),
-    a MUL by a constant (the scale) where there is one, the SOFTMAX,
-    BATCH_MATMUL(p, v), and the head merge (a TRANSPOSE, then a RESHAPE);
-    or None.  Every intermediate has one user and is no graph output; the
-    qkv and output projections are outside."""
+    a MUL by a constant (the scale) where there is one, an ADD of a
+    constant (a relative position bias) where there is one, a RESHAPE, an
+    ADD of a constant and a RESHAPE (the shifted windows' mask) where they
+    are, the SOFTMAX, BATCH_MATMUL(p, v), and the head merge (a TRANSPOSE,
+    then a RESHAPE), with whether the mask is among them; or None.  Every
+    intermediate has one user and is no graph output; the qkv and output
+    projections are outside."""
     def only_user(t, op):
         return _sole_user(users, t, op, graph_outputs)
 
@@ -599,10 +627,32 @@ def _attention_at(softmax, users, producers, graph_outputs):
             return None
         return [rs, tr]
 
+    def feeds(node, nxt):
+        """Whether ``node``'s output is read by ``nxt`` alone."""
+        return (node is not None
+                and only_user(node["outputs"][0], nxt["op"]) is nxt)
+
     ops = [softmax]
     scores = producers.get(softmax["inputs"][0])
+    # the mask: RESHAPE to the windows of each image, ADD, RESHAPE back
+    masked = (scores is not None and scores["op"] == "RESHAPE"
+              and feeds(scores, softmax))
+    if masked:
+        masked = producers.get(scores["inputs"][0])
+        t = _const_add(masked, consts) if feeds(masked, scores) else None
+        split_w = producers.get(t)
+        if (split_w is None or split_w["op"] != "RESHAPE"
+                or not feeds(split_w, masked)):
+            return None
+        ops[:0] = [split_w, masked, scores]
+        scores = producers.get(split_w["inputs"][0])
+    # the bias
+    t = _const_add(scores, consts) if feeds(scores, ops[0]) else None
+    if t is not None:
+        ops.insert(0, scores)
+        scores = producers.get(t)
     if (scores is not None and scores["op"] == "MUL"
-            and only_user(scores["outputs"][0], "SOFTMAX") is softmax):
+            and feeds(scores, ops[0])):
         ops.insert(0, scores)
         scores = producers.get(next(
             (i for i in scores["inputs"] if i in producers), None))
@@ -617,36 +667,118 @@ def _attention_at(softmax, users, producers, graph_outputs):
     heads = [split(t) for t in (*scores["inputs"], context["inputs"][1])]
     if flat is None or None in heads:
         return None
-    return [n for h in heads for n in h] + [scores] + ops + [context, merge,
-                                                             flat]
+    return ([n for h in heads for n in h] + [scores] + ops
+            + [context, merge, flat], masked)
+
+
+def _roll_before(t, users, producers, consts, graph_outputs):
+    """The ops of the cyclic shift along one axis that makes ``t``: a
+    CONCATENATION of two SLICEs of one tensor, each read by it alone; or
+    None."""
+    cat = producers.get(t)
+    if (cat is None or cat["op"] != "CONCATENATION"
+            or len(cat["inputs"]) != 2):
+        return None
+    parts = [producers.get(i) for i in cat["inputs"]]
+    if (any(p is None or p["op"] != "SLICE"
+            or _sole_user(users, p["outputs"][0], "CONCATENATION",
+                          graph_outputs) is not cat for p in parts)
+            or parts[0]["inputs"][0] != parts[1]["inputs"][0]
+            or not all(i in consts for p in parts for i in p["inputs"][1:])):
+        return None
+    return parts + [cat]
+
+
+def _window_at(transpose, users, producers, consts, tensors, graph_outputs):
+    """The ops of the window partition or reverse around TRANSPOSE
+    ``transpose`` (``WINDOW_PERM`` of a 6-D RESHAPE's output, read by a
+    RESHAPE): before it the cyclic shifts (``_roll_before``) and a RESHAPE
+    that feed it, after it those it feeds, each intermediate read by the
+    next op alone and no graph output; or None."""
+    def only_user(t, op):
+        return _sole_user(users, t, op, graph_outputs)
+
+    perm = np.asarray(consts.get(transpose["inputs"][1], [])).reshape(-1)
+    grid = producers.get(transpose["inputs"][0])
+    if (perm.tolist() != WINDOW_PERM or grid is None
+            or grid["op"] != "RESHAPE"
+            or len(tensors[grid["outputs"][0]]["shape"]) != 6
+            or only_user(grid["outputs"][0], "TRANSPOSE") is not transpose):
+        return None
+    flat = only_user(transpose["outputs"][0], "RESHAPE")
+    if flat is None:
+        return None
+    ops = [grid, transpose, flat]
+
+    def read_by(t, group):
+        """Whether ``t`` is read by ops of ``group`` alone."""
+        u = users.get(t, [])
+        return (bool(u) and t not in graph_outputs
+                and {id(n) for n in u} <= {id(n) for n in group})
+
+    head = [grid]                   # the shifts and the RESHAPE before
+    while read_by(head[0]["inputs"][0], head):
+        t = head[0]["inputs"][0]
+        roll = _roll_before(t, users, producers, consts, graph_outputs)
+        if roll is None:
+            rs = producers.get(t)
+            if rs is not None and rs["op"] == "RESHAPE":
+                ops.insert(0, rs)
+            break
+        ops[:0] = roll
+        head = roll[:2]
+    while True:                     # the shifts and the RESHAPE after
+        u = users.get(ops[-1]["outputs"][0], [])
+        cat = (len(u) == 2 and all(n["op"] == "SLICE" for n in u)
+               and only_user(u[0]["outputs"][0], "CONCATENATION"))
+        roll = cat and _roll_before(cat["outputs"][0], users, producers,
+                                    consts, graph_outputs)
+        if (not roll or ops[-1]["outputs"][0] in graph_outputs
+                or {id(n) for n in roll[:2]} != {id(n) for n in u}):
+            break
+        ops += roll
+    rs = only_user(ops[-1]["outputs"][0], "RESHAPE")
+    if rs is not None:
+        ops.append(rs)
+    return ops
 
 
 def _mechanism_spans(ops, consts, tensors, graph_outputs, taken=()):
     """{first op position: (span name, last op position)} of each attention
-    core (``_attention_at``: ``ATTENTION``) and each LayerNorm
-    (``_layer_norm_at``: ``LAYER_NORM``) of ``ops`` whose ops are one
+    core (``_attention_at``: ``ATTENTION``), each LayerNorm
+    (``_layer_norm_at``: ``LAYER_NORM``) and each window partition or
+    reverse (``_window_at``: ``WINDOW``) of ``ops`` whose ops are one
     unbroken range of positions, none of them in ``taken`` (the ops that
     run elsewhere than they stand: in a residual run, an epilogue chain or
-    a convolution's operand load)."""
+    a convolution's operand load); and the set of the first op positions
+    of those attention cores that add a mask."""
     users = _consumers(ops)
     producers = {t: node for node in ops for t in node["outputs"]}
     pos = {id(node): i for i, node in enumerate(ops)}
     taken = set(taken)
-    spans = {}
+    spans, masked = {}, set()
     for node in ops:
+        mask = False
         if node["op"] == "MEAN":
             found = _layer_norm_at(node, users, producers, consts, tensors,
                                    graph_outputs)
             name = LAYER_NORM
         elif node["op"] == "SOFTMAX":
-            found = _attention_at(node, users, producers, graph_outputs)
+            found, mask = _attention_at(node, users, producers, consts,
+                                        graph_outputs) or (None, False)
             name = ATTENTION
+        elif node["op"] == "TRANSPOSE":
+            found = _window_at(node, users, producers, consts, tensors,
+                               graph_outputs)
+            name = WINDOW
         else:
             continue
         at = sorted(pos[id(n)] for n in found or ())
         if at and at[-1] - at[0] + 1 == len(at) and not taken.intersection(at):
             spans[at[0]] = (name, at[-1])
-    return spans
+            if mask:
+                masked.add(at[0])
+    return spans, masked
 
 
 def _token_fcs(ops, consts, tensors, dtype):
@@ -910,11 +1042,14 @@ class TFLiteNet(nn.Module):
     it runs), so a call, and the pool of a graph captured from it, holds
     the live activations, not every one of the call.
 
-    ``attention_cores`` and ``layer_norms`` list the (first, last) op
-    positions of each attention core and LayerNorm ``_mechanism_spans``
-    recognises (insightface's ViT-L: 24 and 49; no bundled net and no
-    IR-ResNet has one); ``forward`` opens the span ``net.attention`` or
-    ``net.layer_norm`` around each, and their ops compute as any other."""
+    ``attention_cores``, ``layer_norms`` and ``window_ops`` list the
+    (first, last) op positions of each attention core, LayerNorm and window
+    partition or reverse ``_mechanism_spans`` recognises (insightface's
+    ViT-L: 24, 49 and 0; Swin-S: 24, 53 and 48; no bundled net and no
+    IR-ResNet has one); ``masked_cores`` those of the cores that add a
+    shifted windows' mask (Swin-S: 11).  ``forward`` opens the span
+    ``net.attention``, ``net.layer_norm`` or ``net.window`` around each,
+    and their ops compute as any other."""
 
     def __init__(self, graph, params=None, fuse_blocks=True,
                  compute_dtype=torch.float32, fuse_epilogues=True):
@@ -1028,13 +1163,16 @@ class TFLiteNet(nn.Module):
         self._dead_after = _dead_after(
             graph.ops, set(graph.outputs), self._executed_at(pos))
         # op position -> (span name, last op position) of each recognised
-        # attention core and LayerNorm, for the spans forward opens
-        self._spans = _mechanism_spans(
+        # attention core, LayerNorm and window partition or reverse, for
+        # the spans forward opens
+        self._spans, masked = _mechanism_spans(
             graph.ops, graph.consts, graph.tensors, set(graph.outputs),
             self._skip | set(self._chain_end) | set(self._run_start))
-        self.attention_cores, self.layer_norms = (
+        self.attention_cores, self.layer_norms, self.window_ops = (
             [(a, b) for a, (name, b) in sorted(self._spans.items())
-             if name == kind] for kind in (ATTENTION, LAYER_NORM))
+             if name == kind] for kind in (ATTENTION, LAYER_NORM, WINDOW))
+        self.masked_cores = [(a, b) for a, b in self.attention_cores
+                             if a in masked]
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)
@@ -1253,6 +1391,9 @@ class TFLiteNet(nn.Module):
                          o.get("activation", "NONE"))
             elif op in _UNARY:
                 y = _UNARY[op](env[ins[0]])
+            elif op == "GELU":
+                y = F.gelu(env[ins[0]], approximate="tanh" if o.get(
+                    "approximate") else "none")
             elif op == "PRELU":
                 y = _prelu(env[ins[0]], getattr(self, f"t{ins[1]}"))
             elif op == "PAD":
@@ -1265,6 +1406,8 @@ class TFLiteNet(nn.Module):
             elif op == "RESHAPE":
                 tgt = list(o.get("new_shape")
                            or np.asarray(self.consts[ins[1]]).tolist())
+                # a leading 1 is the batch; a leading -1 (a window axis
+                # over the batch's images) stays
                 if tgt and tgt[0] == 1:
                     tgt[0] = batch
                 # row-major: a reshape of an NCHW conv's output (ViT's
@@ -1336,6 +1479,19 @@ class TFLiteNet(nn.Module):
                 if o.get("adj_y"):
                     b = b.transpose(-1, -2)
                 y = torch.matmul(a, b)
+                layout_nchw = False
+            elif op == "SLICE":
+                begin, size = (np.asarray(self.consts[t]).reshape(-1).tolist()
+                               for t in ins[1:3])
+                # the first axis is the batch, as RESHAPE's leading 1:
+                # begin 0 with size 1 or -1 keeps every image
+                if begin[0] != 0 or size[0] not in (1, -1):
+                    raise NotImplementedError(
+                        f"SLICE of the batch axis: begin {begin}, size "
+                        f"{size}")
+                y = nhwc(ins[0])[(slice(None),) + tuple(
+                    slice(b, None if n == -1 else b + n)
+                    for b, n in zip(begin[1:], size[1:]))]
                 layout_nchw = False
             elif op == "TRANSPOSE":
                 perm = np.asarray(self.consts[ins[1]]).reshape(-1).tolist()

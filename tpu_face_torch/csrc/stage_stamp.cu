@@ -28,7 +28,7 @@
 namespace {
 
 constexpr int64_t kRows = 4096;
-constexpr int kSlots = 256;
+constexpr int kSlots = 512;
 constexpr int64_t kHead = 2;
 
 __device__ __forceinline__ int64_t global_ns() {

@@ -53,7 +53,7 @@ _NULL = contextlib.nullcontext()
 # the stamp ring's shape (csrc/stage_stamp.cu holds the same): rows of
 # the last calls, slots a row (two a span), head words before the rows
 ROWS = 4096
-SLOTS = 256
+SLOTS = 512
 _HEAD = 2
 # brackets tried per clock pairing; the narrowest is kept
 PAIR_TRIES = 16
