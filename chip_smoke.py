@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of tpu_face_torch on one CUDA card: checks, no timings.
+"""Smoke run of tpu_face_torch on one CUDA card: checks, one phase timed.
 
     python3 chip_smoke.py
 
@@ -56,7 +56,18 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               product.  The card tests (tests/test_torch_epilogue_card.py,
               tests/test_torch_conv_tc_card.py,
               tests/test_torch_fc_tc_card.py) hold the three kernels over
-              more cases;
+              more cases.  Then == attention: the attention core at
+              ViT-L's core (128 crops of 144 tokens, 8 heads of 96) and at
+              Swin-S's four stages' (8,192 to 128 windows of 49 tokens,
+              heads of 32, a bias, the first three stages also with a
+              mask) against the plain version in f64: one launch each,
+              within 4x the plain version's f32 error, its TF32 mode
+              outside that bound; with the device ms of the kernel, the
+              plain version and F.scaled_dot_product_attention (a
+              yardstick; the port never calls it) at each shape, and a
+              call's sum for each net beside the cores' byte bound (the
+              one phase that times; tests/test_torch_attention_tc_card.py
+              holds the kernel over more cases);
 4. cascade -- the main paths, with every launch count set to 0 before
               each and read after it.  Each call is a cascade's first at
               its geometry: on the card it runs ``_forward`` eagerly
@@ -131,7 +142,8 @@ Phases, each of which fails loudly (nonzero exit, no result line):
               canvas (c) eight times over: per run 98 split-TF32
               convolutions (R100), 144 split-TF32 token FCs (ViT-L, 6 a
               block) or 137 (Swin-S: stage 1's fc1s, the merges, every FC
-              of stages 2-4) and one epilogue a chain, the cached call
+              of stages 2-4), 24 attention cores (ViT-L and Swin-S) and
+              one epilogue a chain, the cached call
               equal to the eager one and making no launch on a replay,
               the first frame against the port on the CPU (the nets on
               the card's crops within their configurations'
@@ -666,7 +678,8 @@ def launch_counts():
             "warp_strips_staged_split": warp.STAGED_LAUNCHES["split"],
             "conv_epilogue": ce.LAUNCHES,
             "conv3x3_tc": ctc.LAUNCHES,
-            "fc_tc": ftc.LAUNCHES}
+            "fc_tc": ftc.LAUNCHES,
+            "attention_tc": atc.LAUNCHES}
 
 
 def reset_counts():
@@ -676,6 +689,7 @@ def reset_counts():
     ce.LAUNCHES = 0
     ctc.LAUNCHES = 0
     ftc.LAUNCHES = 0
+    atc.LAUNCHES = 0
 
 
 def epilogues(*nets):
@@ -1008,6 +1022,125 @@ def check_fc_tc(rng, m, k, n, act):
     if act == "RELU6":
         assert bool((aten == 6).any()) and bool((aten == 0).any()), label
     return diff["kernel"]
+
+
+# the attention cores of a call of 128 crops: {net: [(label, sequences,
+# tokens, heads, head width, windows an image or 0 (no mask), bias, cores
+# a call)]}: ViT-L's 24 blocks; Swin-S's [2, 2, 18, 2] blocks by stage, of
+# each of the first three stages' the shifted half masked
+ATTENTION_SHAPES = {
+    "vit_l": [("vit_l", 128, 144, 8, 96, 0, False, 24)],
+    "swin_s": [("swin_s.1", 8192, 49, 3, 32, 0, True, 1),
+               ("swin_s.1 masked", 8192, 49, 3, 32, 64, True, 1),
+               ("swin_s.2", 2048, 49, 6, 32, 0, True, 1),
+               ("swin_s.2 masked", 2048, 49, 6, 32, 16, True, 1),
+               ("swin_s.3", 512, 49, 12, 32, 0, True, 9),
+               ("swin_s.3 masked", 512, 49, 12, 32, 4, True, 9),
+               ("swin_s.4", 128, 49, 24, 32, 0, True, 2)]}
+# the card's memory rate for the cores' byte bounds (H100 SXM, B/s)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def check_attention(rng, label, seqs, n, heads, d, windows, bias):
+    """The attention core at one of ``ATTENTION_SHAPES``: one launch, its
+    error against the plain version in f64 within CONV_TC_ERR_RATIO times
+    the plain version's in f32 on the card, the TF32 mode outside that
+    bound; then the device ms a core of the kernel (CUDA events over 20
+    launches), of the plain version and, as a yardstick the port never
+    calls, of ``F.scaled_dot_product_attention`` with the same additive
+    mask.  Returns (the kernel's max abs error, {"kernel", "plain",
+    "library"}: ms)."""
+    import torch.nn.functional as F
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda()
+
+    q, k, v = (normal(seqs, n, heads * d) for _ in range(3))
+    q *= 2                      # logits of standard deviation ~2
+    scale = torch.tensor(d ** -0.5).cuda()
+    b = normal(heads, n, n) if bias else None
+    mask = None
+    if windows:                 # -100 between tokens of other regions
+        regions = rng.integers(0, 3, (windows, n))
+        mask = torch.from_numpy(np.where(
+            regions[:, :, None] != regions[:, None, :], -100.0,
+            0.0).astype(np.float32)).cuda()
+    ops = (q, k, v, scale, b, mask)
+    with torch.inference_mode(), exact_f32():
+        want = atc.attention_tc_plain(
+            *(None if t is None else t.double() for t in ops), heads)
+        plain = atc.attention_tc_plain(*ops, heads)
+        got, launches = counted(lambda: atc.attention_tc(*ops, heads=heads))
+        assert launches == only(attention_tc=1), (label, launches)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = atc.attention_tc(*ops, heads=heads)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        diff = {name: float((y.double() - want).abs().max())
+                for name, y in (("kernel", got), ("aten_f32", plain),
+                                ("tf32", tf32))}
+        rel = {name: e / float(want.abs().max()) for name, e in diff.items()}
+        assert rel["kernel"] <= CONV_TC_ERR_RATIO * rel["aten_f32"] < (
+            rel["tf32"]), (label, rel)
+        # SDPA's inputs: the heads as a view, the bias and the mask as one
+        # additive mask of every sequence
+        heads_of = [t.reshape(seqs, n, heads, d).transpose(1, 2)
+                    for t in (q, k, v)]
+        add = torch.zeros(seqs, heads, n, n, device=q.device)
+        if b is not None:
+            add += b
+        if mask is not None:
+            add = (add.reshape(-1, windows, heads, n, n)
+                   + mask[:, None]).reshape(seqs, heads, n, n)
+        runs = {
+            "kernel": lambda: atc.attention_tc(*ops, heads=heads),
+            "plain": lambda: atc.attention_tc_plain(*ops, heads),
+            "library": lambda: F.scaled_dot_product_attention(
+                *heads_of, attn_mask=add, scale=d ** -0.5)}
+        ms = {}
+        for name, fn in runs.items():
+            fn()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(20):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(end) / 20
+    print(f"attention_tc {label} [{seqs}, {n}, {heads}x{d}]: error / max "
+          f"|o| {rel}; ms a core {ms}", flush=True)
+    return diff["kernel"], ms
+
+
+def phase_attention(rng):
+    """The attention core kernel at ViT-L's core and Swin-S's four stages'
+    (``ATTENTION_SHAPES``, 128 crops), each checked and timed by
+    ``check_attention``; then each net's device ms a call of 128 crops of
+    the kernel, the plain version and the library's call beside the
+    cores' byte bound (q, k and v read once and o written once, the bias
+    and the mask once, at ``HBM_BYTES_PER_S``).  Returns the kernel's
+    largest error."""
+    phase("attention")
+    worst = 0.0
+    for net, shapes in ATTENTION_SHAPES.items():
+        total = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+        moved = 0
+        for label, seqs, n, heads, d, windows, bias, cores in shapes:
+            err, ms = check_attention(rng, label, seqs, n, heads, d,
+                                      windows, bias)
+            worst = max(worst, err)
+            for name in total:
+                total[name] += cores * ms[name]
+            moved += cores * 4 * (4 * seqs * n * heads * d
+                                  + bias * heads * n * n
+                                  + windows * n * n)
+        print(f"attention_tc {net}: ms a call of 128 crops {total}; "
+              f"bound {1e3 * moved / HBM_BYTES_PER_S:.3f} ms "
+              f"({moved / 1e9:.3f} GB)", flush=True)
+    return worst
 
 
 # the seed of the R100 graph the identification path runs on
@@ -1838,8 +1971,8 @@ def phase_embed_net(model, seed, tol, routed):
     frames = np.tile(canvas, (8, 1, 1, 1))
     cas = EmbedCascade(sparse, embed_model_path=str(made), max_faces=4)
     net = cas._embed_net
-    assert {"conv3x3_tc": len(net.tc_convs),
-            "fc_tc": len(net.tc_fcs)} == routed, (model, routed)
+    assert {"conv3x3_tc": len(net.tc_convs), "fc_tc": len(net.tc_fcs),
+            "attention_tc": len(net.tc_cores)} == routed, (model, routed)
     with eager_calls():
         eager, per_run = counted(lambda: cas.infer_batch(frames))
     assert per_run == only(
@@ -1860,7 +1993,8 @@ def phase_embed_net(model, seed, tol, routed):
     print(f"launches of the {model} identification path: {launches} for "
           f"one cached infer_batch of 8 frames ({runs} runs of _forward: "
           f"the warm-ups and the capture; {per_run['conv3x3_tc']} "
-          f"conv3x3_tc, {per_run['fc_tc']} fc_tc and "
+          f"conv3x3_tc, {per_run['fc_tc']} fc_tc, "
+          f"{per_run['attention_tc']} attention_tc (the attention cores) and "
           f"{per_run['conv_epilogue']} epilogue launches a run)",
           flush=True)
 
@@ -3299,7 +3433,7 @@ BATCH = {"warp_540p": 32, "540p": 64, "1080p": 64, "4k": 8, "k4": 32,
 # the kernel libraries, built from tpu_face_torch/csrc/<name>.cu
 KERNELS = ("warp_bilinear", "warp_bilinear_strips", "fused_dw_pw_block",
            "fused_dw_pw_block_bf16", "warp_strips_staged", "graph_cond",
-           "conv_epilogue", "conv3x3_tc", "fc_tc")
+           "conv_epilogue", "conv3x3_tc", "fc_tc", "attention_tc")
 # the kernels line's entries: (source, the Pallas kernel it replaces)
 SOURCES = {
     "warp_bilinear": ("tpu_face_torch/csrc/warp_bilinear.cu",
@@ -3326,6 +3460,10 @@ SOURCES = {
     # (jnp.dot) onto the TPU's matrix unit
     "fc_tc": ("tpu_face_torch/csrc/fc_tc.cu",
               "tpu_face/compiler/lowering.py:396"),
+    # no Pallas kernel: XLA fuses the JAX package's attention ops
+    # (BATCH_MATMUL, the scale, bias and mask, SOFTMAX) on the TPU
+    "attention_tc": ("tpu_face_torch/csrc/attention_tc.cu",
+                     "tpu_face/compiler/lowering.py:401"),
 }
 
 
@@ -3336,7 +3474,7 @@ def import_port():
     global load_image, tmodels, Graph, build_torch_fn, DATA_DIR
     global resolve_device, tracking, EmbedCascade, native_loader
     global geometry, l2_normalize, aot, data_parallel_mesh, infer_sharded
-    global track_sharded, bench, programs, Rect, CACHED_CALL, ctc, ftc
+    global track_sharded, bench, programs, Rect, CACHED_CALL, ctc, ftc, atc
     sys.path.insert(0, str(ROOT))
     from tpu_face_torch import models as tmodels
     from tpu_face_torch import (aot, bench, programs, resolve_device,
@@ -3347,6 +3485,7 @@ def import_port():
     from tpu_face_torch.ops import _build, fused_block, geometry
     from tpu_face_torch.ops import conv_epilogue as ce
     from tpu_face_torch.ops import conv_tc as ctc
+    from tpu_face_torch.ops import attention_tc as atc
     from tpu_face_torch.ops import fc_tc as ftc
     from tpu_face_torch.ops import image as image_ops
     from tpu_face_torch.ops import warp
@@ -3395,6 +3534,7 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     phase_build()
     errs = phase_kernels(rng)
+    errs["attention_tc"] = phase_attention(rng)
     # the paths, each with the counts set to 0 before it and read after.
     # The cascades' main paths are the cached calls (their first call at
     # each geometry counted: the warm-ups and the capture); the phases
@@ -3409,11 +3549,14 @@ def main(argv=None):
     paths["full_detectors"] = phase_full_detectors()
     paths["mxu"] = phase_mxu()
     paths["embed_r100"] = phase_embed_net(
-        "iresnet", R100_SEED, R100_EMBED_TOL, {"conv3x3_tc": 98, "fc_tc": 0})
+        "iresnet", R100_SEED, R100_EMBED_TOL,
+        {"conv3x3_tc": 98, "fc_tc": 0, "attention_tc": 0})
     paths["embed_vit"] = phase_embed_net(
-        "vit", VIT_SEED, VIT_EMBED_TOL, {"conv3x3_tc": 0, "fc_tc": 144})
+        "vit", VIT_SEED, VIT_EMBED_TOL,
+        {"conv3x3_tc": 0, "fc_tc": 144, "attention_tc": 24})
     paths["embed_swin"] = phase_embed_net(
-        "swin", SWIN_SEED, SWIN_EMBED_TOL, {"conv3x3_tc": 0, "fc_tc": 137})
+        "swin", SWIN_SEED, SWIN_EMBED_TOL,
+        {"conv3x3_tc": 0, "fc_tc": 137, "attention_tc": 24})
     with eager_calls():
         paths["tracker"] = phase_tracker()
         paths["embed"] = phase_embed()
@@ -3473,6 +3616,7 @@ def main(argv=None):
             assert counts["conv3x3_tc"] == 0, (key, counts)
         if key not in ("embed_vit", "embed_swin"):
             assert counts["fc_tc"] == 0, (key, counts)
+            assert counts["attention_tc"] == 0, (key, counts)
     numbers = {"path_launches": paths, "models_launches": models,
                "device": smi, "seconds": time.perf_counter() - t_start}
 

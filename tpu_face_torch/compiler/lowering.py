@@ -63,8 +63,15 @@ the converter decomposes it, and each window partition or reverse (the
 shifts and token-grid RESHAPEs around them).  ``forward`` runs their ops
 as before, inside a ``utils.profiling`` span (``net.attention``,
 ``net.layer_norm``, ``net.window``), the null context unless tracing is
-on.  A RESHAPE target's leading 1 is the batch and a leading -1 stays
--1: the windows of every image of the batch.
+on; but in an f32 net each attention core that ``ops.attention_tc``
+takes (``_attention_operands``: the head splits and merge over heads of
+a multiple of 8 up to 96, sequences up to 144 tokens, a scalar scale, a
+bias per head and a mask per window of an image, SOFTMAX with beta 1:
+insightface's ViT-L's 24 and Swin-S's 24) runs inside its span as one
+call of ``ops.attention_tc.attention_tc``, a hand-written kernel on the
+card from the q, k and v FCs' outputs to the head merge's.  A RESHAPE
+target's leading 1 is the batch and a leading -1 stays -1: the windows
+of every image of the batch.
 
 ``compute_dtype=torch.bfloat16`` runs the net in bf16 as
 ``tpu_face.compiler.build_jax_fn(..., compute_dtype=jnp.bfloat16)`` does:
@@ -80,7 +87,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import conv_epilogue, conv_tc, fc_tc, fused_block
+from ..ops import attention_tc, conv_epilogue, conv_tc, fc_tc, fused_block
 from ..utils import profiling
 
 # elementwise ops of two operands: {op: fn}
@@ -671,6 +678,94 @@ def _attention_at(softmax, users, producers, consts, graph_outputs):
             + [context, merge, flat], masked)
 
 
+def _attention_operands(ops, consts, tensors, dtype):
+    """The record of ``ops.attention_tc`` for the attention core whose ops
+    are ``ops`` (the op range of a core ``_attention_at`` found) in a net
+    computing in ``dtype``: {"q", "k", "v" (the tensors the head splits
+    read), "output" (the head merge's), "heads", "scale", "bias", "mask"
+    (the constants' ids, or None)}; or None where the kernel does not take
+    the core (``attention_tc.routes``) or the core has another form than
+    the kernel computes: the head splits and the merge over [., N, heads,
+    d] with perm (0, 2, 1, 3), the first product q . k^T (``adj_y``), a
+    one-element scale, a bias [heads, N, N], a mask [1, nW, 1, N, N] over
+    each image's nW windows, SOFTMAX with beta 1, every target's leading
+    axis the batch (1) or the windows (-1)."""
+    producers = {t: node for node in ops for t in node["outputs"]}
+    users = _consumers(ops)
+
+    def const(i):
+        return (np.asarray(consts[i]).reshape(-1).tolist() if i in consts
+                else None)
+
+    def target(rs, dims):
+        """Whether RESHAPE ``rs``'s target is [1 or -1, *dims]."""
+        tgt = list(rs["options"].get("new_shape") or const(rs["inputs"][1])
+                   or [])
+        return tgt[:1] in ([1], [-1]) and tgt[1:] == list(dims)
+
+    softmax = next(n for n in ops if n["op"] == "SOFTMAX")
+    context = users[softmax["outputs"][0]][0]
+    node = producers[softmax["inputs"][0]]
+    chain = [softmax]
+    while node["op"] != "BATCH_MATMUL":
+        chain.insert(0, node)
+        node = producers[next(i for i in node["inputs"] if i in producers)]
+    scores = node
+
+    def head(t):
+        """(the tensor head split ``t`` reads, [N, heads, d]) or None."""
+        tr = producers[t]
+        rs = producers[tr["inputs"][0]]
+        shape = tensors[rs["outputs"][0]]["shape"][1:]
+        if const(tr["inputs"][1]) != [0, 2, 1, 3] or not target(rs, shape):
+            return None
+        return rs["inputs"][0], shape
+
+    split = [head(t) for t in (*scores["inputs"], context["inputs"][1])]
+    if (None in split or any(s[1] != split[0][1] for s in split)
+            or scores["options"].get("adj_x")
+            or not scores["options"].get("adj_y")
+            or context["options"].get("adj_x")
+            or context["options"].get("adj_y")
+            or softmax["options"].get("beta", 1.0) != 1.0):
+        return None
+    n, heads, d = split[0][1]
+    merge = users[context["outputs"][0]][0]
+    flat = users[merge["outputs"][0]][0]
+    if (const(merge["inputs"][1]) != [0, 2, 1, 3]
+            or not target(flat, [n, heads * d])):
+        return None
+    rec = {"q": split[0][0], "k": split[1][0], "v": split[2][0],
+           "output": flat["outputs"][0], "heads": heads, "scale": None,
+           "bias": None, "mask": None}
+    # the ops between the products: [MUL] [ADD] [RESHAPE ADD RESHAPE]
+    # (``_attention_at``), each ADD's constant padded to 5-D
+    prev = scores
+    for k, node in enumerate(chain[:-1]):
+        c = next((i for i in node["inputs"] if i in consts), None)
+        if c is None and node["op"] != "RESHAPE":
+            return None
+        shape = [1] * 5 + list(np.shape(consts.get(c)))
+        if node["op"] == "MUL" and prev is scores and np.size(consts[c]) == 1:
+            rec["scale"] = c
+        elif node["op"] == "ADD" and prev["op"] != "RESHAPE":
+            if shape[-4:] != [1, heads, n, n]:
+                return None
+            rec["bias"] = c
+        elif node["op"] == "ADD":
+            nw = shape[-4]
+            if (shape[-5:] != [1, nw, 1, n, n]
+                    or not target(prev, [nw, heads, n, n])
+                    or not target(chain[k + 1], [heads, n, n])):
+                return None
+            rec["mask"] = c
+        elif node["op"] != "RESHAPE":
+            return None
+        prev = node
+    tables = (rec["bias"] is not None) + (rec["mask"] is not None)
+    return rec if attention_tc.routes(n, heads, d, dtype, tables) else None
+
+
 def _roll_before(t, users, producers, consts, graph_outputs):
     """The ops of the cyclic shift along one axis that makes ``t``: a
     CONCATENATION of two SLICEs of one tensor, each read by it alone; or
@@ -1049,7 +1144,15 @@ class TFLiteNet(nn.Module):
     IR-ResNet has one); ``masked_cores`` those of the cores that add a
     shifted windows' mask (Swin-S: 11).  ``forward`` opens the span
     ``net.attention``, ``net.layer_norm`` or ``net.window`` around each,
-    and their ops compute as any other."""
+    and their ops compute as any other, but those of an attention core in
+    ``tc_cores``: {first op position: {"q", "k", "v", "output" (tensor
+    ids), "heads", "scale", "bias", "mask" (constant ids or None), "last"
+    (the last op position)}} of each core that ``_attention_operands``
+    sends to ``ops.attention_tc`` (an f32 net's; ViT-L: 24, Swin-S: 24,
+    11 with a mask; R100 and every bundled net: none), which runs as one
+    call of ``attention_tc.attention_tc`` where its first op stands: the
+    kernel on the card, the same ATen ops in the graph's order on the
+    CPU."""
 
     def __init__(self, graph, params=None, fuse_blocks=True,
                  compute_dtype=torch.float32, fuse_epilogues=True):
@@ -1157,11 +1260,6 @@ class TFLiteNet(nn.Module):
         # where its first or its last op stands), or absorbed by a conv
         self._skip = self._in_run | self._in_chain | {
             j for rec in self.tc_convs.values() for j in rec["affine"] or ()}
-        # op position -> the activations that no op after it reads, which
-        # forward drops once it is done: a call holds what is live, not
-        # every activation (a captured graph's pool likewise)
-        self._dead_after = _dead_after(
-            graph.ops, set(graph.outputs), self._executed_at(pos))
         # op position -> (span name, last op position) of each recognised
         # attention core, LayerNorm and window partition or reverse, for
         # the spans forward opens
@@ -1173,6 +1271,20 @@ class TFLiteNet(nn.Module):
              if name == kind] for kind in (ATTENTION, LAYER_NORM, WINDOW))
         self.masked_cores = [(a, b) for a, b in self.attention_cores
                              if a in masked]
+        # first op position -> record of each attention core on
+        # attention_tc, which runs where its first op stands
+        self.tc_cores = {}
+        for a, b in self.attention_cores:
+            rec = _attention_operands(graph.ops[a:b + 1], graph.consts,
+                                      graph.tensors, compute_dtype)
+            if rec is not None:
+                self.tc_cores[a] = dict(rec, last=b)
+                self._skip |= set(range(a + 1, b + 1))
+        # op position -> the activations that no op after it reads, which
+        # forward drops once it is done: a call holds what is live, not
+        # every activation (a captured graph's pool likewise)
+        self._dead_after = _dead_after(
+            graph.ops, set(graph.outputs), self._executed_at(pos))
         self._run_weights = []   # names of each run's kernel-ready buffers
         for k, run in enumerate(self.runs):
             stacked = _stack_run(run, params)
@@ -1189,7 +1301,8 @@ class TFLiteNet(nn.Module):
         """{op position: the position where forward computes it} of the
         ops that do not run where they stand: a residual run's at its
         first op, an epilogue chain's at its last, an affine absorbed by a
-        routed conv where that conv runs."""
+        routed conv where that conv runs, a routed attention core's at its
+        first op."""
         at = {}
         for run in self.runs:
             start = pos[id(run[0]["ops"][0])]
@@ -1198,6 +1311,8 @@ class TFLiteNet(nn.Module):
             at.update({pos[id(n)]: end for n in self.chains[k]["ops"]})
         for i, rec in self.tc_convs.items():
             at.update({j: at.get(i, i) for j in rec["affine"] or ()})
+        for a, rec in self.tc_cores.items():
+            at.update({j: a for j in range(a, rec["last"] + 1)})
         return at
 
     def fused_launches(self, itemsize=None) -> int:
@@ -1316,6 +1431,16 @@ class TFLiteNet(nn.Module):
             y = F.avg_pool2d(x, (fh, fw), (sh, sw))
         return _act(y, o["activation"])
 
+    def _core_const(self, rec, name):
+        """Constant ``name`` of routed attention core ``rec`` in the form
+        ``attention_tc`` takes: the scale as it is, the bias [heads, N,
+        N], the mask [nW, N, N]."""
+        c = getattr(self, f"c{rec[name]}")
+        if name == "scale":
+            return c
+        n = c.shape[-1]
+        return c.reshape(-1 if name == "mask" else rec["heads"], n, n)
+
     def _ops_in_spans(self):
         """(position, op) of each op in order, those of a recognised
         mechanism inside its span (``profiling.stage``, the null context
@@ -1370,6 +1495,13 @@ class TFLiteNet(nn.Module):
                 k = self._chain_end[i]
                 env[self.chains[k]["output"]] = held(self._chain(k, env))
                 nchw.add(self.chains[k]["output"])
+                continue
+            if i in self.tc_cores:
+                rec = self.tc_cores[i]
+                env[rec["output"]] = attention_tc.attention_tc(
+                    *(env[rec[t]] for t in "qkv"),
+                    *(None if rec[c] is None else self._core_const(rec, c)
+                      for c in ("scale", "bias", "mask")), rec["heads"])
                 continue
             if i in self._run_start:
                 run = self.runs[self._run_start[i]]

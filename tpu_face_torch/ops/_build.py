@@ -82,9 +82,16 @@ _CONV_TC_SIG = ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 #  null: none)
 _FC_TC_SIG = ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I)
 
+# (q, k, v, scale, bias, mask, o, seqs, n, heads, d, nw, tf32, stream) ->
+#  cudaError_t, the attention core's entry point (scale, bias and mask
+#  null: none)
+_ATTENTION_TC_SIG = ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P), _I)
+
 # C signature of each library's entry points: {function: (argtypes,
 # restype)}
 SIGNATURES = {
+    "attention_tc": {"attention_tc_f32": _ATTENTION_TC_SIG},
     "conv_epilogue": {"conv_epilogue_f32": _EPILOGUE_SIG},
     "conv3x3_tc": {"conv3x3_tc_f32": _CONV_TC_SIG},
     "fc_tc": {"fc_tc_f32": _FC_TC_SIG},
